@@ -15,9 +15,16 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    beside the plain version, the bound, and the library: for F
    `scaled_dot_product_attention`, for KV and Q together the flash
    backward behind it (timed here only; the port never calls either).
-4. reference: a small float32 TransformerLM on the card against the same
+4. kernels-long: F, KV and Q against their plain versions in the
+   reference's streamed regime (B*H 16, L 16384, D 128, bf16, causal;
+   L*D = 2.1M elements), timed as in phase 3 except that each plain
+   version is timed once, by the call that checks it; F with float32
+   output (ring attention's partials) at the same shape, non-causal; and
+   the head dims without an instance of their own or new in this slice,
+   D 32, 96 and 256 (bf16 and, at 256, float32), at L 512.
+5. reference: a small float32 TransformerLM on the card against the same
    weights on the CPU (the plain versions): logits, loss and grads.
-5. slice: the trainer (`examples/lm.py`) at the ~1B configuration's full
+6. slice: the trainer (`examples/lm.py`) at the ~1B configuration's full
    width (vocab 32000, d 2048, 16 layers, 16 heads, d_ff 5504, seq 1024,
    batch 4, bf16, AdamW): the first step's loss and logits against the
    dense path on the same weights, two warm-up steps, then 3 timed steps
@@ -25,8 +32,19 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    time, tokens/s, MFU as bench.py counts it, peak memory); then one
    step under torch.profiler: device time by kernel group and the
    device's busy share of the step.
-6. report: one JSON line of kernels, the card's name and power limit,
-   then the `ok` line.
+7. ring: `make_cp_attention(4, "ring", causal=True)` (driver mode) over
+   4 shards of 16384 tokens (B 1, H 16, D 128, bf16), forward and
+   backward, which must launch exactly 4 each of F (float32 output), KV
+   and Q; output and dQ/dK/dV against `flash_with_lse` over the whole
+   65536-token sequence on the same kernels. Then a small float32 ring
+   against dense attention.
+8. long: the trainer at seq 16384, batch 1, at the same full width: the
+   first-step check on a 2-layer model (flash against dense on the same
+   weights), one warm-up step, 2 timed steps after which F, KV and Q
+   must each show n_layers * 2 launches, and one profiled step.
+9. report: one JSON line of kernels (each Hopper kernel once per Pallas
+   lowering it replaces, with its launches per phase), the card's name
+   and power limit, then the `ok` line.
 """
 
 import dataclasses
@@ -41,7 +59,8 @@ import torch
 
 from pytorch_distributed_example_tpu_torch.examples import lm
 from pytorch_distributed_example_tpu_torch.models import TransformerConfig, TransformerLM
-from pytorch_distributed_example_tpu_torch.ops import _build
+from pytorch_distributed_example_tpu_torch.ops import _build, dense_attention
+from pytorch_distributed_example_tpu_torch.parallel import context_parallel as cp
 
 # the module (its package exports the `flash_attention` function by that name)
 fa = importlib.import_module("pytorch_distributed_example_tpu_torch.ops.flash_attention")
@@ -55,12 +74,26 @@ WARMUP_STEPS = 2
 TIMED_STEPS = 3
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+LONG_ARGV = ["--vocab-size", "32000", "--d-model", "2048", "--n-layers", "16",
+             "--n-heads", "16", "--seq", "16384", "--batch-size", "1", "--bf16",
+             "--lr", "1e-3"]
+LONG_CHECK_LAYERS = 2  # the dense path's f32 scores take 17.2 GB a layer at L 16384
+LONG_WARMUP_STEPS = 1
+LONG_TIMED_STEPS = 2
+RING_WORLD, RING_SHARD = 4, 16384
 SOURCE = "pytorch_distributed_example_tpu_torch/csrc/flash_attention.cu"
+PALLAS = "pytorch_distributed_example_tpu/ops/flash_attention.py"
+# Each Hopper kernel streams its counterpart tiles through shared memory at
+# every L, so it replaces both of the reference's lowerings: the resident
+# one (whole K/V in VMEM) and the streamed one (L*D past 1.5M elements)
 REPLACES = {
-    "flash_fwd": "pytorch_distributed_example_tpu/ops/flash_attention.py:79",
-    "flash_dkdv": "pytorch_distributed_example_tpu/ops/flash_attention.py:306",
-    "flash_dq": "pytorch_distributed_example_tpu/ops/flash_attention.py:347",
+    "flash_fwd": {"resident": f"{PALLAS}:79", "streamed": f"{PALLAS}:207"},
+    "flash_dkdv": {"resident": f"{PALLAS}:306", "streamed": f"{PALLAS}:379"},
+    "flash_dq": {"resident": f"{PALLAS}:347", "streamed": f"{PALLAS}:432"},
 }
+# the phases that drive the port's main paths, by the regime they put the
+# kernels in
+PHASES = {"resident": ("slice",), "streamed": ("ring", "long")}
 
 
 class SmokeFailure(RuntimeError):
@@ -115,7 +148,7 @@ def bound(kernel, BH, L, D, dtype, causal):
 def compare(got, want, rtol, atol_frac):
     """(max |got - want|, that over max |want|, whether every entry is
     within atol + rtol * |want|, with atol = atol_frac * max |want|)."""
-    got, want = got.float(), want.float()
+    got, want = got.detach().float(), want.detach().float()
     err = (got - want).abs()
     top = float(want.abs().max())
     ok = bool((err <= atol_frac * top + rtol * want.abs()).all())
@@ -125,42 +158,71 @@ def compare(got, want, rtol, atol_frac):
 # bf16 outputs: the kernel and the plain version each round an f32 result
 # once (2**-8 relative each), after summing in another order
 BF16_TOL = dict(rtol=2 ** -7, atol_frac=1e-3)
+# float32 outputs: the same f32 arithmetic in another order
+F32_TOL = dict(rtol=1e-4, atol_frac=1e-5)
 LSE_TOL = dict(rtol=1e-5, atol_frac=1e-6)
 
 
-def kernel_checks(BH, L, D, causal, timed):
-    """Each kernel against its plain version on the same inputs."""
+def tol_for(dtype):
+    return BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+
+
+def tol_text(tol):
+    rtol = "2^-7" if tol["rtol"] == 2 ** -7 else f"{tol['rtol']:g}"
+    return f"rtol {rtol}, atol {tol['atol_frac']:g}*max|plain|"
+
+
+def timed_once(fn):
+    """(fn(), its device time in ms): one call between two CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def kernel_checks(BH, L, D, causal, timed, dtype=torch.bfloat16, B=4, iters=20,
+                  plain_once=False):
+    """Each kernel against its plain version on the same inputs. With
+    `timed`, also each kernel's time (mean of `iters` launches), the plain
+    version's (the checking call itself when `plain_once`, else a mean of
+    5), the bound, and the library's call on (B, BH/B, L, D)."""
     gen = torch.Generator(device="cuda").manual_seed(L + D + causal)
     q, k, v, do = (torch.randn((BH, L, D), device="cuda", generator=gen,
-                               dtype=torch.bfloat16) for _ in range(4))
+                               dtype=dtype) for _ in range(4))
     scale = 1.0 / math.sqrt(D)
     bq, bk = fa.resolved_block_sizes(L)
+    tol = tol_for(dtype)
+    plain_ms = {}
     o, lse = fa._fwd_cuda(q, k, v, scale, causal)
-    torch.cuda.synchronize()
-    po, plse = fa._fwd_plain(q, k, v, scale, causal, bq, bk)
+    (po, plse), plain_ms["flash_fwd"] = timed_once(
+        lambda: fa._fwd_plain(q, k, v, scale, causal, bq, bk))
     delta = (do.float() * po.float()).sum(-1, keepdim=True)
     dk, dv = fa._dkdv_cuda(q, k, v, do, plse, delta, scale, causal)
-    torch.cuda.synchronize()
-    pdk, pdv = fa._dkdv_plain(q, k, v, do, plse, delta, scale, causal, bq, bk)
+    (pdk, pdv), plain_ms["flash_dkdv"] = timed_once(
+        lambda: fa._dkdv_plain(q, k, v, do, plse, delta, scale, causal, bq, bk))
     dq = fa._dq_cuda(q, k, v, do, plse, delta, scale, causal)
-    torch.cuda.synchronize()
-    pdq = fa._dq_plain(q, k, v, do, plse, delta, scale, causal, bq, bk)
+    pdq, plain_ms["flash_dq"] = timed_once(
+        lambda: fa._dq_plain(q, k, v, do, plse, delta, scale, causal, bq, bk))
     results = {}
     for name, pairs in (
-        ("flash_fwd", [(o, po, BF16_TOL), (lse, plse, LSE_TOL)]),
-        ("flash_dkdv", [(dk, pdk, BF16_TOL), (dv, pdv, BF16_TOL)]),
-        ("flash_dq", [(dq, pdq, BF16_TOL)]),
+        ("flash_fwd", [(o, po, tol), (lse, plse, LSE_TOL)]),
+        ("flash_dkdv", [(dk, pdk, tol), (dv, pdv, tol)]),
+        ("flash_dq", [(dq, pdq, tol)]),
     ):
-        errs = [compare(g, w, **tol) for g, w, tol in pairs]
+        errs = [compare(g, w, **t) for g, w, t in pairs]
         err = max(e for e, _, _ in errs)
         rel = max(r for _, r, _ in errs)
         ok = all(good for _, _, good in errs)
-        print(f"  {name} BH={BH} L={L} D={D} causal={causal}: max_abs_err={err:.3e} "
-              f"max_abs_err/max|plain|={rel:.3e} within tolerance (rtol "
-              f"{BF16_TOL['rtol']:.3g}, atol {BF16_TOL['atol_frac']:g}*max|plain|): {ok}")
+        print(f"  {name} BH={BH} L={L} D={D} {str(dtype)[6:]} causal={causal}: "
+              f"max_abs_err={err:.3e} max_abs_err/max|plain|={rel:.3e} within tolerance "
+              f"({tol_text(tol)}): {ok}")
         check(ok, f"{name} disagrees with its plain version at BH={BH} L={L} D={D} "
-                  f"causal={causal}")
-        results[name] = {"max_abs_err": err, "tolerance": "rtol 2^-7, atol 1e-3*max|plain|"}
+                  f"{dtype} causal={causal}")
+        results[name] = {"max_abs_err": err, "tolerance": tol_text(tol)}
     if not timed:
         return results
     kern = {
@@ -173,7 +235,7 @@ def kernel_checks(BH, L, D, causal, timed):
         "flash_dkdv": lambda: fa._dkdv_plain(q, k, v, do, plse, delta, scale, causal, bq, bk),
         "flash_dq": lambda: fa._dq_plain(q, k, v, do, plse, delta, scale, causal, bq, bk),
     }
-    B, H = 4, BH // 4
+    H = BH // B
     q4, k4, v4, do4 = (x.view(B, H, L, D) for x in (q, k, v, do))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # The library has no dK/dV-only or dQ-only call: its flash backward
@@ -189,9 +251,10 @@ def kernel_checks(BH, L, D, causal, timed):
             seed, offset, scale=scale)
 
     lib_grads = [g.reshape(BH, L, D) for g in sdpa_backward()]
-    lib_rel = max(compare(g, w, **BF16_TOL)[1] for g, w in zip(lib_grads, (pdq, pdk, pdv)))
+    lib_rel = max(compare(g, w, **tol)[1] for g, w in zip(lib_grads, (pdq, pdk, pdv)))
     print(f"  sdpa flash backward vs the plain versions: max_abs_err/max|plain| = "
           f"{lib_rel:.3e} (timed only)")
+    del lib_grads
     library = {
         "flash_fwd": ("scaled_dot_product_attention",
                       lambda: sdpa(q4, k4, v4, is_causal=causal)),
@@ -203,20 +266,44 @@ def kernel_checks(BH, L, D, causal, timed):
     lib_ms = {}
     for name in kern:
         r = results[name]
-        r["ms"] = time_ms(kern[name], iters=20)
-        r["plain_ms"] = time_ms(plain[name], iters=5, warmup=1)
+        r["shape"] = f"BH {BH}, L {L}, D {D}, {str(dtype)[6:]}, causal {causal}"
+        r["ms"] = time_ms(kern[name], iters=iters, warmup=2 if iters > 5 else 1)
+        r["plain_ms"] = (plain_ms[name] if plain_once
+                         else time_ms(plain[name], iters=5, warmup=1))
         r["bound_ms"], r["bound_by"], flops = bound(name, BH, L, D, q.dtype, causal)
         r["library_call"], lib_fn = library[name]
         if lib_fn not in lib_ms:
-            lib_ms[lib_fn] = time_ms(lib_fn, iters=20)
+            lib_ms[lib_fn] = time_ms(lib_fn, iters=iters, warmup=2 if iters > 5 else 1)
         r["library_ms"] = lib_ms[lib_fn]
-        print(f"  {name}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, "
+        print(f"  {name}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain"
+              f"{' (one call)' if plain_once else ''}, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
               f"({r['ms'] / r['bound_ms']:.1f}x the bound, {flops / r['ms'] / 1e9:.1f} TFLOP/s), "
               f"library {r['library_ms']:.4f} ms ({r['library_call']})")
     print(f"  backward pair: KV + Q {results['flash_dkdv']['ms'] + results['flash_dq']['ms']:.4f} "
           f"ms against the library's one call {lib_ms[sdpa_backward]:.4f} ms")
     return results
+
+
+def fwd_f32_out_check(BH, L, D, causal):
+    """F with float32 output from bf16 operands (the ring's per-step
+    partials) against its plain version: both keep the f32 accumulator, so
+    the float32 tolerance holds."""
+    gen = torch.Generator(device="cuda").manual_seed(L + D + 2)
+    q, k, v = (torch.randn((BH, L, D), device="cuda", generator=gen,
+                           dtype=torch.bfloat16) for _ in range(3))
+    scale = 1.0 / math.sqrt(D)
+    bq, bk = fa.resolved_block_sizes(L)
+    o, lse = fa._fwd_cuda(q, k, v, scale, causal, out_dtype=torch.float32)
+    (po, plse), plain_ms = timed_once(
+        lambda: fa._fwd_plain(q, k, v, scale, causal, bq, bk, out_dtype=torch.float32))
+    check(o.dtype == torch.float32, f"flash_fwd returned {o.dtype} for out_dtype float32")
+    (err, rel, ok), (lerr, _, lok) = compare(o, po, **F32_TOL), compare(lse, plse, **LSE_TOL)
+    print(f"  flash_fwd bf16 -> float32 output, BH={BH} L={L} D={D} causal={causal}: "
+          f"max_abs_err={err:.3e} max_abs_err/max|plain|={rel:.3e}, lse {lerr:.3e}; within "
+          f"tolerance ({tol_text(F32_TOL)}): {ok and lok}; plain {plain_ms:.1f} ms (one call)")
+    check(ok and lok, f"flash_fwd with float32 output disagrees with its plain version "
+                      f"at BH={BH} L={L} D={D} causal={causal}")
 
 
 KERNEL_GROUPS = (  # device kernels by what they serve, first match wins
@@ -292,6 +379,207 @@ def reference_check():
           "the port on the card disagrees with the CPU reference")
 
 
+def first_step_check(model, tokens):
+    """The model's loss and logits on the flash path against the dense
+    path on the same weights, no grad."""
+    cfg = model.cfg
+    with torch.no_grad():
+        logits = model(tokens)
+        loss = float(lm.loss_fn(logits, tokens))
+        dense = TransformerLM(dataclasses.replace(cfg, use_flash=False), device="cuda")
+        dense.load_state_dict(model.state_dict())
+        torch.cuda.reset_peak_memory_stats()
+        dlogits = dense(tokens)
+        dense_peak = torch.cuda.max_memory_allocated()
+        dloss = float(lm.loss_fn(dlogits, tokens))
+        del dense
+        diff = (logits - dlogits).float()
+        rel_rms = float(diff.pow(2).mean().sqrt() / dlogits.pow(2).mean().sqrt())
+        max_diff = float(diff.abs().max())
+        del dlogits, diff
+    check(logits.shape == (*tokens.shape, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          "non-finite or misshapen logits")
+    del logits
+    print(f"  first step, flash vs dense on the same weights ({cfg.n_layers} layers): loss "
+          f"{loss:.5f} vs {dloss:.5f}, logits rms diff / rms = {rel_rms:.3e}, max |diff| = "
+          f"{max_diff:.3e}; the dense forward's peak memory {dense_peak / 2 ** 30:.2f} GiB")
+    # bf16 activations round at other places on the two paths (dense rounds p
+    # to bf16 before p@v, flash keeps it f32): ~2**-8 relative per layer
+    check(abs(loss - dloss) <= 1e-2 and rel_rms <= 3e-2,
+          "flash and dense paths disagree beyond the bf16 tolerance "
+          "(|dloss| <= 1e-2, rms ratio <= 3e-2)")
+
+
+def train_phase(argv, warmup_steps, timed_steps, card, check_layers=None):
+    """The trainer (`examples/lm.py`) built from `argv`: the first-step
+    check (on the model itself, or on a `check_layers`-layer model of the
+    same width), warm-up steps, timed steps whose kernel launches are
+    counted, then one profiled step. Returns the launches of the timed
+    steps."""
+    args = lm.parse_args(argv)
+    model, opt, next_tokens = lm.build(args)
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  config: vocab {cfg.vocab_size}, d {cfg.d_model}, layers {cfg.n_layers}, "
+          f"heads {cfg.n_heads}, d_ff {cfg.ffn_dim}, seq {args.seq}, batch {args.batch_size}, "
+          f"{cfg.dtype}; {n_params / 1e6:.1f}M params; no cuts")
+    tokens = next_tokens()
+    if check_layers is None:
+        first_step_check(model, tokens)
+    else:
+        small = TransformerLM(dataclasses.replace(cfg, n_layers=check_layers), device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(0))
+        first_step_check(small, tokens)
+        del small
+
+    for i in range(warmup_steps):
+        t0 = time.perf_counter()
+        warm = lm.train_step(model, opt, tokens if i == 0 else next_tokens())
+        torch.cuda.synchronize()
+        print(f"  warm-up step {i + 1}: loss {float(warm):.5f}, "
+              f"{time.perf_counter() - t0:.3f} s")
+    fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses = [], []
+    for _ in range(timed_steps):
+        batch = next_tokens()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(lm.train_step(model, opt, batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(fa.LAUNCHES)
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    mean_s = sum(step_s) / len(step_s)
+    tok_s = args.batch_size * args.seq / mean_s
+    # bench.py's analytic model FLOPs per step (PaLM form), over the bf16 peak
+    model_flops = ((6.0 * n_params + 12.0 * cfg.n_layers * cfg.d_model * args.seq)
+                   * args.batch_size * args.seq)
+    mfu = model_flops / mean_s / PEAK_FLOPS[torch.bfloat16]
+    print(f"  losses {losses}; step times (s) {step_s}")
+    print(f"  mean step {mean_s * 1e3:.2f} ms, {tok_s:.0f} tokens/s, MFU {mfu:.4f} "
+          f"({model_flops:.4g} model FLOPs per step over 989 TFLOP/s), "
+          f"peak memory {peak / 2 ** 30:.2f} GiB  [{card}]")
+    print(f"  launches in the timed steps: {launches}")
+    check(all(math.isfinite(x) for x in losses), "non-finite loss")
+    want = cfg.n_layers * timed_steps
+    check(all(launches[n] == want for n in REPLACES),
+          f"each kernel should have launched {want} times: {launches}")
+    print("[profile] one more step under torch.profiler")
+    profile_step(model, opt, next_tokens(), mean_s * 1e3)
+    del model, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The ring's gradients: each ring step's dQ/dK/dV partial leaves the kernels
+# rounded to bf16 (half an ulp, 2**-9 relative) before the float32 sum over
+# the W steps, and the sum rounds once more, where global flash rounds once.
+# On these inputs no partial is larger than the largest gradient entry, so
+# the two stay within (W + 2) * 2**-9 of max|grad| (plus the bf16 rtol).
+RING_GRAD_TOL = dict(rtol=2 ** -7, atol_frac=(RING_WORLD + 2) * 2 ** -9)
+
+
+def ring_phase():
+    """Ring attention over RING_WORLD shards in driver mode, forward and
+    backward, against flash over the whole sequence. Returns the ring's
+    launches."""
+    W, Ls, B, H, D = RING_WORLD, RING_SHARD, 1, 16, 128
+    L = W * Ls
+    check(cp.auto_block_kernel(B, H, Ls, Ls) == "flash",
+          "the ring's auto rule should pick the flash block kernel at these shards")
+    gen = torch.Generator(device="cuda").manual_seed(L)
+    q, k, v, do = (torch.randn((B, L, H, D), device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for _ in range(4))
+    attention = cp.make_cp_attention(W, "ring", causal=True)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = attention(*xs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fwd_launches = dict(fa.LAUNCHES)
+    o.backward(do)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  ring, {W} shards of {Ls} (global L {L}), B {B}, H {H}, D {D}, bf16, causal: "
+          f"forward {(t1 - t0) * 1e3:.1f} ms, backward {(t2 - t1) * 1e3:.1f} ms, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches forward {fwd_launches}, forward and "
+          f"backward {launches}")
+    check(fwd_launches == {"flash_fwd": W, "flash_dkdv": 0, "flash_dq": 0}
+          and launches == {n: W for n in REPLACES},
+          f"the ring should launch each kernel exactly {W} times a call: {launches}")
+
+    # flash over the whole sequence on the same kernels (not counted)
+    scale = 1.0 / math.sqrt(D)
+    bq, bk = fa.resolved_block_sizes(L)
+    rs = [fa._to_bh(x).contiguous().requires_grad_() for x in (q, k, v)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ro, _ = fa.flash_with_lse(*rs, scale, True, bq, bk)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ro.backward(fa._to_bh(do).contiguous())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"  global flash over L {L}: forward {(t1 - t0) * 1e3:.1f} ms, backward "
+          f"{(t2 - t1) * 1e3:.1f} ms")
+    check(o.shape == (B, L, H, D) and bool(torch.isfinite(o).all()),
+          "non-finite or misshapen ring output")
+    rows = [("o", o.detach(), fa._from_bh(ro.detach(), B, H), BF16_TOL)]
+    rows += [(f"d{n}", x.grad, fa._from_bh(r.grad, B, H), RING_GRAD_TOL)
+             for n, x, r in zip("qkv", xs, rs)]
+    ok_all = True
+    errors = {}
+    for name, got, want, tol in rows:
+        err, rel, ok = compare(got, want, **tol)
+        errors[name] = rel
+        ok_all &= ok
+        print(f"    {name}: max_abs_err={err:.3e} max_abs_err/max|global|={rel:.3e} within "
+              f"tolerance ({tol_text(tol).replace('plain', 'global')}): {ok}")
+    check(ok_all, "the ring disagrees with flash over the whole sequence")
+    del q, k, v, do, xs, o, rs, ro, rows
+    torch.cuda.empty_cache()
+    small_ring_check()
+    return launches
+
+
+def small_ring_check():
+    """A float32 ring on the kernels (4 shards of 512) against dense
+    attention over the whole sequence: output and grads."""
+    W, B, Ls, H, D = 4, 1, 512, 2, 64
+    L = W * Ls
+    gen = torch.Generator(device="cuda").manual_seed(L)
+    q, k, v, do = (torch.randn((B, L, H, D), device="cuda", generator=gen) for _ in range(4))
+
+    def shard(x):  # (B, L, H, D) -> (W, B, L/W, H, D)
+        return x.reshape(B, W, Ls, H, D).transpose(0, 1).contiguous()
+
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.reset_launch_counts()
+    o = cp.ring_attention(*(shard(x) for x in xs), causal=True, block_kernel="flash")
+    o = o.transpose(0, 1).reshape(B, L, H, D)
+    o.backward(do)
+    check(dict(fa.LAUNCHES) == {n: W for n in REPLACES},
+          f"the small ring did not run on the kernels: {fa.LAUNCHES}")
+    rs = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = dense_attention(*rs, causal=True)
+    want.backward(do)
+    results = [compare(g, w, **F32_TOL) for g, w in
+               [(o, want)] + [(x.grad, r.grad) for x, r in zip(xs, rs)]]
+    rel = max(r for _, r, _ in results)
+    ok = all(good for _, _, good in results)
+    print(f"  float32 ring, {W} shards of {Ls}, H {H}, D {D}, causal, against dense attention: "
+          f"max_abs_err/max|dense| over o, dq, dk, dv = {rel:.3e} within tolerance "
+          f"({tol_text(F32_TOL).replace('plain', 'dense')}): {ok}")
+    check(ok, "the float32 ring disagrees with dense attention")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -317,91 +605,54 @@ def main():
 
     # 3. kernels against their plain versions
     print("[kernels]")
+    results = {}
     BH, L, D = 4 * 16, 1024, 128
-    results = kernel_checks(BH, L, D, causal=True, timed=True)
+    results["resident"] = kernel_checks(BH, L, D, causal=True, timed=True)
     kernel_checks(BH, L, D, causal=False, timed=False)
     kernel_checks(BH, L, 64, causal=True, timed=False)
 
-    # 4. small-input reference
+    # 4. the same in the reference's streamed regime, and the new head dims
+    t0 = time.perf_counter()
+    print("[kernels-long]")
+    results["streamed"] = kernel_checks(16, 16384, 128, causal=True, timed=True, B=1,
+                                        iters=3, plain_once=True)
+    fwd_f32_out_check(16, 16384, 128, causal=False)
+    for D_, dtype in ((32, torch.bfloat16), (96, torch.bfloat16), (256, torch.bfloat16),
+                      (256, torch.float32)):
+        kernel_checks(8, 512, D_, causal=True, timed=False, dtype=dtype)
+    torch.cuda.empty_cache()
+    print(f"  kernels-long in {time.perf_counter() - t0:.1f} s")
+
+    # 5. small-input reference
     print("[reference]")
     reference_check()
 
-    # 5. the slice: the ~1B train step
+    # 6. the slice: the ~1B train step
     print("[slice]")
-    args = lm.parse_args(SLICE_ARGV)
-    model, opt, next_tokens = lm.build(args)
-    cfg = model.cfg
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"  config: vocab {cfg.vocab_size}, d {cfg.d_model}, layers {cfg.n_layers}, "
-          f"heads {cfg.n_heads}, d_ff {cfg.ffn_dim}, seq {args.seq}, batch {args.batch_size}, "
-          f"{cfg.dtype}; {n_params / 1e6:.1f}M params; no cuts")
-    tokens = next_tokens()
-    with torch.no_grad():
-        logits = model(tokens)
-        loss = float(lm.loss_fn(logits, tokens))
-        dense = TransformerLM(dataclasses.replace(cfg, use_flash=False), device="cuda")
-        dense.load_state_dict(model.state_dict())
-        dlogits = dense(tokens)
-        dloss = float(lm.loss_fn(dlogits, tokens))
-        del dense
-        diff = (logits - dlogits).float()
-        rel_rms = float(diff.pow(2).mean().sqrt() / dlogits.pow(2).mean().sqrt())
-        max_diff = float(diff.abs().max())
-        del dlogits, diff
-    check(logits.shape == (4, 1024, 32000) and bool(torch.isfinite(logits).all()),
-          "non-finite or misshapen logits")
-    del logits
-    print(f"  first step, flash vs dense on the same weights: loss {loss:.5f} vs {dloss:.5f}, "
-          f"logits rms diff / rms = {rel_rms:.3e}, max |diff| = {max_diff:.3e}")
-    # bf16 activations round at other places on the two paths (dense rounds p
-    # to bf16 before p@v, flash keeps it f32): ~2**-8 relative per layer
-    check(abs(loss - dloss) <= 1e-2 and rel_rms <= 3e-2,
-          "flash and dense paths disagree beyond the bf16 tolerance "
-          "(|dloss| <= 1e-2, rms ratio <= 3e-2)")
+    phase_launches = {"slice": train_phase(SLICE_ARGV, WARMUP_STEPS, TIMED_STEPS, card)}
 
-    for i in range(WARMUP_STEPS):
-        t0 = time.perf_counter()
-        warm = lm.train_step(model, opt, tokens if i == 0 else next_tokens())
-        torch.cuda.synchronize()
-        print(f"  warm-up step {i + 1}: loss {float(warm):.5f}, "
-              f"{time.perf_counter() - t0:.3f} s")
-    fa.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    step_s, losses = [], []
-    for _ in range(TIMED_STEPS):
-        batch = next_tokens()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses.append(lm.train_step(model, opt, batch))
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    launches = dict(fa.LAUNCHES)
-    losses = [float(x) for x in losses]
-    peak = torch.cuda.max_memory_allocated()
-    mean_s = sum(step_s) / len(step_s)
-    tok_s = args.batch_size * args.seq / mean_s
-    # bench.py's analytic model FLOPs per step (PaLM form), over the bf16 peak
-    model_flops = ((6.0 * n_params + 12.0 * cfg.n_layers * cfg.d_model * args.seq)
-                   * args.batch_size * args.seq)
-    mfu = model_flops / mean_s / PEAK_FLOPS[torch.bfloat16]
-    print(f"  losses {losses}; step times (s) {step_s}")
-    print(f"  mean step {mean_s * 1e3:.2f} ms, {tok_s:.0f} tokens/s, MFU {mfu:.4f} "
-          f"({model_flops:.4g} model FLOPs per step over 989 TFLOP/s), "
-          f"peak memory {peak / 2 ** 30:.2f} GiB  [{card}]")
-    print(f"  launches in the timed steps: {launches}")
-    check(all(math.isfinite(x) for x in losses), "non-finite loss")
-    want = cfg.n_layers * TIMED_STEPS
-    check(all(launches[n] == want for n in REPLACES),
-          f"each kernel should have launched {want} times: {launches}")
-    print("[profile] one more step under torch.profiler")
-    profile_step(model, opt, next_tokens(), mean_s * 1e3)
+    # 7. ring attention over 4 shards of 16384
+    t0 = time.perf_counter()
+    print("[ring]")
+    phase_launches["ring"] = ring_phase()
+    print(f"  ring in {time.perf_counter() - t0:.1f} s")
 
-    # 6. report
-    kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name], **results[name]}
-        for name in REPLACES
-    ]
+    # 8. the ~1B train step at seq 16384
+    t0 = time.perf_counter()
+    print("[long]")
+    phase_launches["long"] = train_phase(LONG_ARGV, LONG_WARMUP_STEPS, LONG_TIMED_STEPS, card,
+                                         check_layers=LONG_CHECK_LAYERS)
+    print(f"  long in {time.perf_counter() - t0:.1f} s")
+
+    # 9. report
+    kernels = []
+    for name, lowerings in REPLACES.items():
+        for regime, replaces in lowerings.items():
+            by_phase = {ph: phase_launches[ph][name] for ph in PHASES[regime]}
+            kernels.append({"name": name, "route": "cuda", "source": SOURCE,
+                            "replaces": replaces, "regime": regime,
+                            "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
+                            **results[regime][name]})
     print(f"[done] in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

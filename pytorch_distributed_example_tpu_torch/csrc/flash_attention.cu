@@ -10,7 +10,7 @@
 // Layout is the reference's: q, k, v, o, dO, dQ, dK, dV are contiguous
 // (B*H, L, D); lse and delta are contiguous (B*H, L) float32.
 //
-// Work split. One block of 256 threads owns one 64-row tile of its output
+// Work split. One block of 256 threads owns one TILE-row tile of its output
 // ((bh, q-tile) for the forward and dQ, (bh, k-tile) for dK/dV) and keeps the
 // tile's accumulators in registers. It walks the counterpart tiles through
 // shared memory in a loop bounded by the causal diagonal; tiles strictly above
@@ -20,11 +20,19 @@
 // regimes (whole operand resident in VMEM, or blocks riding the grid), which
 // is why six Pallas kernels become three.
 //
-// Thread map. Thread (ty, tx) = (tid / 16, tid % 16) owns rows 4*ty .. 4*ty+3
-// of the tile, score columns tx + 16*j (j < 4) and output columns tx + 16*c
-// (c < D/16). A row's 16 owners are 16 neighbouring lanes of one warp, so a
-// row reduction is four xor shuffles. Shared tiles carry one extra 32-bit word
-// per row, so 16 lanes reading 16 rows at one column hit 16 banks.
+// Thread map. Thread (ty, tx) = (tid / 16, tid % 16) owns rows R*ty .. R*ty+R-1
+// of the tile (R = TILE/16), score columns tx + 16*j (j < R) and output columns
+// tx + 16*c (c < D/16). A row's 16 owners are 16 neighbouring lanes of one
+// warp, so a row reduction is four xor shuffles. Shared tiles carry one extra
+// 32-bit word per row, so 16 lanes reading 16 rows at one column hit 16 banks.
+//
+// Head dims. Instances exist for D = 32, 64, 128 and 256; the Python wrapper
+// zero-pads any other D <= 256 up to the next one (zero columns leave QK^T and
+// the kept output columns unchanged, and it passes the true 1/sqrt(D)). TILE is
+// 64 rows up to D = 128 and 32 rows at D = 256: four f32 operand tiles of
+// 64 x 257 words (263 KB) would not fit the 227 KB of shared memory a block may
+// use, and dK/dV's register accumulators (2 * R * D/16 floats a thread) would
+// double past what 255 registers hold.
 //
 // Arithmetic is float32 FMAs on the SIMT cores from bf16 or f32 loads, in the
 // Pallas kernels' order: the forward scales q before QK^T, the backward scales
@@ -35,7 +43,8 @@
 // shapes (BH 64, L 1024, D 128, bf16, causal) the forward moves 67 MB and does
 // 1.7e10 FLOPs: about 20 us by bytes, 17 us by operations. dK/dV does four
 // products over the triangle (3.4e10 FLOPs, 35 us) and dQ three (2.6e10 FLOPs,
-// 26 us), so the backward is bound by operations. This first version runs its
+// 26 us), so the backward is bound by operations; in the streamed regime (BH 16,
+// L 16384) all three are: 1.1, 2.2 and 1.7 ms. This first version runs its
 // products on the SIMT cores (67 TFLOP/s f32, 1/15 of the tensor-core rate) and
 // is bound by them and by shared-memory bandwidth, not by device memory: each
 // operand crosses HBM once per visiting tile, and the score tile never leaves
@@ -45,14 +54,18 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kTile = 64;              // rows of the owned tile and of each streamed tile
 constexpr int kThreads = 256;          // 16 x 16
-constexpr int kRows = kTile / 16;      // tile rows per thread
-constexpr int kCols = kTile / 16;      // score columns per thread
-constexpr int kPStride = kTile + 1;    // row stride of a float score tile
 constexpr float kNegInf = -1e30f;
+
+// rows of the owned tile and of each streamed tile, by head dim
+template <int D>
+__host__ __device__ constexpr int tile_rows() {
+  return D > 128 ? 32 : 64;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -66,7 +79,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// Row stride, in elements, of a shared (kTile, D) tile of S: D plus one 32-bit word.
+// Row stride, in elements, of a shared (TILE, D) tile of S: D plus one 32-bit word.
 template <typename S, int D>
 struct Stride {
   static constexpr int value = D + static_cast<int>(4 / sizeof(S));
@@ -84,13 +97,13 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Copy rows row0 .. row0+kTile of a (L, D) slice into a shared tile, times
+// Copy rows row0 .. row0+TILE of a (L, D) slice into a shared tile, times
 // `mul`; rows at or past L read as zero.
-template <typename T, typename S, int D>
+template <typename T, typename S, int D, int TILE>
 __device__ __forceinline__ void load_tile(S* dst, const T* __restrict__ src, int row0, int L,
                                           float mul) {
   constexpr int kStride = Stride<S, D>::value;
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < TILE * D; idx += kThreads) {
     const int r = idx / D;
     const int c = idx % D;
     const int row = row0 + r;
@@ -99,10 +112,11 @@ __device__ __forceinline__ void load_tile(S* dst, const T* __restrict__ src, int
   }
 }
 
-// rows row0 .. row0+kTile of a (L,) float vector; rows at or past L read as zero
+// rows row0 .. row0+TILE of a (L,) float vector; rows at or past L read as zero
+template <int TILE>
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int row0,
                                           int L) {
-  if (threadIdx.x < kTile) {
+  if (threadIdx.x < TILE) {
     const int row = row0 + threadIdx.x;
     dst[threadIdx.x] = row < L ? src[row] : 0.f;
   }
@@ -114,15 +128,20 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
 
 template <typename T, int D>
 constexpr size_t fwd_smem_bytes() {
+  constexpr int kTile = tile_rows<D>();
   return sizeof(float) * kTile * Stride<float, D>::value     // q, f32, pre-scaled
          + 2 * sizeof(T) * kTile * Stride<T, D>::value       // k, v
-         + sizeof(float) * kTile * kPStride;                  // p
+         + sizeof(float) * kTile * (kTile + 1);               // p
 }
 
 template <typename T, typename TO, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  TO* __restrict__ o, float* __restrict__ lse, int L, float scale, int causal) {
+  constexpr int kTile = tile_rows<D>();
+  constexpr int kRows = kTile / 16;      // tile rows per thread
+  constexpr int kCols = kTile / 16;      // score columns per thread
+  constexpr int kPStride = kTile + 1;    // row stride of a float score tile
   constexpr int kQS = Stride<float, D>::value;
   constexpr int kKS = Stride<T, D>::value;
   constexpr int kDC = D / 16;
@@ -140,7 +159,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int ty = threadIdx.x >> 4;
 
   // q is scaled in f32 before QK^T, as _fwd_kernel does
-  load_tile<T, float, D>(Qs, q + base, q0, L, scale);
+  load_tile<T, float, D, kTile>(Qs, q + base, q0, L, scale);
 
   float m[kRows], l[kRows], acc[kRows][kDC];
 #pragma unroll
@@ -156,8 +175,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int kt = 0; kt < num_k; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's readers are done with Ks, Vs, Ps
-    load_tile<T, T, D>(Ks, k + base, k0, L, 1.f);
-    load_tile<T, T, D>(Vs, v + base, k0, L, 1.f);
+    load_tile<T, T, D, kTile>(Ks, k + base, k0, L, 1.f);
+    load_tile<T, T, D, kTile>(Vs, v + base, k0, L, 1.f);
     __syncthreads();
 
     float s[kRows][kCols];
@@ -240,8 +259,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int D>
 constexpr size_t dkdv_smem_bytes() {
+  constexpr int kTile = tile_rows<D>();
   return 4 * sizeof(T) * kTile * Stride<T, D>::value   // k, v, q, dO
-         + 2 * sizeof(float) * kTile * kPStride         // p^T, dlogits^T
+         + 2 * sizeof(float) * kTile * (kTile + 1)      // p^T, dlogits^T
          + 2 * sizeof(float) * kTile;                   // lse, delta
 }
 
@@ -251,6 +271,10 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
                   const T* __restrict__ dout, const float* __restrict__ lse,
                   const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int L,
                   float scale, int causal) {
+  constexpr int kTile = tile_rows<D>();
+  constexpr int kRows = kTile / 16;      // tile rows per thread
+  constexpr int kCols = kTile / 16;      // score columns per thread
+  constexpr int kPStride = kTile + 1;    // row stride of a float score tile
   constexpr int kS = Stride<T, D>::value;
   constexpr int kDC = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -271,8 +295,8 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<T, T, D>(Ks, k + base, k0, L, 1.f);
-  load_tile<T, T, D>(Vs, v + base, k0, L, 1.f);
+  load_tile<T, T, D, kTile>(Ks, k + base, k0, L, 1.f);
+  load_tile<T, T, D, kTile>(Vs, v + base, k0, L, 1.f);
 
   float dka[kRows][kDC], dva[kRows][kDC];
 #pragma unroll
@@ -289,10 +313,10 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   for (int qt = first_q; qt < num_q; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // the previous tile's readers are done with Qs, Gs, Pt, St
-    load_tile<T, T, D>(Qs, q + base, q0, L, 1.f);
-    load_tile<T, T, D>(Gs, dout + base, q0, L, 1.f);
-    load_rows(lse_s, lse_bh, q0, L);
-    load_rows(delta_s, delta_bh, q0, L);
+    load_tile<T, T, D, kTile>(Qs, q + base, q0, L, 1.f);
+    load_tile<T, T, D, kTile>(Gs, dout + base, q0, L, 1.f);
+    load_rows<kTile>(lse_s, lse_bh, q0, L);
+    load_rows<kTile>(delta_s, delta_bh, q0, L);
     __syncthreads();
 
     // transposed tiles: row = this block's k position, column = q position
@@ -385,8 +409,9 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 
 template <typename T, int D>
 constexpr size_t dq_smem_bytes() {
+  constexpr int kTile = tile_rows<D>();
   return 4 * sizeof(T) * kTile * Stride<T, D>::value   // q, dO, k, v
-         + sizeof(float) * kTile * kPStride             // dlogits
+         + sizeof(float) * kTile * (kTile + 1)          // dlogits
          + 2 * sizeof(float) * kTile;                   // lse, delta
 }
 
@@ -396,6 +421,10 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dq, int L, float scale,
                 int causal) {
+  constexpr int kTile = tile_rows<D>();
+  constexpr int kRows = kTile / 16;      // tile rows per thread
+  constexpr int kCols = kTile / 16;      // score columns per thread
+  constexpr int kPStride = kTile + 1;    // row stride of a float score tile
   constexpr int kS = Stride<T, D>::value;
   constexpr int kDC = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -413,10 +442,10 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<T, T, D>(Qs, q + base, q0, L, 1.f);
-  load_tile<T, T, D>(Gs, dout + base, q0, L, 1.f);
-  load_rows(lse_s, lse + static_cast<size_t>(bh) * L, q0, L);
-  load_rows(delta_s, delta + static_cast<size_t>(bh) * L, q0, L);
+  load_tile<T, T, D, kTile>(Qs, q + base, q0, L, 1.f);
+  load_tile<T, T, D, kTile>(Gs, dout + base, q0, L, 1.f);
+  load_rows<kTile>(lse_s, lse + static_cast<size_t>(bh) * L, q0, L);
+  load_rows<kTile>(delta_s, delta + static_cast<size_t>(bh) * L, q0, L);
 
   float dqa[kRows][kDC];
 #pragma unroll
@@ -429,8 +458,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   for (int kt = 0; kt < num_k; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's readers are done with Ks, Vs, Ss
-    load_tile<T, T, D>(Ks, k + base, k0, L, 1.f);
-    load_tile<T, T, D>(Vs, v + base, k0, L, 1.f);
+    load_tile<T, T, D, kTile>(Ks, k + base, k0, L, 1.f);
+    load_tile<T, T, D, kTile>(Vs, v + base, k0, L, 1.f);
     __syncthreads();
 
     float s[kRows][kCols], dp[kRows][kCols];
@@ -520,7 +549,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   auto kernel = flash_fwd_kernel<T, TO, D>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (L + kTile - 1) / kTile);
+  const dim3 grid(BH, (L + tile_rows<D>() - 1) / tile_rows<D>());
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<TO*>(o), static_cast<float*>(lse), L, scale, causal);
@@ -535,7 +564,7 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void*
   auto kernel = flash_dkdv_kernel<T, D>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (L + kTile - 1) / kTile);
+  const dim3 grid(BH, (L + tile_rows<D>() - 1) / tile_rows<D>());
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
@@ -552,7 +581,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   auto kernel = flash_dq_kernel<T, D>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (L + kTile - 1) / kTile);
+  const dim3 grid(BH, (L + tile_rows<D>() - 1) / tile_rows<D>());
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
@@ -560,12 +589,24 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
+// Calls f(std::integral_constant<int, D>) for a head dim that has an instance.
+template <typename F>
+cudaError_t by_head_dim(int D, F&& f) {
+  switch (D) {
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // The C interface, loaded with ctypes. Every function returns a cudaError_t:
 // cudaSuccess (0), the launch's cudaGetLastError(), or cudaErrorInvalidValue
-// for a dtype or head dim that has no instance (the Python wrapper rejects
-// those before it gets here).
+// for a dtype or head dim that has no instance (the Python wrapper pads the
+// head dim and rejects the rest before it gets here).
 extern "C" {
 
 const char* flash_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
@@ -573,45 +614,44 @@ const char* flash_error_string(int err) { return cudaGetErrorString(static_cast<
 int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int L,
               int D, float scale, int causal, int dtype, int out_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16 && out_dtype == kBF16) {
-    if (D == 64) return launch_fwd<__nv_bfloat16, __nv_bfloat16, 64>(q, k, v, o, lse, BH, L, scale, causal, st);
-    if (D == 128) return launch_fwd<__nv_bfloat16, __nv_bfloat16, 128>(q, k, v, o, lse, BH, L, scale, causal, st);
-  } else if (dtype == kBF16 && out_dtype == kF32) {
-    if (D == 64) return launch_fwd<__nv_bfloat16, float, 64>(q, k, v, o, lse, BH, L, scale, causal, st);
-    if (D == 128) return launch_fwd<__nv_bfloat16, float, 128>(q, k, v, o, lse, BH, L, scale, causal, st);
-  } else if (dtype == kF32 && out_dtype == kF32) {
-    if (D == 64) return launch_fwd<float, float, 64>(q, k, v, o, lse, BH, L, scale, causal, st);
-    if (D == 128) return launch_fwd<float, float, 128>(q, k, v, o, lse, BH, L, scale, causal, st);
-  }
-  return cudaErrorInvalidValue;
+  return by_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if (dtype == kBF16 && out_dtype == kBF16)
+      return launch_fwd<__nv_bfloat16, __nv_bfloat16, kD>(q, k, v, o, lse, BH, L, scale, causal, st);
+    if (dtype == kBF16 && out_dtype == kF32)
+      return launch_fwd<__nv_bfloat16, float, kD>(q, k, v, o, lse, BH, L, scale, causal, st);
+    if (dtype == kF32 && out_dtype == kF32)
+      return launch_fwd<float, float, kD>(q, k, v, o, lse, BH, L, scale, causal, st);
+    return cudaErrorInvalidValue;
+  });
 }
 
 int flash_dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int BH, int L, int D, float scale,
                int causal, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) {
-    if (D == 64) return launch_dkdv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale, causal, st);
-    if (D == 128) return launch_dkdv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale, causal, st);
-  } else if (dtype == kF32) {
-    if (D == 64) return launch_dkdv<float, 64>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale, causal, st);
-    if (D == 128) return launch_dkdv<float, 128>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale, causal, st);
-  }
-  return cudaErrorInvalidValue;
+  return by_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if (dtype == kBF16)
+      return launch_dkdv<__nv_bfloat16, kD>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale, causal, st);
+    if (dtype == kF32)
+      return launch_dkdv<float, kD>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale, causal, st);
+    return cudaErrorInvalidValue;
+  });
 }
 
 int flash_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
              const void* delta, void* dq, int BH, int L, int D, float scale, int causal,
              int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) {
-    if (D == 64) return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
-    if (D == 128) return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
-  } else if (dtype == kF32) {
-    if (D == 64) return launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
-    if (D == 128) return launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
-  }
-  return cudaErrorInvalidValue;
+  return by_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if (dtype == kBF16)
+      return launch_dq<__nv_bfloat16, kD>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
+    if (dtype == kF32)
+      return launch_dq<float, kD>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
+    return cudaErrorInvalidValue;
+  });
 }
 
 }  // extern "C"

@@ -5,6 +5,8 @@ Run:  python -m pytorch_distributed_example_tpu_torch.examples.lm --steps 50
       python -m pytorch_distributed_example_tpu_torch.examples.lm \\
           --vocab-size 32000 --d-model 2048 --n-layers 16 --n-heads 16 \\
           --seq 1024 --batch-size 4 --bf16 --steps 10
+      (the same width with --seq 16384 --batch-size 1 is the long-context
+      step, in the reference's streamed flash regime)
 
 A causal LM on the reference's Markov synthetic token stream (numpy seed
 0). One step is the forward, cross-entropy of logits[:, :-1] against

@@ -17,10 +17,17 @@ there is no fallback. A CPU tensor goes to the kernel's plain version in
 this module: the same blocked online-softmax arithmetic as the Pallas
 kernels, in float32, which the CPU tests hold against the reference.
 
-On the card the kernels use their own 64-row tiles for any L (they mask
-the ragged edge); `block_q`/`block_k` set the plain versions' blocking and
-the tiling check. The kernels are instantiated for head dims 64 and 128
-and for bf16 and float32 operands; anything else raises.
+On the card the kernels use their own tiles (64 rows, 32 at D = 256) for
+any L and mask the ragged edge; `block_q`/`block_k` set the plain versions'
+blocking and the tiling check. One kernel per role covers both of the
+reference's lowerings, the VMEM-resident one and the streamed one
+(`TDX_FLASH_STREAM`, L*D past 1.5M elements at bf16): it streams the
+counterpart tiles through shared memory at every L. The kernels are
+instantiated for head dims 32, 64, 128 and 256 and for bf16 and float32
+operands. Any other head dim up to 256 is zero-padded to the next instance
+and the result sliced back (zero columns leave q k^T unchanged and give
+zero output columns; the scale stays 1/sqrt of the true D); a head dim
+above 256, as in the reference's `_flash_ok` gate, raises.
 """
 
 from __future__ import annotations
@@ -34,8 +41,9 @@ from . import _build
 
 NEG_INF = -1e30
 
-# head dims the Hopper kernels are instantiated for
-HEAD_DIMS = (64, 128)
+# head dims the Hopper kernels are instantiated for; others up to the last
+# are zero-padded to the next one
+HEAD_DIMS = (32, 64, 128, 256)
 
 # launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one where it launches its kernel, and nowhere else
@@ -55,7 +63,11 @@ _SIGNATURES = {
     "flash_error_string": ([_I], ctypes.c_char_p),
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_TILE = 64  # rows per block in csrc/flash_attention.cu
+
+
+def _kernel_tile(D: int) -> int:
+    """Rows per block in csrc/flash_attention.cu (`tile_rows`) for head dim D."""
+    return 32 if D > 128 else 64
 
 
 def reset_launch_counts() -> None:
@@ -178,72 +190,96 @@ def _launch(fn: str, device, *args) -> None:
         )
 
 
+def kernel_head_dim(D: int) -> int:
+    """The instantiated head dim the kernels run D at: the smallest of
+    HEAD_DIMS that holds it. Raises above the last."""
+    for Dp in HEAD_DIMS:
+        if D <= Dp:
+            return Dp
+    raise ValueError(
+        f"head dim {D} exceeds the Hopper kernels' limit of {HEAD_DIMS[-1]}"
+    )
+
+
+def pad_head_dim(x, Dp: int):
+    """x (..., D) zero-padded to (..., Dp); x itself when D == Dp."""
+    D = x.shape[-1]
+    return x if D == Dp else torch.nn.functional.pad(x, (0, Dp - D))
+
+
+def _unpad(x, D: int):
+    return x if x.shape[-1] == D else x[..., :D].contiguous()
+
+
 def _check_kernel_operands(name, q, *others):
     BH, L, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(
-            f"{name}: head dim {D} has no Hopper kernel; supported head "
-            f"dims are {HEAD_DIMS}"
-        )
+    try:
+        Dp = kernel_head_dim(D)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(
             f"{name}: dtype {q.dtype} has no Hopper kernel; supported "
             f"dtypes are {tuple(_DTYPE_CODES)}"
         )
-    if -(-L // _KERNEL_TILE) > 65535:
+    if -(-L // _kernel_tile(Dp)) > 65535:
         raise ValueError(f"{name}: seq len {L} exceeds the kernel grid")
     for t in (q, *others):
         if t.device != q.device:
             raise ValueError(f"{name}: operands on {t.device} and {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+    return Dp
 
 
 def _fwd_cuda(q, k, v, scale, causal, out_dtype=None):
     BH, L, D = q.shape
-    _check_kernel_operands("flash_fwd", q, k, v)
+    Dp = _check_kernel_operands("flash_fwd", q, k, v)
     out_dtype = out_dtype or q.dtype
     if out_dtype not in (q.dtype, torch.float32):
         raise ValueError(f"flash_fwd: out_dtype {out_dtype} for {q.dtype} operands")
-    o = torch.empty((BH, L, D), dtype=out_dtype, device=q.device)
+    q, k, v = (pad_head_dim(t, Dp) for t in (q, k, v))
+    o = torch.empty((BH, L, Dp), dtype=out_dtype, device=q.device)
     lse = torch.empty((BH, L, 1), dtype=torch.float32, device=q.device)
     _launch(
         "flash_fwd", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        BH, L, D, float(scale), int(causal),
+        BH, L, Dp, float(scale), int(causal),
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[out_dtype],
     )
     LAUNCHES["flash_fwd"] += 1
-    return o, lse
+    return _unpad(o, D), lse
 
 
 def _dkdv_cuda(q, k, v, do, lse, delta, scale, causal):
     BH, L, D = q.shape
-    _check_kernel_operands("flash_dkdv", q, k, v, do, lse, delta)
+    Dp = _check_kernel_operands("flash_dkdv", q, k, v, do, lse, delta)
+    q, k, v, do = (pad_head_dim(t, Dp) for t in (q, k, v, do))
     dk = torch.empty_like(q)
     dv = torch.empty_like(q)
     _launch(
         "flash_dkdv", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        BH, L, D, float(scale), int(causal), _DTYPE_CODES[q.dtype],
+        BH, L, Dp, float(scale), int(causal), _DTYPE_CODES[q.dtype],
     )
     LAUNCHES["flash_dkdv"] += 1
-    return dk, dv
+    return _unpad(dk, D), _unpad(dv, D)
 
 
 def _dq_cuda(q, k, v, do, lse, delta, scale, causal):
     BH, L, D = q.shape
-    _check_kernel_operands("flash_dq", q, k, v, do, lse, delta)
+    Dp = _check_kernel_operands("flash_dq", q, k, v, do, lse, delta)
+    q, k, v, do = (pad_head_dim(t, Dp) for t in (q, k, v, do))
     dq = torch.empty_like(q)
     _launch(
         "flash_dq", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        BH, L, D, float(scale), int(causal), _DTYPE_CODES[q.dtype],
+        BH, L, Dp, float(scale), int(causal), _DTYPE_CODES[q.dtype],
     )
     LAUNCHES["flash_dq"] += 1
-    return dq
+    return _unpad(dq, D)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_distributed_example_tpu_torch.examples import lm
+from pytorch_distributed_example_tpu_torch.ops import dense_attention
+from pytorch_distributed_example_tpu_torch.parallel import context_parallel as tcp
+
 tfa = importlib.import_module("pytorch_distributed_example_tpu_torch.ops.flash_attention")
 
 
@@ -41,13 +45,15 @@ def _assert_close(got, want, dtype, msg=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 def test_kernels_match_plain(dtype, D, causal):
+    """Every instantiated head dim, and D = 96, which the wrappers zero-pad
+    to the 128 instance and slice back."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # L = 200 leaves a ragged last 64-row tile for the kernels to mask;
-    # the plain versions tile it by 40
+    # L = 200 leaves a ragged last tile (64 rows, 32 at D = 256) for the
+    # kernels to mask; the plain versions tile it by 40
     shape, blk = (3, 200, D), 40
     q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
                    for _ in range(4))
@@ -74,7 +80,7 @@ def test_kernels_match_plain(dtype, D, causal):
 @pytest.mark.cuda
 def test_flash_attention_goes_through_the_kernels():
     """Autograd on CUDA tensors launches each kernel once per call and
-    matches the CPU path; an unsupported head dim raises."""
+    matches the CPU path; a head dim above 256 raises."""
     _need_card()
     gen = np.random.default_rng(9)
     q, k, v, do = (gen.standard_normal((2, 128, 2, 64)).astype(np.float32) for _ in range(4))
@@ -89,6 +95,46 @@ def test_flash_attention_goes_through_the_kernels():
     assert counts == {"flash_fwd": 1, "flash_dkdv": 1, "flash_dq": 1}
     for got, want in zip(results[1], results[0]):
         torch.testing.assert_close(got, want, **_F32_TOL)
-    x = torch.zeros(1, 128, 1, 96, device="cuda")
-    with pytest.raises(ValueError, match="head dim 96"):
+    x = torch.zeros(1, 128, 1, 272, device="cuda")
+    with pytest.raises(ValueError, match="head dim 272 exceeds"):
         tfa.flash_attention(x, x, x)
+
+
+@pytest.mark.cuda
+def test_trainer_defaults_run_on_the_kernels():
+    """The trainer with its own defaults (8 heads of dim 32) trains on the
+    card through the kernels: one launch of each per layer and step."""
+    _need_card()
+    tfa.reset_launch_counts()
+    losses = lm.main(["--steps", "2", "--log-every", "1"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    n_layers = lm.parse_args([]).n_layers
+    assert dict(tfa.LAUNCHES) == {n: 2 * n_layers for n in tfa.LAUNCHES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_flash_matches_dense(causal):
+    """The driver-mode ring on the kernels (4 shards of 128, f32) against
+    dense attention over the whole sequence: output and grads, with one
+    launch of each kernel per ring step."""
+    _need_card()
+    W, B, L, H, D = 4, 1, 512, 2, 64
+    gen = np.random.default_rng(3)
+    q, k, v, do = (gen.standard_normal((B, L, H, D)).astype(np.float32) for _ in range(4))
+
+    def shard(x):  # (B, L, H, D) -> (W, B, L/W, H, D)
+        return x.reshape(B, W, L // W, H, D).transpose(0, 1).contiguous()
+
+    ts = [torch.tensor(x, device="cuda", requires_grad=True) for x in (q, k, v)]
+    tfa.reset_launch_counts()
+    o = tcp.ring_attention(*(shard(t) for t in ts), causal=causal, block_kernel="flash")
+    o = o.transpose(0, 1).reshape(B, L, H, D)
+    o.backward(torch.tensor(do, device="cuda"))
+    assert dict(tfa.LAUNCHES) == {"flash_fwd": W, "flash_dkdv": W, "flash_dq": W}
+    rs = [torch.tensor(x, device="cuda", requires_grad=True) for x in (q, k, v)]
+    want = dense_attention(*rs, causal=causal)
+    want.backward(torch.tensor(do, device="cuda"))
+    torch.testing.assert_close(o, want, **_F32_TOL)
+    for name, t, r in zip("qkv", ts, rs):
+        torch.testing.assert_close(t.grad, r.grad, **_F32_TOL, msg=f"d{name}")

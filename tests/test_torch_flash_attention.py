@@ -7,6 +7,13 @@ float32 outputs agree to ~1e-6 relative; 1e-5 leaves room for the two
 frameworks' matmuls summing in another order. Gradients sum over more
 terms (a whole column of blocks), so they get 2e-5.
 
+The reference has two lowerings of each kernel: VMEM-resident, and streamed
+(counterpart blocks on a grid axis, past L*D = 1.5M elements at bf16).
+Unset, `TDX_FLASH_STREAM` picks the resident one at these sizes; the
+`_streamed` tests force the streamed one with `TDX_FLASH_STREAM=1`, as the
+reference's own tests do. The port has one plain version (and one Hopper
+kernel) per role for both, under the same tolerances.
+
 The Hopper kernels themselves are held against the plain versions on the
 card, by `tests/test_torch_cuda.py` and `chip_smoke.py`.
 """
@@ -45,8 +52,16 @@ def _t(x, requires_grad=False):
     return torch.tensor(x, requires_grad=requires_grad)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_fwd_matches_jax(causal):
+def _stream(monkeypatch, stream):
+    """Force the reference's streamed lowering, or leave its auto choice
+    (resident at these sizes)."""
+    if stream:
+        monkeypatch.setenv("TDX_FLASH_STREAM", "1")
+    else:
+        monkeypatch.delenv("TDX_FLASH_STREAM", raising=False)
+
+
+def _check_fwd(causal):
     q, k, v = _inputs(0)
     jo, jlse = jfa._fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                         SCALE, causal, BQ, BK, True)
@@ -58,9 +73,30 @@ def test_fwd_matches_jax(causal):
 
 
 @pytest.mark.parametrize("causal", [False, True])
+def test_fwd_matches_jax(causal):
+    _check_fwd(causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fwd_matches_jax_streamed(causal, monkeypatch):
+    _stream(monkeypatch, True)
+    _check_fwd(causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
 def test_flash_with_lse_grads_match_jax_vjp(causal):
     """dQ/dK/dV through both outputs, with a nonzero lse cotangent (the
     reference folds it into delta, `test_flash_attention.py:168`)."""
+    _check_flash_with_lse_vjp(causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_with_lse_grads_match_jax_vjp_streamed(causal, monkeypatch):
+    _stream(monkeypatch, True)
+    _check_flash_with_lse_vjp(causal)
+
+
+def _check_flash_with_lse_vjp(causal):
     q, k, v, do = _inputs(1, 4)
     (dlse,) = _inputs(2, 1, (BH, L, 1))
 
@@ -102,6 +138,16 @@ def test_unused_lse_gets_no_cotangent():
 def test_private_backward_calls_match_jax(causal):
     """`_dkdv_call`/`_dq_call` from a given lse and delta, as ring
     attention calls them."""
+    _check_private_backward_calls(causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_private_backward_calls_match_jax_streamed(causal, monkeypatch):
+    _stream(monkeypatch, True)
+    _check_private_backward_calls(causal)
+
+
+def _check_private_backward_calls(causal):
     q, k, v, do = _inputs(4, 4)
     (delta,) = _inputs(5, 1, (BH, L, 1))
     _, lse = tfa._fwd(_t(q), _t(k), _t(v), SCALE, causal, BQ, BK)
@@ -120,6 +166,15 @@ def test_out_dtype_f32_from_bf16():
     """Ring attention's f32 partials: bf16 operands, o in float32 from the
     f32 accumulator. Both sides upcast the same bf16 values, so the f32
     tolerance holds."""
+    _check_out_dtype_f32_from_bf16()
+
+
+def test_out_dtype_f32_from_bf16_streamed(monkeypatch):
+    _stream(monkeypatch, True)
+    _check_out_dtype_f32_from_bf16()
+
+
+def _check_out_dtype_f32_from_bf16():
     q, k, v = _inputs(6)
     jargs = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
     targs = [_t(x).to(torch.bfloat16) for x in (q, k, v)]
@@ -173,6 +228,55 @@ def test_flash_matches_port_dense(causal):
     np.testing.assert_allclose(outs[0], outs[1], **FWD_TOL)
     for name, a, b in zip("qkv", *grads):
         np.testing.assert_allclose(a, b, **GRAD_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("D_, Dp", [(16, 32), (48, 64), (96, 128), (200, 256), (256, 256)])
+def test_padded_head_dim_matches_unpadded(D_, Dp):
+    """On the card a head dim without an instance is zero-padded to the
+    next one: the plain versions on padded operands, sliced back, equal the
+    plain versions on the originals, and the padded columns are zero."""
+    assert tfa.kernel_head_dim(D_) == Dp
+    q, k, v, do = (_t(x) for x in _inputs(20 + D_, 4, (2, L, D_)))
+    scale = D_ ** -0.5
+    pads = [tfa.pad_head_dim(x, Dp) for x in (q, k, v, do)]
+    o, lse = tfa._fwd_plain(q, k, v, scale, True, BQ, BK)
+    po, plse = tfa._fwd_plain(*pads[:3], scale, True, BQ, BK)
+    delta = (do * o).sum(-1, keepdim=True)
+    want = [o, lse, *tfa._dkdv_plain(q, k, v, do, lse, delta, scale, True, BQ, BK),
+            tfa._dq_plain(q, k, v, do, lse, delta, scale, True, BQ, BK)]
+    got = [po, plse, *tfa._dkdv_plain(*pads, lse, delta, scale, True, BQ, BK),
+           tfa._dq_plain(*pads, lse, delta, scale, True, BQ, BK)]
+    for name, g, w in zip(("o", "lse", "dk", "dv", "dq"), got, want):
+        tol = FWD_TOL if name in ("o", "lse") else GRAD_TOL
+        np.testing.assert_allclose(g[..., :w.shape[-1]].numpy(), w.numpy(), **tol,
+                                   err_msg=name)
+        if name != "lse":
+            assert not g[..., w.shape[-1]:].any(), name
+
+
+def test_head_dim_above_256_raises():
+    assert tfa.kernel_head_dim(256) == 256
+    with pytest.raises(ValueError, match="head dim 272 exceeds"):
+        tfa.kernel_head_dim(272)
+
+
+def test_head_dim_96_matches_jax_flash():
+    """D = 96, which the card runs padded to 128, through the public API
+    (forward and grads) against the reference's flash."""
+    q, k, v, do = (x.reshape(1, 2, L, 96).transpose(0, 2, 1, 3)
+                   for x in _inputs(30, 4, (2, L, 96)))
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    jo, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention(q, k, v, causal=True, block_q=BQ,
+                                                          block_k=BK, interpret=True),
+                      jq, jk, jv)
+    jgrads = vjp(jnp.asarray(do))
+    ts = [_t(np.ascontiguousarray(x), True) for x in (q, k, v)]
+    o = tfa.flash_attention(*ts, causal=True, block_q=BQ, block_k=BK)
+    o.backward(_t(np.ascontiguousarray(do)))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo), **FWD_TOL)
+    for name, t, want in zip("qkv", ts, jgrads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), **GRAD_TOL,
+                                   err_msg=f"d{name}")
 
 
 def test_kernels_refuse_to_load_without_a_card(monkeypatch):

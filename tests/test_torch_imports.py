@@ -47,6 +47,7 @@ for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if banned(m))
 assert not leaked, leaked
+print(" ".join(names))
 print("clean", len(names))
 """
 
@@ -57,9 +58,12 @@ def test_port_imports_nothing_of_jax():
         timeout=120, cwd=REPO,
     )
     assert out.returncode == 0, out.stderr
-    word, count = out.stdout.splitlines()[-1].split()
+    *_, modules, last = out.stdout.splitlines()
+    word, count = last.split()
     assert word == "clean", out.stdout
-    assert int(count) >= 9  # ops, models, examples and their modules
+    assert int(count) >= 11  # ops, models, examples, parallel and their modules
+    for name in ("ops.flash_attention", "parallel", "parallel.context_parallel"):
+        assert f"pytorch_distributed_example_tpu_torch.{name}" in modules.split(), name
 
 
 def test_port_tests_are_distlint_clean():
