@@ -7,50 +7,62 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
 
 1. card: name, count, power limit; TF32 off, so the plain versions
    compute in full float32.
-2. build: nvcc builds csrc/flash_attention.cu for sm_90a; ptxas's
-   registers, shared memory and spills are printed.
+2. build: nvcc builds csrc/flash_attention.cu (with csrc/flash_wgmma.cuh)
+   for sm_90a; each instance's registers and spills from ptxas, and the
+   wgmma instances' dynamic shared memory, are printed. A wgmma instance
+   that spills fails the phase.
 3. kernels: the forward (F), dK/dV (KV) and dQ (Q) kernels against their
    plain versions at the ~1B train step's shapes (B*H 64, L 1024, D 128,
-   bf16, causal), plus a non-causal and a D=64 case. Time by CUDA events
-   beside the plain version, the bound, and the library: for F
-   `scaled_dot_product_attention`, for KV and Q together the flash
-   backward behind it (timed here only; the port never calls either).
-4. kernels-long: F, KV and Q against their plain versions in the
-   reference's streamed regime (B*H 16, L 16384, D 128, bf16, causal;
-   L*D = 2.1M elements), timed as in phase 3 except that each plain
-   version is timed once, by the call that checks it; F with float32
-   output (ring attention's partials) at the same shape, non-causal; and
-   the head dims without an instance of their own or new in this slice,
-   D 32, 96 and 256 (bf16 and, at 256, float32), at L 512.
+   bf16, causal), plus a non-causal and a D=64 case; F also with float32
+   output. `fa.kernel_route` names each kernel's instance: F and KV take
+   the wgmma route (bf16 at D 64 and 128), held to its declared
+   tolerance, Q the SIMT one; a float32 D 128 case holds the SIMT F and
+   KV. Time by CUDA events beside the plain version, the bound, and the
+   library: for F `scaled_dot_product_attention`, for KV and Q together
+   the flash backward behind it (timed here only; the port never calls
+   either).
+4. kernels-long: F (bf16 and float32 output), KV and Q against their plain
+   versions in the reference's streamed regime (B*H 16, L 16384, D 128,
+   bf16, causal; L*D = 2.1M elements), timed as in phase 3 except that
+   each plain version is timed once, by the call that checks it; F with
+   float32 output (ring attention's partials) at the same shape,
+   non-causal; and the head dims without an instance of their own, D 32,
+   96 (the wgmma route, padded to 128) and 256 (bf16 and, at 256,
+   float32: the SIMT route), at L 512.
 5. reference: a small float32 TransformerLM on the card against the same
    weights on the CPU (the plain versions): logits, loss and grads.
 6. slice: the trainer (`examples/lm.py`) at the ~1B configuration's full
    width (vocab 32000, d 2048, 16 layers, 16 heads, d_ff 5504, seq 1024,
    batch 4, bf16, AdamW): the first step's loss and logits against the
    dense path on the same weights, two warm-up steps, then 3 timed steps
-   after which F, KV and Q must each show n_layers * 3 launches (step
-   time, tokens/s, MFU as bench.py counts it, peak memory); then one
+   after which F, KV and Q must each show n_layers * 3 launches, F and
+   KV all on the wgmma route (step time, tokens/s, MFU as bench.py
+   counts it, peak memory); then one
    step under torch.profiler: device time by kernel group and the
    device's busy share of the step.
 7. ring: `make_cp_attention(4, "ring", causal=True)` (driver mode) over
    4 shards of 16384 tokens (B 1, H 16, D 128, bf16), forward and
    backward, which must launch exactly 4 each of F (float32 output), KV
-   and Q; output and dQ/dK/dV against `flash_with_lse` over the whole
+   and Q, F and KV on the wgmma route; output and dQ/dK/dV against
+   `flash_with_lse` over the whole
    65536-token sequence on the same kernels. Then a small float32 ring
    against dense attention.
 8. long: the trainer at seq 16384, batch 1, at the same full width: the
    first-step check on a 2-layer model (flash against dense on the same
    weights), one warm-up step, 2 timed steps after which F, KV and Q
-   must each show n_layers * 2 launches, and one profiled step.
+   must each show n_layers * 2 launches on the same routes as the slice,
+   and one profiled step.
 9. report: one JSON line of kernels (each Hopper kernel once per Pallas
-   lowering it replaces, with its launches per phase), the card's name
-   and power limit, then the `ok` line.
+   lowering it replaces, with its design, "wgmma" or "simt", and its
+   launches per phase), the card's name and power limit, then the `ok`
+   line.
 """
 
 import dataclasses
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +94,7 @@ LONG_WARMUP_STEPS = 1
 LONG_TIMED_STEPS = 2
 RING_WORLD, RING_SHARD = 4, 16384
 SOURCE = "pytorch_distributed_example_tpu_torch/csrc/flash_attention.cu"
+WGMMA_SOURCE = "pytorch_distributed_example_tpu_torch/csrc/flash_wgmma.cuh"
 PALLAS = "pytorch_distributed_example_tpu/ops/flash_attention.py"
 # Each Hopper kernel streams its counterpart tiles through shared memory at
 # every L, so it replaces both of the reference's lowerings: the resident
@@ -155,21 +168,55 @@ def compare(got, want, rtol, atol_frac):
     return float(err.max()), float(err.max()) / top, ok
 
 
+def atol_used(got, want, rtol, atol_frac):
+    """The least atol_frac that `compare` would pass at this rtol: how much
+    of a tolerance's atol the entries use."""
+    got, want = got.detach().float(), want.detach().float()
+    over = ((got - want).abs() - rtol * want.abs()).clamp_min(0)
+    return float(over.max()) / float(want.abs().max())
+
+
 # bf16 outputs: the kernel and the plain version each round an f32 result
 # once (2**-8 relative each), after summing in another order
 BF16_TOL = dict(rtol=2 ** -7, atol_frac=1e-3)
 # float32 outputs: the same f32 arithmetic in another order
 F32_TOL = dict(rtol=1e-4, atol_frac=1e-5)
 LSE_TOL = dict(rtol=1e-5, atol_frac=1e-6)
+# the wgmma route (F and KV, bf16 operands at D 64 and 128) also rounds P and
+# dS to bf16: its tolerance is declared, with its reason, beside the route
+WGMMA_TOL = fa.WGMMA_BF16_TOL
 
 
-def tol_for(dtype):
+def tol_for(dtype, route="simt"):
+    if route == "wgmma":
+        return WGMMA_TOL
     return BF16_TOL if dtype == torch.bfloat16 else F32_TOL
 
 
 def tol_text(tol):
     rtol = "2^-7" if tol["rtol"] == 2 ** -7 else f"{tol['rtol']:g}"
     return f"rtol {rtol}, atol {tol['atol_frac']:g}*max|plain|"
+
+
+def ptxas_entries(log):
+    """(kernel, registers line, spill line) per entry function in a ptxas -v
+    log, the kernel as name<template arguments>."""
+    entries = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            m = re.search(r"\d(flash_[a-z_]+_kernel)I(\w*?)Li(\d+)E", mangled)
+            name = mangled
+            if m:
+                types = ["bf16" if t != "f" else "f32"
+                         for t in re.findall(r"13__nv_bfloat16|S\d*_|f", m.group(2))]
+                name = f"{m.group(1)}<{', '.join(types + ['D ' + m.group(3)])}>"
+            entries.append([name, "", ""])
+        elif entries and "Used" in line and "registers" in line:
+            entries[-1][1] = line.split("ptxas info    :")[-1].strip()
+        elif entries and "spill stores" in line:
+            entries[-1][2] = line.strip()
+    return entries
 
 
 def timed_once(fn):
@@ -195,11 +242,18 @@ def kernel_checks(BH, L, D, causal, timed, dtype=torch.bfloat16, B=4, iters=20,
                                dtype=dtype) for _ in range(4))
     scale = 1.0 / math.sqrt(D)
     bq, bk = fa.resolved_block_sizes(L)
-    tol = tol_for(dtype)
+    design = {"flash_fwd": fa.kernel_route(dtype, D), "flash_dkdv": fa.kernel_route(dtype, D),
+              "flash_dq": "simt"}
+    tol = {name: tol_for(dtype, route) for name, route in design.items()}
     plain_ms = {}
     o, lse = fa._fwd_cuda(q, k, v, scale, causal)
-    (po, plse), plain_ms["flash_fwd"] = timed_once(
-        lambda: fa._fwd_plain(q, k, v, scale, causal, bq, bk))
+    o32, _ = fa._fwd_cuda(q, k, v, scale, causal, out_dtype=torch.float32)
+    # one plain call gives both outputs: its bf16 o is its float32 o rounded
+    (po32, plse), plain_ms["flash_fwd"] = timed_once(
+        lambda: fa._fwd_plain(q, k, v, scale, causal, bq, bk, out_dtype=torch.float32))
+    po = po32.to(dtype)
+    # float32 output from bf16 operands: the SIMT route keeps the f32 tolerance
+    tol32 = tol_for(torch.float32, design["flash_fwd"])
     delta = (do.float() * po.float()).sum(-1, keepdim=True)
     dk, dv = fa._dkdv_cuda(q, k, v, do, plse, delta, scale, causal)
     (pdk, pdv), plain_ms["flash_dkdv"] = timed_once(
@@ -209,20 +263,24 @@ def kernel_checks(BH, L, D, causal, timed, dtype=torch.bfloat16, B=4, iters=20,
         lambda: fa._dq_plain(q, k, v, do, plse, delta, scale, causal, bq, bk))
     results = {}
     for name, pairs in (
-        ("flash_fwd", [(o, po, tol), (lse, plse, LSE_TOL)]),
-        ("flash_dkdv", [(dk, pdk, tol), (dv, pdv, tol)]),
-        ("flash_dq", [(dq, pdq, tol)]),
+        ("flash_fwd", [(o, po, tol["flash_fwd"]), (o32, po32, tol32), (lse, plse, LSE_TOL)]),
+        ("flash_dkdv", [(dk, pdk, tol["flash_dkdv"]), (dv, pdv, tol["flash_dkdv"])]),
+        ("flash_dq", [(dq, pdq, tol["flash_dq"])]),
     ):
         errs = [compare(g, w, **t) for g, w, t in pairs]
         err = max(e for e, _, _ in errs)
         rel = max(r for _, r, _ in errs)
         ok = all(good for _, _, good in errs)
-        print(f"  {name} BH={BH} L={L} D={D} {str(dtype)[6:]} causal={causal}: "
-              f"max_abs_err={err:.3e} max_abs_err/max|plain|={rel:.3e} within tolerance "
-              f"({tol_text(tol)}): {ok}")
+        used = max(atol_used(g, w, **t) for g, w, t in pairs)
+        extra = (f", float32 output {errs[1][1]:.3e} ({tol_text(tol32)})"
+                 if name == "flash_fwd" else "")
+        print(f"  {name} [{design[name]}] BH={BH} L={L} D={D} {str(dtype)[6:]} causal={causal}: "
+              f"max_abs_err={err:.3e} max_abs_err/max|plain|={rel:.3e}{extra}; within "
+              f"tolerance ({tol_text(tol[name])}): {ok}, using atol {used:.3e}*max|plain|")
         check(ok, f"{name} disagrees with its plain version at BH={BH} L={L} D={D} "
                   f"{dtype} causal={causal}")
-        results[name] = {"max_abs_err": err, "tolerance": tol_text(tol)}
+        results[name] = {"design": design[name], "max_abs_err": err,
+                         "tolerance": tol_text(tol[name]), "atol_used": used}
     if not timed:
         return results
     kern = {
@@ -251,7 +309,7 @@ def kernel_checks(BH, L, D, causal, timed, dtype=torch.bfloat16, B=4, iters=20,
             seed, offset, scale=scale)
 
     lib_grads = [g.reshape(BH, L, D) for g in sdpa_backward()]
-    lib_rel = max(compare(g, w, **tol)[1] for g, w in zip(lib_grads, (pdq, pdk, pdv)))
+    lib_rel = max(compare(g, w, **BF16_TOL)[1] for g, w in zip(lib_grads, (pdq, pdk, pdv)))
     print(f"  sdpa flash backward vs the plain versions: max_abs_err/max|plain| = "
           f"{lib_rel:.3e} (timed only)")
     del lib_grads
@@ -287,8 +345,9 @@ def kernel_checks(BH, L, D, causal, timed, dtype=torch.bfloat16, B=4, iters=20,
 
 def fwd_f32_out_check(BH, L, D, causal):
     """F with float32 output from bf16 operands (the ring's per-step
-    partials) against its plain version: both keep the f32 accumulator, so
-    the float32 tolerance holds."""
+    partials) against its plain version, at the tolerance of the route that
+    serves it: the float32 one on the SIMT route (both keep the f32
+    accumulator), the declared one on the wgmma route (P is rounded)."""
     gen = torch.Generator(device="cuda").manual_seed(L + D + 2)
     q, k, v = (torch.randn((BH, L, D), device="cuda", generator=gen,
                            dtype=torch.bfloat16) for _ in range(3))
@@ -298,12 +357,21 @@ def fwd_f32_out_check(BH, L, D, causal):
     (po, plse), plain_ms = timed_once(
         lambda: fa._fwd_plain(q, k, v, scale, causal, bq, bk, out_dtype=torch.float32))
     check(o.dtype == torch.float32, f"flash_fwd returned {o.dtype} for out_dtype float32")
-    (err, rel, ok), (lerr, _, lok) = compare(o, po, **F32_TOL), compare(lse, plse, **LSE_TOL)
-    print(f"  flash_fwd bf16 -> float32 output, BH={BH} L={L} D={D} causal={causal}: "
+    route = fa.kernel_route(torch.bfloat16, D)
+    tol = tol_for(torch.float32, route)
+    (err, rel, ok), (lerr, _, lok) = compare(o, po, **tol), compare(lse, plse, **LSE_TOL)
+    print(f"  flash_fwd [{route}] bf16 -> float32 output, BH={BH} L={L} D={D} causal={causal}: "
           f"max_abs_err={err:.3e} max_abs_err/max|plain|={rel:.3e}, lse {lerr:.3e}; within "
-          f"tolerance ({tol_text(F32_TOL)}): {ok and lok}; plain {plain_ms:.1f} ms (one call)")
+          f"tolerance ({tol_text(tol)}): {ok and lok}; plain {plain_ms:.1f} ms (one call)")
     check(ok and lok, f"flash_fwd with float32 output disagrees with its plain version "
                       f"at BH={BH} L={L} D={D} causal={causal}")
+
+
+def want_routes(n, design="wgmma"):
+    """ROUTE_LAUNCHES after n launches of each role, F and KV on `design`."""
+    want = {name: 0 for name in fa.ROUTE_LAUNCHES}
+    want.update({f"flash_fwd:{design}": n, f"flash_dkdv:{design}": n, "flash_dq:simt": n})
+    return want
 
 
 KERNEL_GROUPS = (  # device kernels by what they serve, first match wins
@@ -448,7 +516,7 @@ def train_phase(argv, warmup_steps, timed_steps, card, check_layers=None):
         losses.append(lm.train_step(model, opt, batch))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    launches = dict(fa.LAUNCHES)
+    launches, routes = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
     losses = [float(x) for x in losses]
     peak = torch.cuda.max_memory_allocated()
     mean_s = sum(step_s) / len(step_s)
@@ -461,16 +529,18 @@ def train_phase(argv, warmup_steps, timed_steps, card, check_layers=None):
     print(f"  mean step {mean_s * 1e3:.2f} ms, {tok_s:.0f} tokens/s, MFU {mfu:.4f} "
           f"({model_flops:.4g} model FLOPs per step over 989 TFLOP/s), "
           f"peak memory {peak / 2 ** 30:.2f} GiB  [{card}]")
-    print(f"  launches in the timed steps: {launches}")
+    print(f"  launches in the timed steps: {launches}; by route: {routes}")
     check(all(math.isfinite(x) for x in losses), "non-finite loss")
     want = cfg.n_layers * timed_steps
     check(all(launches[n] == want for n in REPLACES),
           f"each kernel should have launched {want} times: {launches}")
+    check(routes == want_routes(want),
+          f"F and KV should have launched {want} times each on the wgmma route: {routes}")
     print("[profile] one more step under torch.profiler")
     profile_step(model, opt, next_tokens(), mean_s * 1e3)
     del model, opt
     torch.cuda.empty_cache()
-    return launches
+    return routes
 
 
 # The ring's gradients: each ring step's dQ/dK/dV partial leaves the kernels
@@ -501,19 +571,23 @@ def ring_phase():
     o = attention(*xs)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    fwd_launches = dict(fa.LAUNCHES)
+    fwd_launches, fwd_routes = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
     o.backward(do)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = dict(fa.LAUNCHES)
+    launches, routes = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     print(f"  ring, {W} shards of {Ls} (global L {L}), B {B}, H {H}, D {D}, bf16, causal: "
           f"forward {(t1 - t0) * 1e3:.1f} ms, backward {(t2 - t1) * 1e3:.1f} ms, peak memory "
           f"{peak / 2 ** 30:.2f} GiB; launches forward {fwd_launches}, forward and "
-          f"backward {launches}")
+          f"backward {launches}; by route {routes}")
     check(fwd_launches == {"flash_fwd": W, "flash_dkdv": 0, "flash_dq": 0}
           and launches == {n: W for n in REPLACES},
           f"the ring should launch each kernel exactly {W} times a call: {launches}")
+    fwd_want = {name: 0 for name in fa.ROUTE_LAUNCHES}
+    fwd_want["flash_fwd:wgmma"] = W
+    check(fwd_routes == fwd_want and routes == want_routes(W),
+          f"the ring's F and KV should all take the wgmma route: {fwd_routes}, {routes}")
 
     # flash over the whole sequence on the same kernels (not counted)
     scale = 1.0 / math.sqrt(D)
@@ -546,7 +620,7 @@ def ring_phase():
     del q, k, v, do, xs, o, rs, ro, rows
     torch.cuda.empty_cache()
     small_ring_check()
-    return launches
+    return routes
 
 
 def small_ring_check():
@@ -565,8 +639,8 @@ def small_ring_check():
     o = cp.ring_attention(*(shard(x) for x in xs), causal=True, block_kernel="flash")
     o = o.transpose(0, 1).reshape(B, L, H, D)
     o.backward(do)
-    check(dict(fa.LAUNCHES) == {n: W for n in REPLACES},
-          f"the small ring did not run on the kernels: {fa.LAUNCHES}")
+    check(dict(fa.ROUTE_LAUNCHES) == want_routes(W, "simt"),
+          f"the small float32 ring did not run on the SIMT kernels: {fa.ROUTE_LAUNCHES}")
     rs = [x.clone().requires_grad_() for x in (q, k, v)]
     want = dense_attention(*rs, causal=True)
     want.backward(do)
@@ -599,9 +673,16 @@ def main():
     _build.check_device(0)
     lib_path = _build.build("flash_attention")
     print(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log("flash_attention").splitlines():
-        if any(w in line for w in ("Compiling entry", "registers", "spill")):
-            print("  ptxas: " + line.split("ptxas info    :")[-1].strip())
+    lib = _build.load("flash_attention", fa._SIGNATURES)
+    for name, regs, spills in ptxas_entries(_build.build_log("flash_attention")):
+        smem = ""
+        if "wgmma" in name:
+            D = int(name.rsplit("D ", 1)[1].rstrip(">"))
+            smem = f"; {lib.flash_wgmma_smem_bytes(0 if 'fwd' in name else 1, D)} bytes " \
+                   f"of dynamic shared memory"
+            check(spills.startswith("0 bytes stack frame, 0 bytes spill stores"),
+                  f"ptxas: {name} spills: {spills}")
+        print(f"  ptxas: {name}: {regs}; {spills}{smem}")
 
     # 3. kernels against their plain versions
     print("[kernels]")
@@ -610,6 +691,7 @@ def main():
     results["resident"] = kernel_checks(BH, L, D, causal=True, timed=True)
     kernel_checks(BH, L, D, causal=False, timed=False)
     kernel_checks(BH, L, 64, causal=True, timed=False)
+    kernel_checks(16, L, D, causal=True, timed=False, dtype=torch.float32)  # SIMT F and KV
 
     # 4. the same in the reference's streamed regime, and the new head dims
     t0 = time.perf_counter()
@@ -648,8 +730,10 @@ def main():
     kernels = []
     for name, lowerings in REPLACES.items():
         for regime, replaces in lowerings.items():
-            by_phase = {ph: phase_launches[ph][name] for ph in PHASES[regime]}
-            kernels.append({"name": name, "route": "cuda", "source": SOURCE,
+            design = results[regime][name]["design"]
+            by_phase = {ph: phase_launches[ph][f"{name}:{design}"] for ph in PHASES[regime]}
+            kernels.append({"name": name, "route": "cuda",
+                            "source": WGMMA_SOURCE if design == "wgmma" else SOURCE,
                             "replaces": replaces, "regime": regime,
                             "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
                             **results[regime][name]})

@@ -7,10 +7,13 @@
 //   flash_dkdv_kernel  <- _bwd_dkdv_kernel (:306) and _bwd_dkdv_kernel_streamed (:379)
 //   flash_dq_kernel    <- _bwd_dq_kernel (:347) and _bwd_dq_kernel_streamed (:432)
 //
+// with flash_fwd_wgmma_kernel and flash_dkdv_wgmma_kernel (flash_wgmma.cuh)
+// as the tensor-core design of the first two (see "Two designs" below).
+//
 // Layout is the reference's: q, k, v, o, dO, dQ, dK, dV are contiguous
 // (B*H, L, D); lse and delta are contiguous (B*H, L) float32.
 //
-// Work split. One block of 256 threads owns one TILE-row tile of its output
+// Work split. One block owns one TILE-row tile of its output
 // ((bh, q-tile) for the forward and dQ, (bh, k-tile) for dK/dV) and keeps the
 // tile's accumulators in registers. It walks the counterpart tiles through
 // shared memory in a loop bounded by the causal diagonal; tiles strictly above
@@ -20,13 +23,13 @@
 // regimes (whole operand resident in VMEM, or blocks riding the grid), which
 // is why six Pallas kernels become three.
 //
-// Thread map. Thread (ty, tx) = (tid / 16, tid % 16) owns rows R*ty .. R*ty+R-1
+// Thread map (SIMT). Thread (ty, tx) = (tid / 16, tid % 16) owns rows R*ty .. R*ty+R-1
 // of the tile (R = TILE/16), score columns tx + 16*j (j < R) and output columns
 // tx + 16*c (c < D/16). A row's 16 owners are 16 neighbouring lanes of one
 // warp, so a row reduction is four xor shuffles. Shared tiles carry one extra
 // 32-bit word per row, so 16 lanes reading 16 rows at one column hit 16 banks.
 //
-// Head dims. Instances exist for D = 32, 64, 128 and 256; the Python wrapper
+// Head dims (SIMT). Instances exist for D = 32, 64, 128 and 256; the Python wrapper
 // zero-pads any other D <= 256 up to the next one (zero columns leave QK^T and
 // the kept output columns unchanged, and it passes the true 1/sqrt(D)). TILE is
 // 64 rows up to D = 128 and 32 rows at D = 256: four f32 operand tiles of
@@ -34,27 +37,53 @@
 // use, and dK/dV's register accumulators (2 * R * D/16 floats a thread) would
 // double past what 255 registers hold.
 //
-// Arithmetic is float32 FMAs on the SIMT cores from bf16 or f32 loads, in the
-// Pallas kernels' order: the forward scales q before QK^T, the backward scales
-// QK^T after. Masked logits are -1e30, never -inf, with the m_safe guard and
-// the l >= 1e-30 clamp. exp and log are the accurate expf/logf.
+// Two designs, routed by ops/flash_attention.py (`kernel_route`), one
+// instance per (dtype, head dim) and no fallback between them:
+//
+//   wgmma (flash_wgmma.cuh): F and KV for bf16 operands at D 64 and 128, the
+//     trainer's and the ring's case (CFG_1B is 16 heads of dim 128). Products
+//     on the tensor cores, bf16 tiles fed by TMA.
+//   SIMT (this file): F and KV for float32 operands and for D 32 and 256, and
+//     Q for every dtype and D. Float32 FMAs on the SIMT cores from bf16 or f32
+//     loads, in the Pallas kernels' order: the forward scales q before QK^T, the
+//     backward scales QK^T after.
+//
+// Both keep the Pallas numerics: masked logits are -1e30, never -inf, with the
+// m_safe guard and the l >= 1e-30 clamp; lse is float32; l sums the float32
+// probabilities. The wgmma route differs in two places: the forward scales S
+// in f32 after the product (rounding q*scale to bf16 would add error), and P
+// and dS are rounded to bf16 as wgmma operands. Its tolerance is declared in
+// ops/flash_attention.py (WGMMA_BF16_TOL). It takes exp in base 2 on prescaled
+// logits (exp2f), the SIMT route the accurate expf.
 //
 // Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s). At the ~1B train step's
 // shapes (BH 64, L 1024, D 128, bf16, causal) the forward moves 67 MB and does
 // 1.7e10 FLOPs: about 20 us by bytes, 17 us by operations. dK/dV does four
 // products over the triangle (3.4e10 FLOPs, 35 us) and dQ three (2.6e10 FLOPs,
 // 26 us), so the backward is bound by operations; in the streamed regime (BH 16,
-// L 16384) all three are: 1.1, 2.2 and 1.7 ms. This first version runs its
-// products on the SIMT cores (67 TFLOP/s f32, 1/15 of the tensor-core rate) and
-// is bound by them and by shared-memory bandwidth, not by device memory: each
-// operand crosses HBM once per visiting tile, and the score tile never leaves
-// the SM. Moving the products to wgmma, loading tiles with TMA and
-// specialising warps are the later steps toward the bound.
+// L 16384) all three are: 1.1, 2.2 and 1.7 ms. Every operand crosses HBM once
+// per visiting tile and the score tile never leaves the SM, so what bounds a
+// kernel is how fast it multiplies and exponentiates.
+//
+// The SIMT route runs its products as f32 FMAs (67 TFLOP/s peak; it reaches
+// 21-26) from tiles that all 256 threads load with scalar loads, a barrier
+// between load and compute, and the score tile round-tripping through shared
+// memory as f32. The wgmma route answers each of those: the products are
+// wgmma.mma_async on bf16 tiles (989 TFLOP/s), one producer warp keeps TMA
+// loads of the next tiles in flight behind full/empty mbarriers while two
+// consumer warpgroups compute, and the score tile stays in registers: the
+// accumulator fragment of S (or S^T) is, rounded to bf16, exactly the register
+// A operand of the next product. What is left in its way: the exponentials
+// (MUFU, 16 a clock per SM) run while the tensor cores idle, as nothing yet
+// overlaps one warpgroup's softmax with its own next product, and both
+// warpgroups wait for each product to finish before the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -589,6 +618,10 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
+// The SIMT forward and dK/dV serve bf16 only where the wgmma route does not
+// (flash_wgmma.cuh: D 64 and 128); dQ is SIMT at every head dim.
+constexpr bool simt_serves_bf16(int D) { return D != 64 && D != 128; }
+
 // Calls f(std::integral_constant<int, D>) for a head dim that has an instance.
 template <typename F>
 cudaError_t by_head_dim(int D, F&& f) {
@@ -605,8 +638,9 @@ cudaError_t by_head_dim(int D, F&& f) {
 
 // The C interface, loaded with ctypes. Every function returns a cudaError_t:
 // cudaSuccess (0), the launch's cudaGetLastError(), or cudaErrorInvalidValue
-// for a dtype or head dim that has no instance (the Python wrapper pads the
-// head dim and rejects the rest before it gets here).
+// for a dtype or head dim that has no instance on that route (the Python
+// wrapper pads the head dim, picks the route and rejects the rest before it
+// gets here).
 extern "C" {
 
 const char* flash_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
@@ -616,10 +650,12 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, i
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if (dtype == kBF16 && out_dtype == kBF16)
-      return launch_fwd<__nv_bfloat16, __nv_bfloat16, kD>(q, k, v, o, lse, BH, L, scale, causal, st);
-    if (dtype == kBF16 && out_dtype == kF32)
-      return launch_fwd<__nv_bfloat16, float, kD>(q, k, v, o, lse, BH, L, scale, causal, st);
+    if constexpr (simt_serves_bf16(kD)) {
+      if (dtype == kBF16 && out_dtype == kBF16)
+        return launch_fwd<__nv_bfloat16, __nv_bfloat16, kD>(q, k, v, o, lse, BH, L, scale, causal, st);
+      if (dtype == kBF16 && out_dtype == kF32)
+        return launch_fwd<__nv_bfloat16, float, kD>(q, k, v, o, lse, BH, L, scale, causal, st);
+    }
     if (dtype == kF32 && out_dtype == kF32)
       return launch_fwd<float, float, kD>(q, k, v, o, lse, BH, L, scale, causal, st);
     return cudaErrorInvalidValue;
@@ -632,8 +668,10 @@ int flash_dkdv(const void* q, const void* k, const void* v, const void* dout, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if (dtype == kBF16)
-      return launch_dkdv<__nv_bfloat16, kD>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale, causal, st);
+    if constexpr (simt_serves_bf16(kD)) {
+      if (dtype == kBF16)
+        return launch_dkdv<__nv_bfloat16, kD>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale, causal, st);
+    }
     if (dtype == kF32)
       return launch_dkdv<float, kD>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale, causal, st);
     return cudaErrorInvalidValue;
@@ -652,6 +690,47 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout, cons
       return launch_dq<float, kD>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
     return cudaErrorInvalidValue;
   });
+}
+
+// The wgmma route (flash_wgmma.cuh): bf16 operands at D 64 and 128 only, the
+// output bf16 or float32. The same arguments as flash_fwd / flash_dkdv.
+int flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
+                    int L, int D, float scale, int causal, int dtype, int out_dtype,
+                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != kBF16) return cudaErrorInvalidValue;
+  if (D == 64 && out_dtype == kBF16)
+    return flash_wgmma::launch_fwd<__nv_bfloat16, 64>(q, k, v, o, lse, BH, L, scale, causal, st);
+  if (D == 64 && out_dtype == kF32)
+    return flash_wgmma::launch_fwd<float, 64>(q, k, v, o, lse, BH, L, scale, causal, st);
+  if (D == 128 && out_dtype == kBF16)
+    return flash_wgmma::launch_fwd<__nv_bfloat16, 128>(q, k, v, o, lse, BH, L, scale, causal, st);
+  if (D == 128 && out_dtype == kF32)
+    return flash_wgmma::launch_fwd<float, 128>(q, k, v, o, lse, BH, L, scale, causal, st);
+  return cudaErrorInvalidValue;
+}
+
+int flash_dkdv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, void* dk, void* dv, int BH, int L, int D,
+                     float scale, int causal, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != kBF16) return cudaErrorInvalidValue;
+  if (D == 64)
+    return flash_wgmma::launch_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale, causal, st);
+  if (D == 128)
+    return flash_wgmma::launch_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale, causal, st);
+  return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory a wgmma instance asks for at launch (role 0 the
+// forward, 1 dK/dV), in bytes, or -1 for a head dim without one: ptxas -v
+// reports static shared memory only.
+int flash_wgmma_smem_bytes(int role, int D) {
+  if (D == 64) return static_cast<int>(role == 0 ? flash_wgmma::fwd_smem_bytes<64>()
+                                                 : flash_wgmma::dkdv_smem_bytes<64>());
+  if (D == 128) return static_cast<int>(role == 0 ? flash_wgmma::fwd_smem_bytes<128>()
+                                                  : flash_wgmma::dkdv_smem_bytes<128>());
+  return -1;
 }
 
 }  // extern "C"

@@ -17,17 +17,24 @@ there is no fallback. A CPU tensor goes to the kernel's plain version in
 this module: the same blocked online-softmax arithmetic as the Pallas
 kernels, in float32, which the CPU tests hold against the reference.
 
-On the card the kernels use their own tiles (64 rows, 32 at D = 256) for
-any L and mask the ragged edge; `block_q`/`block_k` set the plain versions'
-blocking and the tiling check. One kernel per role covers both of the
-reference's lowerings, the VMEM-resident one and the streamed one
-(`TDX_FLASH_STREAM`, L*D past 1.5M elements at bf16): it streams the
-counterpart tiles through shared memory at every L. The kernels are
-instantiated for head dims 32, 64, 128 and 256 and for bf16 and float32
-operands. Any other head dim up to 256 is zero-padded to the next instance
-and the result sliced back (zero columns leave q k^T unchanged and give
-zero output columns; the scale stays 1/sqrt of the true D); a head dim
-above 256, as in the reference's `_flash_ok` gate, raises.
+On the card the kernels use their own tiles for any L and mask the ragged
+edge; `block_q`/`block_k` set the plain versions' blocking and the tiling
+check. One kernel per role covers both of the reference's lowerings, the
+VMEM-resident one and the streamed one (`TDX_FLASH_STREAM`, L*D past 1.5M
+elements at bf16): it streams the counterpart tiles through shared memory
+at every L. The kernels are instantiated for head dims 32, 64, 128 and 256
+and for bf16 and float32 operands. Any other head dim up to 256 is
+zero-padded to the next instance and the result sliced back (zero columns
+leave q k^T unchanged and give zero output columns; the scale stays 1/sqrt
+of the true D); a head dim above 256, as in the reference's `_flash_ok`
+gate, raises.
+
+Routes. `kernel_route` is the one rule that says which instance serves a
+(dtype, head dim) on the card: the forward and dK/dV for bf16 operands at
+(padded) D 64 and 128 run on the tensor cores ("wgmma": wgmma on bf16
+tiles fed by TMA, `csrc/flash_wgmma.cuh`); every other case, and dQ always,
+runs the float32 SIMT kernels ("simt"). It routes by shape: nothing catches
+a failed build or launch and tries the other instance.
 """
 
 from __future__ import annotations
@@ -45,9 +52,30 @@ NEG_INF = -1e30
 # are zero-padded to the next one
 HEAD_DIMS = (32, 64, 128, 256)
 
+# padded head dims whose bf16 forward and dK/dV run on the wgmma route
+WGMMA_HEAD_DIMS = (64, 128)
+
 # launches of each kernel since the last reset_launch_counts(); a wrapper
-# adds one where it launches its kernel, and nowhere else
+# adds one where it launches its kernel, and nowhere else. LAUNCHES counts by
+# role, ROUTE_LAUNCHES by role and route ("flash_fwd:wgmma", ...)
 LAUNCHES = {"flash_fwd": 0, "flash_dkdv": 0, "flash_dq": 0}
+ROUTE_LAUNCHES = {"flash_fwd:wgmma": 0, "flash_fwd:simt": 0, "flash_dkdv:wgmma": 0,
+                  "flash_dkdv:simt": 0, "flash_dq:simt": 0}
+
+# How far the wgmma route's outputs (o in bf16 or float32, dK, dV) may stand
+# from the plain versions, which stay float32 throughout: entrywise
+# |got - want| <= rtol * |want| + atol_frac * max|want|. The route rounds P
+# (forward, dV) and dS (dK) to bf16 as wgmma operands, 2**-9 relative per
+# entry, on top of rounding a bf16 output once as the SIMT route does (which
+# rtol 2**-7 covers). One output entry sums many such rounded terms of both
+# signs, so its error is a share of the entry's spread, not of its value:
+# an entry near zero can be off by about 1e-3 of max|want|, past the SIMT
+# route's atol of 1e-3 * max. 4e-3 leaves room for that and for the longer
+# tails of many more entries at L 16384. tests/test_torch_flash_routes.py
+# holds the rounding alone to it on the CPU; chip_smoke.py holds the kernels
+# to it on the card and prints how much of the atol each check uses
+# (PERF.md). The SIMT route keeps its tolerance.
+WGMMA_BF16_TOL = dict(rtol=2 ** -7, atol_frac=4e-3)
 
 # Block sizes measured on the H100, keyed like the reference's
 # flash_tuned.json ("L{seq}", "default_long" with "applies_from",
@@ -60,19 +88,24 @@ _SIGNATURES = {
     "flash_fwd": ([_P] * 5 + [_I, _I, _I, _F, _I, _I, _I, _P], _I),
     "flash_dkdv": ([_P] * 8 + [_I, _I, _I, _F, _I, _I, _P], _I),
     "flash_dq": ([_P] * 7 + [_I, _I, _I, _F, _I, _I, _P], _I),
+    "flash_fwd_wgmma": ([_P] * 5 + [_I, _I, _I, _F, _I, _I, _I, _P], _I),
+    "flash_dkdv_wgmma": ([_P] * 8 + [_I, _I, _I, _F, _I, _I, _P], _I),
+    "flash_wgmma_smem_bytes": ([_I, _I], _I),
     "flash_error_string": ([_I], ctypes.c_char_p),
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _kernel_tile(D: int) -> int:
-    """Rows per block in csrc/flash_attention.cu (`tile_rows`) for head dim D."""
+    """Rows per block of the SIMT kernels (`tile_rows`) for head dim D; the
+    wgmma kernels' blocks own 128 rows."""
     return 32 if D > 128 else 64
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -211,17 +244,29 @@ def _unpad(x, D: int):
     return x if x.shape[-1] == D else x[..., :D].contiguous()
 
 
+def kernel_route(dtype, D: int) -> str:
+    """The instance that serves the forward and dK/dV for `dtype` operands
+    at head dim D on the card: "wgmma" for bf16 at a padded D in
+    WGMMA_HEAD_DIMS, else "simt" (dQ is "simt" at every shape). Raises for
+    D above 256 and for a dtype with no kernel."""
+    Dp = kernel_head_dim(D)
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"dtype {dtype} has no Hopper kernel; supported dtypes are "
+            f"{tuple(_DTYPE_CODES)}"
+        )
+    return "wgmma" if dtype == torch.bfloat16 and Dp in WGMMA_HEAD_DIMS else "simt"
+
+
 def _check_kernel_operands(name, q, *others):
+    """(padded head dim, route) for operands the kernels take; raises on
+    the rest."""
     BH, L, D = q.shape
     try:
-        Dp = kernel_head_dim(D)
+        route = kernel_route(q.dtype, D)
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(
-            f"{name}: dtype {q.dtype} has no Hopper kernel; supported "
-            f"dtypes are {tuple(_DTYPE_CODES)}"
-        )
+    Dp = kernel_head_dim(D)
     if -(-L // _kernel_tile(Dp)) > 65535:
         raise ValueError(f"{name}: seq len {L} exceeds the kernel grid")
     for t in (q, *others):
@@ -229,47 +274,62 @@ def _check_kernel_operands(name, q, *others):
             raise ValueError(f"{name}: operands on {t.device} and {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-    return Dp
+    return Dp, route
+
+
+def _check_tma_aligned(name, *ts):
+    # TMA reads tiles from 16-byte aligned addresses only
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: the wgmma route needs 16-byte aligned operands")
+
+
+def _count(name: str, route: str) -> None:
+    LAUNCHES[name] += 1
+    ROUTE_LAUNCHES[f"{name}:{route}"] += 1
 
 
 def _fwd_cuda(q, k, v, scale, causal, out_dtype=None):
     BH, L, D = q.shape
-    Dp = _check_kernel_operands("flash_fwd", q, k, v)
+    Dp, route = _check_kernel_operands("flash_fwd", q, k, v)
     out_dtype = out_dtype or q.dtype
     if out_dtype not in (q.dtype, torch.float32):
         raise ValueError(f"flash_fwd: out_dtype {out_dtype} for {q.dtype} operands")
     q, k, v = (pad_head_dim(t, Dp) for t in (q, k, v))
+    if route == "wgmma":
+        _check_tma_aligned("flash_fwd", q, k, v)
     o = torch.empty((BH, L, Dp), dtype=out_dtype, device=q.device)
     lse = torch.empty((BH, L, 1), dtype=torch.float32, device=q.device)
     _launch(
-        "flash_fwd", q.device,
+        "flash_fwd_wgmma" if route == "wgmma" else "flash_fwd", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         BH, L, Dp, float(scale), int(causal),
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[out_dtype],
     )
-    LAUNCHES["flash_fwd"] += 1
+    _count("flash_fwd", route)
     return _unpad(o, D), lse
 
 
 def _dkdv_cuda(q, k, v, do, lse, delta, scale, causal):
     BH, L, D = q.shape
-    Dp = _check_kernel_operands("flash_dkdv", q, k, v, do, lse, delta)
+    Dp, route = _check_kernel_operands("flash_dkdv", q, k, v, do, lse, delta)
     q, k, v, do = (pad_head_dim(t, Dp) for t in (q, k, v, do))
+    if route == "wgmma":
+        _check_tma_aligned("flash_dkdv", q, k, v, do)
     dk = torch.empty_like(q)
     dv = torch.empty_like(q)
     _launch(
-        "flash_dkdv", q.device,
+        "flash_dkdv_wgmma" if route == "wgmma" else "flash_dkdv", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         BH, L, Dp, float(scale), int(causal), _DTYPE_CODES[q.dtype],
     )
-    LAUNCHES["flash_dkdv"] += 1
+    _count("flash_dkdv", route)
     return _unpad(dk, D), _unpad(dv, D)
 
 
 def _dq_cuda(q, k, v, do, lse, delta, scale, causal):
     BH, L, D = q.shape
-    Dp = _check_kernel_operands("flash_dq", q, k, v, do, lse, delta)
+    Dp, _ = _check_kernel_operands("flash_dq", q, k, v, do, lse, delta)
     q, k, v, do = (pad_head_dim(t, Dp) for t in (q, k, v, do))
     dq = torch.empty_like(q)
     _launch(
@@ -278,7 +338,7 @@ def _dq_cuda(q, k, v, do, lse, delta, scale, causal):
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         BH, L, Dp, float(scale), int(causal), _DTYPE_CODES[q.dtype],
     )
-    LAUNCHES["flash_dq"] += 1
+    _count("flash_dq", "simt")
     return _unpad(dq, D)
 
 

@@ -27,17 +27,22 @@ def _need_card():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-# Kernel and plain version both compute in float32 from the same operands,
-# in another order; bf16 outputs then round once more on each side (2**-8
-# relative each), so bf16 is held to rtol 2**-7 and an atol of 1e-3 of the
-# plain output's largest entry, as chip_smoke.py holds it.
+# On the SIMT route kernel and plain version both compute in float32 from the
+# same operands, in another order; bf16 outputs then round once more on each
+# side (2**-8 relative each), so bf16 is held to rtol 2**-7 and an atol of
+# 1e-3 of the plain output's largest entry, as chip_smoke.py holds it. The
+# wgmma route (bf16 at D 64 and 128) also rounds P and dS to bf16, and is held
+# to the tolerance declared with it, `WGMMA_BF16_TOL`.
 _F32_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
-def _assert_close(got, want, dtype, msg=None):
+def _assert_close(got, want, dtype, msg=None, D=None):
     got, want = got.float(), want.float()
-    if dtype == torch.bfloat16:
-        tol = dict(rtol=2 ** -7, atol=1e-3 * float(want.abs().max()))
+    top = float(want.abs().max())
+    if D is not None and tfa.kernel_route(dtype, D) == "wgmma":
+        tol = dict(rtol=tfa.WGMMA_BF16_TOL["rtol"], atol=tfa.WGMMA_BF16_TOL["atol_frac"] * top)
+    elif dtype == torch.bfloat16:
+        tol = dict(rtol=2 ** -7, atol=1e-3 * top)
     else:
         tol = _F32_TOL
     torch.testing.assert_close(got, want, **tol, msg=msg)
@@ -64,8 +69,11 @@ def test_kernels_match_plain(dtype, D, causal):
     po32, _ = tfa._fwd_plain(q, k, v, scale, causal, blk, blk, out_dtype=torch.float32)
     torch.cuda.synchronize()
     assert o.dtype == dtype and o32.dtype == torch.float32
-    _assert_close(o, po, dtype)
-    torch.testing.assert_close(o32, po32, **_F32_TOL)
+    _assert_close(o, po, dtype, D=D)
+    if tfa.kernel_route(dtype, D) == "wgmma":
+        _assert_close(o32, po32, dtype, D=D)
+    else:
+        torch.testing.assert_close(o32, po32, **_F32_TOL)
     torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
     delta = (do.float() * po.float()).sum(-1, keepdim=True)
     dk, dv = tfa._dkdv_cuda(q, k, v, do, plse, delta, scale, causal)
@@ -73,8 +81,69 @@ def test_kernels_match_plain(dtype, D, causal):
     dq = tfa._dq_cuda(q, k, v, do, plse, delta, scale, causal)
     pdq = tfa._dq_plain(q, k, v, do, plse, delta, scale, causal, blk, blk)
     torch.cuda.synchronize()
-    for name, got, want in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
-        _assert_close(got, want, dtype, msg=name)
+    _assert_close(dq, pdq, dtype, msg="dq")
+    for name, got, want in (("dk", dk, pdk), ("dv", dv, pdv)):
+        _assert_close(got, want, dtype, msg=name, D=D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L, blk", [(5, 5), (17, 17), (200, 40), (1000, 40), (1024, 128)])
+def test_wgmma_routes_match_plain(D, causal, L, blk):
+    """The wgmma forward (bf16 and float32 output) and dK/dV against their
+    plain versions, with a ragged L and four heads of different scales: a
+    tile that read past L into the next head's rows would show. L 5 and 17
+    are shorter than one TMA box. Every launch takes the wgmma route."""
+    _need_card()
+    assert tfa.kernel_route(torch.bfloat16, D) == "wgmma"
+    gen = torch.Generator(device="cuda").manual_seed(L + D)
+    head_scale = torch.arange(1, 5, device="cuda", dtype=torch.float32).view(4, 1, 1)
+    q, k, v, do = ((torch.randn((4, L, D), device="cuda", generator=gen) * head_scale)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = D ** -0.5
+    tfa.reset_launch_counts()
+    o, lse = tfa._fwd_cuda(q, k, v, scale, causal)
+    o32, lse32 = tfa._fwd_cuda(q, k, v, scale, causal, out_dtype=torch.float32)
+    po, plse = tfa._fwd_plain(q, k, v, scale, causal, blk, blk)
+    po32, _ = tfa._fwd_plain(q, k, v, scale, causal, blk, blk, out_dtype=torch.float32)
+    delta = (do.float() * po.float()).sum(-1, keepdim=True)
+    dk, dv = tfa._dkdv_cuda(q, k, v, do, plse, delta, scale, causal)
+    pdk, pdv = tfa._dkdv_plain(q, k, v, do, plse, delta, scale, causal, blk, blk)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and o32.dtype == torch.float32
+    for name, got, want in (("o", o, po), ("o32", o32, po32), ("dk", dk, pdk), ("dv", dv, pdv)):
+        _assert_close(got, want, torch.bfloat16, msg=name, D=D)
+    for got in (lse, lse32):
+        torch.testing.assert_close(got, plse, rtol=1e-5, atol=1e-5)
+    assert tfa.ROUTE_LAUNCHES["flash_fwd:wgmma"] == 2
+    assert tfa.ROUTE_LAUNCHES["flash_dkdv:wgmma"] == 1
+    assert tfa.ROUTE_LAUNCHES["flash_fwd:simt"] == tfa.ROUTE_LAUNCHES["flash_dkdv:simt"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, D, route", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 48, "wgmma"),
+    (torch.bfloat16, 32, "simt"), (torch.float32, 128, "simt"),
+])
+def test_route_counts_on_the_autograd_path(dtype, D, route):
+    """`flash_attention` forward and backward on CUDA tensors: one launch of
+    each role, on the route `kernel_route` names for (dtype, D)."""
+    _need_card()
+    assert tfa.kernel_route(dtype, D) == route
+    gen = torch.Generator(device="cuda").manual_seed(D)
+    q, k, v, do = (torch.randn((2, 256, 2, D), device="cuda", generator=gen).to(dtype)
+                   for _ in range(4))
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    tfa.reset_launch_counts()
+    o = tfa.flash_attention(*ts, causal=True)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert dict(tfa.LAUNCHES) == {"flash_fwd": 1, "flash_dkdv": 1, "flash_dq": 1}
+    want = {name: 0 for name in tfa.ROUTE_LAUNCHES}
+    want.update({f"flash_fwd:{route}": 1, f"flash_dkdv:{route}": 1, "flash_dq:simt": 1})
+    assert dict(tfa.ROUTE_LAUNCHES) == want
+    assert all(bool(torch.isfinite(t.grad).all()) for t in ts)
 
 
 @pytest.mark.cuda
