@@ -14,10 +14,10 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
 3. kernels: the forward (F), dK/dV (KV) and dQ (Q) kernels against their
    plain versions at the ~1B train step's shapes (B*H 64, L 1024, D 128,
    bf16, causal), plus a non-causal and a D=64 case; F also with float32
-   output. `fa.kernel_route` names each kernel's instance: F and KV take
-   the wgmma route (bf16 at D 64 and 128), held to its declared
-   tolerance, Q the SIMT one; a float32 D 128 case holds the SIMT F and
-   KV. Time by CUDA events beside the plain version, the bound, and the
+   output. `fa.kernel_route` names each kernel's instance: F, KV and Q
+   take the wgmma route (bf16 at D 64 and 128), held to its declared
+   tolerance; a float32 D 128 case holds the SIMT F, KV and Q. Time by
+   CUDA events beside the plain version, the bound, and the
    library: for F `scaled_dot_product_attention`, for KV and Q together
    the flash backward behind it (timed here only; the port never calls
    either).
@@ -35,18 +35,19 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    width (vocab 32000, d 2048, 16 layers, 16 heads, d_ff 5504, seq 1024,
    batch 4, bf16, AdamW): the first step's loss and logits against the
    dense path on the same weights, two warm-up steps, then 3 timed steps
-   after which F, KV and Q must each show n_layers * 3 launches, F and
-   KV all on the wgmma route (step time, tokens/s, MFU as bench.py
-   counts it, peak memory); then one
+   after which F, KV and Q must each show n_layers * 3 launches, all on
+   the wgmma route (step time, tokens/s, MFU as bench.py counts it, peak
+   memory); then one
    step under torch.profiler: device time by kernel group and the
    device's busy share of the step.
 7. ring: `make_cp_attention(4, "ring", causal=True)` (driver mode) over
    4 shards of 16384 tokens (B 1, H 16, D 128, bf16), forward and
-   backward, which must launch exactly 4 each of F (float32 output), KV
-   and Q, F and KV on the wgmma route; output and dQ/dK/dV against
-   `flash_with_lse` over the whole
-   65536-token sequence on the same kernels. Then a small float32 ring
-   against dense attention.
+   backward: one untimed warm-up call, then two timed calls (their mean
+   printed), each of which must launch exactly 4 each of F (float32
+   output), KV and Q, all on the wgmma route; output and dQ/dK/dV
+   against `flash_with_lse` over the whole 65536-token sequence on the
+   same kernels, timed the same way. Then a small float32 ring (the SIMT
+   kernels) against dense attention.
 8. long: the trainer at seq 16384, batch 1, at the same full width: the
    first-step check on a 2-layer model (flash against dense on the same
    weights), one warm-up step, 2 timed steps after which F, KV and Q
@@ -182,8 +183,8 @@ BF16_TOL = dict(rtol=2 ** -7, atol_frac=1e-3)
 # float32 outputs: the same f32 arithmetic in another order
 F32_TOL = dict(rtol=1e-4, atol_frac=1e-5)
 LSE_TOL = dict(rtol=1e-5, atol_frac=1e-6)
-# the wgmma route (F and KV, bf16 operands at D 64 and 128) also rounds P and
-# dS to bf16: its tolerance is declared, with its reason, beside the route
+# the wgmma route (F, KV and Q, bf16 operands at D 64 and 128) also rounds P
+# and dS to bf16: its tolerance is declared, with its reason, beside the route
 WGMMA_TOL = fa.WGMMA_BF16_TOL
 
 
@@ -242,8 +243,7 @@ def kernel_checks(BH, L, D, causal, timed, dtype=torch.bfloat16, B=4, iters=20,
                                dtype=dtype) for _ in range(4))
     scale = 1.0 / math.sqrt(D)
     bq, bk = fa.resolved_block_sizes(L)
-    design = {"flash_fwd": fa.kernel_route(dtype, D), "flash_dkdv": fa.kernel_route(dtype, D),
-              "flash_dq": "simt"}
+    design = {name: fa.kernel_route(dtype, D) for name in REPLACES}
     tol = {name: tol_for(dtype, route) for name, route in design.items()}
     plain_ms = {}
     o, lse = fa._fwd_cuda(q, k, v, scale, causal)
@@ -368,9 +368,9 @@ def fwd_f32_out_check(BH, L, D, causal):
 
 
 def want_routes(n, design="wgmma"):
-    """ROUTE_LAUNCHES after n launches of each role, F and KV on `design`."""
+    """ROUTE_LAUNCHES after n launches of each role, all on `design`."""
     want = {name: 0 for name in fa.ROUTE_LAUNCHES}
-    want.update({f"flash_fwd:{design}": n, f"flash_dkdv:{design}": n, "flash_dq:simt": n})
+    want.update({f"{name}:{design}": n for name in REPLACES})
     return want
 
 
@@ -535,7 +535,7 @@ def train_phase(argv, warmup_steps, timed_steps, card, check_layers=None):
     check(all(launches[n] == want for n in REPLACES),
           f"each kernel should have launched {want} times: {launches}")
     check(routes == want_routes(want),
-          f"F and KV should have launched {want} times each on the wgmma route: {routes}")
+          f"F, KV and Q should have launched {want} times each on the wgmma route: {routes}")
     print("[profile] one more step under torch.profiler")
     profile_step(model, opt, next_tokens(), mean_s * 1e3)
     del model, opt
@@ -551,10 +551,33 @@ def train_phase(argv, warmup_steps, timed_steps, card, check_layers=None):
 RING_GRAD_TOL = dict(rtol=2 ** -7, atol_frac=(RING_WORLD + 2) * 2 ** -9)
 
 
+def ring_call(attention, q, k, v, do):
+    """One forward and backward of `attention` on fresh leaves of q, k, v:
+    (o, the leaves, launches and routes after the forward and after the
+    backward, forward ms, backward ms), on the host clock."""
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = attention(*xs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fwd = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
+    o.backward(do)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    both = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
+    return o, xs, fwd, both, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def calls_text(times):
+    return ", ".join(f"{f:.1f} / {b:.1f} ms" for f, b in times)
+
+
 def ring_phase():
     """Ring attention over RING_WORLD shards in driver mode, forward and
-    backward, against flash over the whole sequence. Returns the ring's
-    launches."""
+    backward, against flash over the whole sequence: each one untimed
+    warm-up call, then two timed calls. Returns the ring's launches."""
     W, Ls, B, H, D = RING_WORLD, RING_SHARD, 1, 16, 128
     L = W * Ls
     check(cp.auto_block_kernel(B, H, Ls, Ls) == "flash",
@@ -563,56 +586,52 @@ def ring_phase():
     q, k, v, do = (torch.randn((B, L, H, D), device="cuda", generator=gen,
                                dtype=torch.bfloat16) for _ in range(4))
     attention = cp.make_cp_attention(W, "ring", causal=True)
-    xs = [x.clone().requires_grad_() for x in (q, k, v)]
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    o = attention(*xs)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    fwd_launches, fwd_routes = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
-    o.backward(do)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    launches, routes = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"  ring, {W} shards of {Ls} (global L {L}), B {B}, H {H}, D {D}, bf16, causal: "
-          f"forward {(t1 - t0) * 1e3:.1f} ms, backward {(t2 - t1) * 1e3:.1f} ms, peak memory "
-          f"{peak / 2 ** 30:.2f} GiB; launches forward {fwd_launches}, forward and "
-          f"backward {launches}; by route {routes}")
-    check(fwd_launches == {"flash_fwd": W, "flash_dkdv": 0, "flash_dq": 0}
-          and launches == {n: W for n in REPLACES},
-          f"the ring should launch each kernel exactly {W} times a call: {launches}")
     fwd_want = {name: 0 for name in fa.ROUTE_LAUNCHES}
     fwd_want["flash_fwd:wgmma"] = W
-    check(fwd_routes == fwd_want and routes == want_routes(W),
-          f"the ring's F and KV should all take the wgmma route: {fwd_routes}, {routes}")
+    ring_call(attention, q, k, v, do)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        o, xs, (fwd_launches, fwd_routes), (launches, routes), fwd_ms, bwd_ms = ring_call(
+            attention, q, k, v, do)
+        times.append((fwd_ms, bwd_ms))
+        check(fwd_launches == {"flash_fwd": W, "flash_dkdv": 0, "flash_dq": 0}
+              and launches == {n: W for n in REPLACES},
+              f"the ring should launch each kernel exactly {W} times a call: {launches}")
+        check(fwd_routes == fwd_want and routes == want_routes(W),
+              f"the ring's F, KV and Q should all take the wgmma route: {fwd_routes}, {routes}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  ring, {W} shards of {Ls} (global L {L}), B {B}, H {H}, D {D}, bf16, causal, after "
+          f"one warm-up call: forward {sum(f for f, _ in times) / 2:.1f} ms, backward "
+          f"{sum(b for _, b in times) / 2:.1f} ms (mean of 2 calls; per call {calls_text(times)}), "
+          f"peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches a call: forward {fwd_launches}, forward and "
+          f"backward {launches}; by route {routes}")
 
     # flash over the whole sequence on the same kernels (not counted)
     scale = 1.0 / math.sqrt(D)
     bq, bk = fa.resolved_block_sizes(L)
-    rs = [fa._to_bh(x).contiguous().requires_grad_() for x in (q, k, v)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ro, _ = fa.flash_with_lse(*rs, scale, True, bq, bk)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    ro.backward(fa._to_bh(do).contiguous())
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    print(f"  global flash over L {L}: forward {(t1 - t0) * 1e3:.1f} ms, backward "
-          f"{(t2 - t1) * 1e3:.1f} ms")
+
+    def global_flash(q_, k_, v_):
+        out, _ = fa.flash_with_lse(*(fa._to_bh(x).contiguous() for x in (q_, k_, v_)),
+                                   scale, True, bq, bk)
+        return fa._from_bh(out, B, H)
+
+    ring_call(global_flash, q, k, v, do)  # warm-up
+    gtimes = []
+    for _ in range(2):
+        ro, rs, *_, fwd_ms, bwd_ms = ring_call(global_flash, q, k, v, do)
+        gtimes.append((fwd_ms, bwd_ms))
+    print(f"  global flash over L {L}, after one warm-up call: forward "
+          f"{sum(f for f, _ in gtimes) / 2:.1f} ms, backward {sum(b for _, b in gtimes) / 2:.1f} "
+          f"ms (mean of 2 calls; per call {calls_text(gtimes)})")
     check(o.shape == (B, L, H, D) and bool(torch.isfinite(o).all()),
           "non-finite or misshapen ring output")
-    rows = [("o", o.detach(), fa._from_bh(ro.detach(), B, H), BF16_TOL)]
-    rows += [(f"d{n}", x.grad, fa._from_bh(r.grad, B, H), RING_GRAD_TOL)
-             for n, x, r in zip("qkv", xs, rs)]
+    rows = [("o", o.detach(), ro.detach(), BF16_TOL)]
+    rows += [(f"d{n}", x.grad, r.grad, RING_GRAD_TOL) for n, x, r in zip("qkv", xs, rs)]
     ok_all = True
-    errors = {}
     for name, got, want, tol in rows:
         err, rel, ok = compare(got, want, **tol)
-        errors[name] = rel
         ok_all &= ok
         print(f"    {name}: max_abs_err={err:.3e} max_abs_err/max|global|={rel:.3e} within "
               f"tolerance ({tol_text(tol).replace('plain', 'global')}): {ok}")
@@ -678,8 +697,8 @@ def main():
         smem = ""
         if "wgmma" in name:
             D = int(name.rsplit("D ", 1)[1].rstrip(">"))
-            smem = f"; {lib.flash_wgmma_smem_bytes(0 if 'fwd' in name else 1, D)} bytes " \
-                   f"of dynamic shared memory"
+            role = ("fwd", "dkdv", "dq").index(name.split("_")[1])
+            smem = f"; {lib.flash_wgmma_smem_bytes(role, D)} bytes of dynamic shared memory"
             check(spills.startswith("0 bytes stack frame, 0 bytes spill stores"),
                   f"ptxas: {name} spills: {spills}")
         print(f"  ptxas: {name}: {regs}; {spills}{smem}")
@@ -691,7 +710,7 @@ def main():
     results["resident"] = kernel_checks(BH, L, D, causal=True, timed=True)
     kernel_checks(BH, L, D, causal=False, timed=False)
     kernel_checks(BH, L, 64, causal=True, timed=False)
-    kernel_checks(16, L, D, causal=True, timed=False, dtype=torch.float32)  # SIMT F and KV
+    kernel_checks(16, L, D, causal=True, timed=False, dtype=torch.float32)  # SIMT F, KV, Q
 
     # 4. the same in the reference's streamed regime, and the new head dims
     t0 = time.perf_counter()

@@ -7,8 +7,9 @@
 //   flash_dkdv_kernel  <- _bwd_dkdv_kernel (:306) and _bwd_dkdv_kernel_streamed (:379)
 //   flash_dq_kernel    <- _bwd_dq_kernel (:347) and _bwd_dq_kernel_streamed (:432)
 //
-// with flash_fwd_wgmma_kernel and flash_dkdv_wgmma_kernel (flash_wgmma.cuh)
-// as the tensor-core design of the first two (see "Two designs" below).
+// with flash_fwd_wgmma_kernel, flash_dkdv_wgmma_kernel and flash_dq_wgmma_kernel
+// (flash_wgmma.cuh) as the tensor-core design of all three (see "Two designs"
+// below).
 //
 // Layout is the reference's: q, k, v, o, dO, dQ, dK, dV are contiguous
 // (B*H, L, D); lse and delta are contiguous (B*H, L) float32.
@@ -40,19 +41,20 @@
 // Two designs, routed by ops/flash_attention.py (`kernel_route`), one
 // instance per (dtype, head dim) and no fallback between them:
 //
-//   wgmma (flash_wgmma.cuh): F and KV for bf16 operands at D 64 and 128, the
-//     trainer's and the ring's case (CFG_1B is 16 heads of dim 128). Products
-//     on the tensor cores, bf16 tiles fed by TMA.
-//   SIMT (this file): F and KV for float32 operands and for D 32 and 256, and
-//     Q for every dtype and D. Float32 FMAs on the SIMT cores from bf16 or f32
-//     loads, in the Pallas kernels' order: the forward scales q before QK^T, the
-//     backward scales QK^T after.
+//   wgmma (flash_wgmma.cuh): F, KV and Q for bf16 operands at D 64 and 128,
+//     the trainer's and the ring's case (CFG_1B is 16 heads of dim 128).
+//     Products on the tensor cores, bf16 tiles fed by TMA.
+//   SIMT (this file): F, KV and Q for float32 operands and for D 32 and 256.
+//     Float32 FMAs on the SIMT cores from bf16 or f32 loads, in the Pallas
+//     kernels' order: the forward scales q before QK^T, the backward scales
+//     QK^T after.
 //
 // Both keep the Pallas numerics: masked logits are -1e30, never -inf, with the
 // m_safe guard and the l >= 1e-30 clamp; lse is float32; l sums the float32
 // probabilities. The wgmma route differs in two places: the forward scales S
 // in f32 after the product (rounding q*scale to bf16 would add error), and P
-// and dS are rounded to bf16 as wgmma operands. Its tolerance is declared in
+// (forward, dV) and dS (dK, dQ) are rounded to bf16 as wgmma operands. Its
+// tolerance is declared in
 // ops/flash_attention.py (WGMMA_BF16_TOL). It takes exp in base 2 on prescaled
 // logits (exp2f), the SIMT route the accurate expf.
 //
@@ -72,8 +74,11 @@
 // wgmma.mma_async on bf16 tiles (989 TFLOP/s), one producer warp keeps TMA
 // loads of the next tiles in flight behind full/empty mbarriers while two
 // consumer warpgroups compute, and the score tile stays in registers: the
-// accumulator fragment of S (or S^T) is, rounded to bf16, exactly the register
-// A operand of the next product. What is left in its way: the exponentials
+// accumulator fragment of S (or S^T, or dS) is, rounded to bf16, exactly the
+// register A operand of the next product. dQ runs the forward's shape (Q and dO
+// resident, K and V streamed, dQ += dS K with K read MN-major) on 64-key
+// tiles, since S, dP and dQ together fill a consumer's registers at 128.
+// What is left in its way: the exponentials
 // (MUFU, 16 a clock per SM) run while the tensor cores idle, as nothing yet
 // overlaps one warpgroup's softmax with its own next product, and both
 // warpgroups wait for each product to finish before the next step.
@@ -618,8 +623,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
-// The SIMT forward and dK/dV serve bf16 only where the wgmma route does not
-// (flash_wgmma.cuh: D 64 and 128); dQ is SIMT at every head dim.
+// The SIMT kernels serve bf16 only where the wgmma route does not
+// (flash_wgmma.cuh: D 64 and 128).
 constexpr bool simt_serves_bf16(int D) { return D != 64 && D != 128; }
 
 // Calls f(std::integral_constant<int, D>) for a head dim that has an instance.
@@ -684,8 +689,10 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout, cons
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if (dtype == kBF16)
-      return launch_dq<__nv_bfloat16, kD>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
+    if constexpr (simt_serves_bf16(kD)) {
+      if (dtype == kBF16)
+        return launch_dq<__nv_bfloat16, kD>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
+    }
     if (dtype == kF32)
       return launch_dq<float, kD>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
     return cudaErrorInvalidValue;
@@ -693,7 +700,8 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout, cons
 }
 
 // The wgmma route (flash_wgmma.cuh): bf16 operands at D 64 and 128 only, the
-// output bf16 or float32. The same arguments as flash_fwd / flash_dkdv.
+// forward's output bf16 or float32. The same arguments as flash_fwd /
+// flash_dkdv / flash_dq.
 int flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
                     int L, int D, float scale, int causal, int dtype, int out_dtype,
                     void* stream) {
@@ -722,15 +730,31 @@ int flash_dkdv_wgmma(const void* q, const void* k, const void* v, const void* do
   return cudaErrorInvalidValue;
 }
 
+int flash_dq_wgmma(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                   const void* delta, void* dq, int BH, int L, int D, float scale, int causal,
+                   int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != kBF16) return cudaErrorInvalidValue;
+  if (D == 64)
+    return flash_wgmma::launch_dq<64>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
+  if (D == 128)
+    return flash_wgmma::launch_dq<128>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
+  return cudaErrorInvalidValue;
+}
+
 // Dynamic shared memory a wgmma instance asks for at launch (role 0 the
-// forward, 1 dK/dV), in bytes, or -1 for a head dim without one: ptxas -v
-// reports static shared memory only.
+// forward, 1 dK/dV, 2 dQ), in bytes, or -1 for a role or head dim without
+// one: ptxas -v reports static shared memory only.
 int flash_wgmma_smem_bytes(int role, int D) {
-  if (D == 64) return static_cast<int>(role == 0 ? flash_wgmma::fwd_smem_bytes<64>()
-                                                 : flash_wgmma::dkdv_smem_bytes<64>());
-  if (D == 128) return static_cast<int>(role == 0 ? flash_wgmma::fwd_smem_bytes<128>()
-                                                  : flash_wgmma::dkdv_smem_bytes<128>());
-  return -1;
+  if (D != 64 && D != 128) return -1;
+  size_t bytes;
+  switch (role) {
+    case 0: bytes = D == 64 ? flash_wgmma::fwd_smem_bytes<64>() : flash_wgmma::fwd_smem_bytes<128>(); break;
+    case 1: bytes = D == 64 ? flash_wgmma::dkdv_smem_bytes<64>() : flash_wgmma::dkdv_smem_bytes<128>(); break;
+    case 2: bytes = D == 64 ? flash_wgmma::dq_smem_bytes<64>() : flash_wgmma::dq_smem_bytes<128>(); break;
+    default: return -1;
+  }
+  return static_cast<int>(bytes);
 }
 
 }  // extern "C"

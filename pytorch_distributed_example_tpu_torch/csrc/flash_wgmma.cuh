@@ -1,5 +1,5 @@
-// Flash forward and dK/dV for bf16 operands at head dims 64 and 128, on the
-// tensor cores: wgmma on bf16 tiles that TMA brings into shared memory.
+// Flash forward, dK/dV and dQ for bf16 operands at head dims 64 and 128, on
+// the tensor cores: wgmma on bf16 tiles that TMA brings into shared memory.
 // Included by flash_attention.cu, whose note says what bounds these kernels
 // and what the design does about it; ops/flash_attention.py routes each
 // (dtype, head dim) to exactly one instance.
@@ -15,11 +15,12 @@
 // Roles. A block is two consumer warpgroups (64 rows each, 128 rows of the
 // block's own tile) and one producer warpgroup, of which one warp works. The
 // producer keeps a ring of kStages tiles of the streamed operands in flight
-// with full/empty mbarriers; the consumers wait on full, run their products
-// and release the stage. A 384-thread block gets at most 168 registers a
+// with full/empty mbarriers (dQ: kDqStages tiles of kBlockK rows); the
+// consumers wait on full, run their products and release the stage. A 384-thread block gets at most 168 registers a
 // thread at launch; setmaxnreg then hands the producer's to the consumers
 // (kProducerRegs / kConsumerRegs), whose accumulators need them: dK/dV at
-// D 128 holds 2 x 64 accumulator floats and 2 x 32 score floats a thread.
+// D 128 holds 2 x 64 accumulator floats and 2 x 32 score floats a thread,
+// dQ 64 accumulator floats, 2 x 32 score floats and 16 packed A registers.
 
 #pragma once
 
@@ -41,6 +42,12 @@ constexpr int kRows = 64 * kConsumers;              // rows of the block's own t
 constexpr int kBlockKV = 128;                       // forward: k/v rows per stage
 constexpr int kBlockQ = 64;                         // dK/dV: q/dO rows per stage
 constexpr int kStages = 2;
+// dQ: k/v rows per stage. 128 would put S, dP and dS's A fragments at
+// 64 + 64 + 32 registers beside dQ's 64, past what a consumer thread holds.
+// The smaller tiles ride a deeper ring, the same bytes in flight as the
+// forward's two stages of 128.
+constexpr int kBlockK = 64;
+constexpr int kDqStages = 4;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -617,6 +624,168 @@ flash_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
+// dQ for one 128-row q tile, given lse and delta = rowsum(dO*O) - dlse:
+//   S = Q K^T, dP = dO V^T, P = exp(S * scale - lse[row]),
+//   dS = P (dP - delta[row]), dQ += dS K (* scale at the end)
+// The forward's shape with one more score-sized product: Q and dO stay
+// resident, K and V stream, and dS's accumulator is the A operand of dS K.
+// ---------------------------------------------------------------------------
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return 1024                                          // alignment slack
+         + 2 * tile_bytes<D>(kRows)                    // q, dO
+         + 2 * kDqStages * tile_bytes<D>(kBlockK)      // k, v ring
+         + 8 * (1 + 2 * kDqStages);                    // mbarriers
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                      const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int L,
+                      float scale, int causal) {
+  constexpr uint32_t kQBytes = tile_bytes<D>(kRows);
+  constexpr uint32_t kKVBytes = tile_bytes<D>(kBlockK);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = align_1024(smem_u32(smem_raw));
+  const uint32_t sG = sQ + kQBytes;  // dO
+  const uint32_t sK = sG + kQBytes;
+  const uint32_t sV = sK + kDqStages * kKVBytes;
+  const uint32_t bar_q = sV + kDqStages * kKVBytes;
+  const uint32_t bar_full = bar_q + 8;                 // one per stage
+  const uint32_t bar_empty = bar_full + 8 * kDqStages;  // one per stage
+
+  const int bh = blockIdx.x;
+  // the last q-tiles see the most k-tiles under the causal mask: start them first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int kv_end = causal ? min(L, q0 + kRows) : L;
+  const int num_kv = (kv_end + kBlockK - 1) / kBlockK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 128 * kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= kProducerWarp) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kProducerWarp && lane == 0) {
+      mbar_arrive_expect_tx(bar_q, 2 * kQBytes);
+      load_tile<D>(sQ, &tm_q, bar_q, kRows, q0, bh);
+      load_tile<D>(sG, &tm_do, bar_q, kRows, q0, bh);
+      for (int t = 0; t < num_kv; ++t) {
+        const int s = t % kDqStages;
+        mbar_wait(bar_empty + 8 * s, ((t / kDqStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(bar_full + 8 * s, 2 * kKVBytes);
+        load_tile<D>(sK + s * kKVBytes, &tm_k, bar_full + 8 * s, kBlockK, t * kBlockK, bh);
+        load_tile<D>(sV + s * kKVBytes, &tm_v, bar_full + 8 * s, kBlockK, t * kBlockK, bh);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  const int wg = warp / 4;
+  const int r = 16 * (warp % 4) + lane / 4;
+  const int c = 2 * (lane % 4);
+  const int row_lo = q0 + 64 * wg;  // first row of this warpgroup
+  const int rows[2] = {row_lo + r, row_lo + r + 8};
+  const float scale_log2 = scale * kLog2e;
+  // keys this warpgroup's rows reach: a k-tile wholly above its diagonal
+  // adds nothing to dQ, and the warpgroup only releases its stage
+  const int wg_end = causal ? min(kv_end, row_lo + 64) : kv_end;
+
+  // lse (in log2 units) and delta of this thread's two rows; 0 past L, where
+  // the zero-filled q and dO rows give dS = 0 and nothing is stored
+  float lse2[2], del[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t at = static_cast<size_t>(bh) * L + rows[h];
+    lse2[h] = rows[h] < L ? lse[at] * kLog2e : 0.f;
+    del[h] = rows[h] < L ? delta[at] : 0.f;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < num_kv; ++t) {
+    const int s = t % kDqStages;
+    const int k0 = t * kBlockK;
+    const uint32_t sKs = sK + s * kKVBytes;
+    const uint32_t sVs = sV + s * kKVBytes;
+    mbar_wait(bar_full + 8 * s, (t / kDqStages) & 1);
+    if (k0 < wg_end) {  // uniform over the warpgroup
+      // S = Q K^T and dP = dO V^T for this warpgroup's 64 rows and the stage's keys
+      float sc[kBlockK / 2], dp[kBlockK / 2];
+#pragma unroll
+      for (int i = 0; i < kBlockK / 2; ++i) {
+        sc[i] = 0.f;
+        dp[i] = 0.f;
+      }
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(sc, kmajor_desc(sQ, kRows, 64 * wg, kk), kmajor_desc(sKs, kBlockK, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dp, kmajor_desc(sG, kRows, 64 * wg, kk), kmajor_desc(sVs, kBlockK, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P and dS in f32, masked where the tile crosses the diagonal or L
+      // (a masked logit is -1e30, and exp(-1e30 - lse) is 0)
+      const bool edge = k0 + kBlockK > L || (causal && k0 + kBlockK - 1 > row_lo);
+#pragma unroll
+      for (int i = 0; i < kBlockK / 2; ++i) {
+        const int h = (i / 2) % 2;
+        const int col = k0 + 8 * (i / 4) + c + i % 2;
+        const bool live = !edge || (col < L && !(causal && col > rows[h]));
+        const float p = live ? exp2f(fmaf(sc[i], scale_log2, -lse2[h])) : 0.f;
+        dp[i] = p * (dp[i] - del[h]);
+      }
+      uint32_t da[kBlockK / 16][4];
+      to_a_frags(dp, da);
+
+      // dQ += dS K, K read MN-major from the stage
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockK / 16; ++kk)
+        wgmma_rs(acc, da[kk], mnmajor_desc(sKs, kBlockK, kk), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    mbar_arrive(bar_empty + 8 * s);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = rows[h];
+    if (row >= L) continue;
+    __nv_bfloat16* dqrow = dq + (static_cast<size_t>(bh) * L + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(dqrow + 8 * j + c, acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side: tensor maps and launchers
 // ---------------------------------------------------------------------------
 
@@ -693,6 +862,28 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void*
   kernel<<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, tg, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), L, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dq, int BH, int L, float scale,
+                      int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tg;
+  cudaError_t err;
+  if ((err = make_map(&tq, q, BH, L, D, kRows)) != cudaSuccess) return err;
+  if ((err = make_map(&tk, k, BH, L, D, kBlockK)) != cudaSuccess) return err;
+  if ((err = make_map(&tv, v, BH, L, D, kBlockK)) != cudaSuccess) return err;
+  if ((err = make_map(&tg, dout, BH, L, D, kRows)) != cudaSuccess) return err;
+  constexpr size_t smem = dq_smem_bytes<D>();
+  auto kernel = flash_dq_wgmma_kernel<D>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (L + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, tg, static_cast<const float*>(lse),
+                                           static_cast<const float*>(delta),
+                                           static_cast<__nv_bfloat16*>(dq), L, scale, causal);
   return cudaGetLastError();
 }
 

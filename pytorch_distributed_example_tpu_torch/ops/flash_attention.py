@@ -30,11 +30,11 @@ of the true D); a head dim above 256, as in the reference's `_flash_ok`
 gate, raises.
 
 Routes. `kernel_route` is the one rule that says which instance serves a
-(dtype, head dim) on the card: the forward and dK/dV for bf16 operands at
-(padded) D 64 and 128 run on the tensor cores ("wgmma": wgmma on bf16
-tiles fed by TMA, `csrc/flash_wgmma.cuh`); every other case, and dQ always,
-runs the float32 SIMT kernels ("simt"). It routes by shape: nothing catches
-a failed build or launch and tries the other instance.
+(dtype, head dim) on the card, for all three roles: the forward, dK/dV and
+dQ for bf16 operands at (padded) D 64 and 128 run on the tensor cores
+("wgmma": wgmma on bf16 tiles fed by TMA, `csrc/flash_wgmma.cuh`); every
+other case runs the float32 SIMT kernels ("simt"). It routes by shape:
+nothing catches a failed build or launch and tries the other instance.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ NEG_INF = -1e30
 # are zero-padded to the next one
 HEAD_DIMS = (32, 64, 128, 256)
 
-# padded head dims whose bf16 forward and dK/dV run on the wgmma route
+# padded head dims whose bf16 kernels run on the wgmma route
 WGMMA_HEAD_DIMS = (64, 128)
 
 # launches of each kernel since the last reset_launch_counts(); a wrapper
@@ -60,12 +60,12 @@ WGMMA_HEAD_DIMS = (64, 128)
 # role, ROUTE_LAUNCHES by role and route ("flash_fwd:wgmma", ...)
 LAUNCHES = {"flash_fwd": 0, "flash_dkdv": 0, "flash_dq": 0}
 ROUTE_LAUNCHES = {"flash_fwd:wgmma": 0, "flash_fwd:simt": 0, "flash_dkdv:wgmma": 0,
-                  "flash_dkdv:simt": 0, "flash_dq:simt": 0}
+                  "flash_dkdv:simt": 0, "flash_dq:wgmma": 0, "flash_dq:simt": 0}
 
-# How far the wgmma route's outputs (o in bf16 or float32, dK, dV) may stand
-# from the plain versions, which stay float32 throughout: entrywise
+# How far the wgmma route's outputs (o in bf16 or float32, dK, dV, dQ) may
+# stand from the plain versions, which stay float32 throughout: entrywise
 # |got - want| <= rtol * |want| + atol_frac * max|want|. The route rounds P
-# (forward, dV) and dS (dK) to bf16 as wgmma operands, 2**-9 relative per
+# (forward, dV) and dS (dK, dQ) to bf16 as wgmma operands, 2**-9 relative per
 # entry, on top of rounding a bf16 output once as the SIMT route does (which
 # rtol 2**-7 covers). One output entry sums many such rounded terms of both
 # signs, so its error is a share of the entry's spread, not of its value:
@@ -90,6 +90,7 @@ _SIGNATURES = {
     "flash_dq": ([_P] * 7 + [_I, _I, _I, _F, _I, _I, _P], _I),
     "flash_fwd_wgmma": ([_P] * 5 + [_I, _I, _I, _F, _I, _I, _I, _P], _I),
     "flash_dkdv_wgmma": ([_P] * 8 + [_I, _I, _I, _F, _I, _I, _P], _I),
+    "flash_dq_wgmma": ([_P] * 7 + [_I, _I, _I, _F, _I, _I, _P], _I),
     "flash_wgmma_smem_bytes": ([_I, _I], _I),
     "flash_error_string": ([_I], ctypes.c_char_p),
 }
@@ -245,10 +246,10 @@ def _unpad(x, D: int):
 
 
 def kernel_route(dtype, D: int) -> str:
-    """The instance that serves the forward and dK/dV for `dtype` operands
-    at head dim D on the card: "wgmma" for bf16 at a padded D in
-    WGMMA_HEAD_DIMS, else "simt" (dQ is "simt" at every shape). Raises for
-    D above 256 and for a dtype with no kernel."""
+    """The instance that serves the forward, dK/dV and dQ for `dtype`
+    operands at head dim D on the card: "wgmma" for bf16 at a padded D in
+    WGMMA_HEAD_DIMS, else "simt". Raises for D above 256 and for a dtype
+    with no kernel."""
     Dp = kernel_head_dim(D)
     if dtype not in _DTYPE_CODES:
         raise ValueError(
@@ -329,16 +330,18 @@ def _dkdv_cuda(q, k, v, do, lse, delta, scale, causal):
 
 def _dq_cuda(q, k, v, do, lse, delta, scale, causal):
     BH, L, D = q.shape
-    Dp, _ = _check_kernel_operands("flash_dq", q, k, v, do, lse, delta)
+    Dp, route = _check_kernel_operands("flash_dq", q, k, v, do, lse, delta)
     q, k, v, do = (pad_head_dim(t, Dp) for t in (q, k, v, do))
+    if route == "wgmma":
+        _check_tma_aligned("flash_dq", q, k, v, do)
     dq = torch.empty_like(q)
     _launch(
-        "flash_dq", q.device,
+        "flash_dq_wgmma" if route == "wgmma" else "flash_dq", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         BH, L, Dp, float(scale), int(causal), _DTYPE_CODES[q.dtype],
     )
-    _count("flash_dq", "simt")
+    _count("flash_dq", route)
     return _unpad(dq, D)
 
 

@@ -2,9 +2,9 @@
 wgmma route's declared tolerance, on the CPU.
 
 `kernel_route` says which instance serves a (dtype, head dim) on the card:
-the forward and dK/dV for bf16 at a padded D of 64 or 128 run on the tensor
-cores ("wgmma"), the rest on the float32 SIMT kernels ("simt"). The wgmma
-route rounds P and dS to bf16 as wgmma operands, so it is held to
+the forward, dK/dV and dQ for bf16 at a padded D of 64 or 128 run on the
+tensor cores ("wgmma"), the rest on the float32 SIMT kernels ("simt"). The
+wgmma route rounds P and dS to bf16 as wgmma operands, so it is held to
 `WGMMA_BF16_TOL`; the last tests show that rounding alone, done in a copy of
 the plain versions kept in this file, stays inside it. The kernels themselves
 are held against the plain versions on the card by `tests/test_torch_cuda.py`
@@ -34,6 +34,7 @@ def test_every_head_dim_has_exactly_one_route(dtype):
         assert route == want, (dtype, D, route)
         assert f"flash_fwd:{route}" in tfa.ROUTE_LAUNCHES
         assert f"flash_dkdv:{route}" in tfa.ROUTE_LAUNCHES
+        assert f"flash_dq:{route}" in tfa.ROUTE_LAUNCHES
 
 
 @pytest.mark.parametrize("dtype, D", [
@@ -90,7 +91,7 @@ def test_signatures_declare_every_c_function():
     assert set(tfa._SIGNATURES) == set(found)
     for name, (argtypes, restype) in tfa._SIGNATURES.items():
         assert len(argtypes) == found[name], name
-    for role in ("flash_fwd", "flash_dkdv"):
+    for role in ("flash_fwd", "flash_dkdv", "flash_dq"):
         assert tfa._SIGNATURES[f"{role}_wgmma"] == tfa._SIGNATURES[role]
     assert tfa._SIGNATURES["flash_wgmma_smem_bytes"] == (
         [ctypes.c_int, ctypes.c_int], ctypes.c_int)
@@ -161,6 +162,27 @@ def _dkdv_rounding_p_ds(q, k, v, do, lse, delta, scale, causal):
     return dk, dv
 
 
+def _dq_rounding_ds(q, k, v, do, lse, delta, scale, causal):
+    """`_dq_plain` with dS rounded to bf16 before dQ += dS K, as the wgmma
+    dQ kernel feeds it."""
+    dq = torch.empty(q.shape, dtype=torch.float32)
+    for i in range(L // BLOCK):
+        rows = slice(i * BLOCK, (i + 1) * BLOCK)
+        qb, dob = q[:, rows].float(), do[:, rows].float()
+        dqb = torch.zeros((BH, BLOCK, D))
+        for j in range(i + 1 if causal else L // BLOCK):
+            cols = slice(j * BLOCK, (j + 1) * BLOCK)
+            kb, vb = k[:, cols].float(), v[:, cols].float()
+            s = (qb @ kb.transpose(1, 2)) * scale
+            if causal:
+                s = tfa._causal_mask(s, i * BLOCK, j * BLOCK)
+            p = torch.exp(s - lse[:, rows])
+            ds = p * (dob @ vb.transpose(1, 2) - delta[:, rows])
+            dqb = dqb + (_bf16(ds) @ kb) * scale
+        dq[:, rows] = dqb
+    return dq
+
+
 def _within_wgmma_tol(got, want, name):
     tol = tfa.WGMMA_BF16_TOL
     err = (got.float() - want.float()).abs()
@@ -195,3 +217,14 @@ def test_rounding_p_and_ds_stays_within_declared_tolerance(causal):
     got = _dkdv_rounding_p_ds(q, k, v, do, lse, delta, scale, causal)
     for name, g, w in zip(("dk", "dv"), got, want):
         _within_wgmma_tol(g.to(torch.bfloat16), w, name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_rounding_ds_in_dq_stays_within_declared_tolerance(causal):
+    q, k, v, do = _inputs(60 + causal)
+    scale = D ** -0.5
+    o, lse = tfa._fwd_plain(q, k, v, scale, causal, BLOCK, BLOCK)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    want = tfa._dq_plain(q, k, v, do, lse, delta, scale, causal, BLOCK, BLOCK)
+    got = _dq_rounding_ds(q, k, v, do, lse, delta, scale, causal)
+    _within_wgmma_tol(got.to(torch.bfloat16), want, "dq")
