@@ -53,7 +53,18 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    weights), one warm-up step, 2 timed steps after which F, KV and Q
    must each show n_layers * 2 launches on the same routes as the slice,
    and one profiled step.
-9. report: one JSON line of kernels (each Hopper kernel once per Pallas
+9. c10d: the c10d core (`distributed.py`). Driver mode at world 8 on
+   cuda:0 (8 ranks stacked on the one card): every collective and ReduceOp
+   against numpy on the host, exactly, on integer-valued inputs; the toy
+   example through its `run()` at world 8; CUDA-event times (mean of 20
+   calls after 2 warm-ups) of all_reduce(SUM), all_gather, reduce_scatter,
+   broadcast and all_to_all at DDP's 25 MiB bucket a rank, world 8, bf16
+   and float32, and of all_reduce of CFG_1B's whole float32 gradient
+   (3.76 GB a rank) at world 4, each beside its HBM bound (bytes read plus
+   written over 3.35 TB/s); then multiproc mode as a world-1 nccl group
+   through `init_process_group(init_method="tcp://...")`, whose store must
+   be the native one.
+10. report: one JSON line of kernels (each Hopper kernel once per Pallas
    lowering it replaces, with its design, "wgmma" or "simt", and its
    launches per phase), the card's name and power limit, then the `ok`
    line.
@@ -64,13 +75,16 @@ import importlib
 import json
 import math
 import re
+import socket
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
-from pytorch_distributed_example_tpu_torch.examples import lm
+import pytorch_distributed_example_tpu_torch as tdx
+from pytorch_distributed_example_tpu_torch.examples import lm, toy
 from pytorch_distributed_example_tpu_torch.models import TransformerConfig, TransformerLM
 from pytorch_distributed_example_tpu_torch.ops import _build, dense_attention
 from pytorch_distributed_example_tpu_torch.parallel import context_parallel as cp
@@ -673,6 +687,200 @@ def small_ring_check():
     check(ok, "the float32 ring disagrees with dense attention")
 
 
+C10D_WORLD = 8
+BUCKET_BYTES = 25 * 2 ** 20  # DDP's default bucket_cap_mb=25, a rank
+GRAD_WORLD = 4  # CFG_1B's gradient at world 4: 4 x 3.76 GB in, as much out
+C10D_OPS = ("SUM", "AVG", "PRODUCT", "MIN", "MAX", "BAND", "BOR", "BXOR", "PREMUL_SUM(2.5)")
+
+
+def _reduce_op(name):
+    return tdx.ReduceOp.PREMUL_SUM(2.5) if name == "PREMUL_SUM(2.5)" else getattr(
+        tdx.ReduceOp, name)
+
+
+def _host_fold(name, g):
+    """numpy's reduction over the rank axis, in the reference's dtypes."""
+    if name == "AVG":
+        return (g.sum(0, dtype=g.dtype if g.dtype.kind == "f" else np.int64)
+                .astype(np.float32) / g.shape[0])
+    if name == "PREMUL_SUM(2.5)":
+        return (g * g.dtype.type(2.5)).sum(0)
+    return {"SUM": np.sum, "PRODUCT": np.prod, "MIN": np.min, "MAX": np.max,
+            "BAND": np.bitwise_and.reduce, "BOR": np.bitwise_or.reduce,
+            "BXOR": np.bitwise_xor.reduce}[name](g, axis=0).astype(g.dtype)
+
+
+def c10d_parity():
+    """Driver mode at world 8 on the card: every collective and ReduceOp
+    against numpy on the host on the same integer-valued inputs, exactly
+    (sums of eight values in [-2, 2] and products of eight factors of 2
+    are exact in float32 and bfloat16). Returns the number of checks."""
+    W = C10D_WORLD
+    rng = np.random.default_rng(0)
+    checks = []
+
+    def inputs(*shape, dtype=np.float32):
+        return rng.integers(-2, 3, (W,) + shape).astype(dtype)
+
+    def dist(x, dtype=None):
+        t = torch.from_numpy(x)
+        return tdx.DistTensor.from_stacked(t.to(dtype) if dtype is not None else t)
+
+    def same(name, got, want):
+        host = got.tensor.detach().cpu()
+        host = host.float() if host.dtype == torch.bfloat16 else host
+        checks.append(name)
+        check(got.tensor.device.type == "cuda",
+              f"c10d {name}: the result left the card ({got.tensor.device})")
+        check(host.shape == want.shape and np.array_equal(host.numpy(), want),
+              f"c10d {name}: disagrees with the host computation")
+
+    def rows(r):  # W copies of one rank's value
+        return np.broadcast_to(r, (W,) + r.shape)
+
+    for name in C10D_OPS:
+        dtype = np.int32 if name.startswith("B") else np.float32
+        x = inputs(3, 5, dtype=dtype)
+        t = dist(x)
+        tdx.all_reduce(t, _reduce_op(name))
+        same(f"all_reduce {name} {np.dtype(dtype).name}", t, rows(_host_fold(name, x)))
+    for name in ("SUM", "AVG"):
+        x = inputs(4, 3)
+        t = dist(x, torch.bfloat16)
+        tdx.all_reduce(t, _reduce_op(name))
+        same(f"all_reduce {name} bfloat16", t, rows(_host_fold(name, x)))
+        x = inputs(4, dtype=np.int32)
+        t = dist(x)
+        tdx.all_reduce(t, _reduce_op(name))
+        same(f"all_reduce {name} int32", t, rows(_host_fold(name, x)))
+    x = inputs(6)
+    t = dist(x)
+    tdx.reduce(t, 5, tdx.ReduceOp.MAX)
+    want = x.copy()
+    want[5] = x.max(0)
+    same("reduce MAX dst 5", t, want)
+    t = dist(x)
+    tdx.broadcast(t, 3)
+    same("broadcast src 3", t, rows(x[3]))
+    x = inputs(2, 3)
+    same("all_gather", tdx.all_gather(dist(x)), rows(x))
+    want = np.zeros((W, W, 2, 3), np.float32)
+    want[1] = x
+    same("gather dst 1", tdx.gather(dist(x), 1), want)
+    same("all_gather_into_tensor", tdx.all_gather_into_tensor(dist(x)),
+         rows(x.reshape(W * 2, 3)))
+    x = inputs(W, 4)
+    same("scatter src 6", tdx.scatter(dist(x), 6), x[6])
+    for name in ("SUM", "AVG", "MAX", "PRODUCT"):
+        same(f"reduce_scatter {name}", tdx.reduce_scatter(dist(x), _reduce_op(name)),
+             _host_fold(name, x))
+    same("all_to_all", tdx.all_to_all(dist(x)), x.transpose(1, 0, 2))
+    same("all_to_all_single", tdx.all_to_all_single(dist(x.reshape(W, W * 4))),
+         x.transpose(1, 0, 2).reshape(W, W * 4))
+    same("reduce_scatter_tensor", tdx.reduce_scatter_tensor(dist(x.reshape(W, W * 4))),
+         x.sum(0))
+    x = inputs(5)
+    t = dist(x)
+    tdx.send(t, 7, src=2)
+    want = x.copy()
+    want[7] = x[2]
+    same("send 2 -> 7", t, want)
+    t = dist(x)
+    ring = [(r, (r + 1) % W) for r in range(W)]
+    ops = [tdx.P2POp(tdx.isend, t, d, rank=s) for s, d in ring]
+    ops += [tdx.P2POp(tdx.irecv, t, s, rank=d) for s, d in ring]
+    for work in tdx.batch_isend_irecv(ops):
+        work.wait()
+    same("batch_isend_irecv ring", t, np.roll(x, 1, axis=0))
+    return len(checks)
+
+
+def c10d_bound_bytes(name, W, nbytes):
+    """HBM bytes a driver-mode collective must move at world W, `nbytes` a
+    rank: every input row read once, every output row written once."""
+    return {
+        "all_reduce": 2 * W * nbytes,        # W rows in, W rows out
+        "all_gather": (W + W * W) * nbytes,  # W rows in, W x W out
+        "reduce_scatter": (W + 1) * nbytes,  # W rows in, W chunks of 1/W out
+        "broadcast": (1 + W) * nbytes,       # src's row in, W rows out
+        "all_to_all": 2 * W * nbytes,        # W rows in, W rows out
+    }[name]
+
+
+def c10d_time(name, W, nbytes, dtype, card):
+    """Mean device time of one collective over 20 calls after 2 warm-ups
+    (CUDA events), beside its HBM bound. Returns (ms, bound ms)."""
+    n = nbytes // dtype.itemsize
+    chunked = name in ("reduce_scatter", "all_to_all")
+    shape = (W, W, n // W) if chunked else (W, n)
+    t = tdx.DistTensor.wrap(torch.randn(shape, device="cuda", dtype=dtype))
+    call = {
+        "all_reduce": lambda: tdx.all_reduce(t),
+        "all_gather": lambda: tdx.all_gather(t),
+        "reduce_scatter": lambda: tdx.reduce_scatter(t),
+        "broadcast": lambda: tdx.broadcast(t, 0),
+        "all_to_all": lambda: tdx.all_to_all(t),
+    }[name]
+    ms = time_ms(call, iters=20, warmup=2)
+    moved = c10d_bound_bytes(name, W, nbytes)
+    bound_ms = moved / HBM_BYTES_S * 1e3
+    print(f"  {name} {str(dtype)[6:]}, world {W}, {nbytes / 2 ** 20:.1f} MiB a rank: "
+          f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({moved / 1e9:.3f} GB over 3.35 TB/s; "
+          f"{ms / bound_ms:.2f}x the bound, {moved / ms / 1e9:.3f} TB/s)  [{card}]")
+    del t
+    return ms, bound_ms
+
+
+def c10d_phase(card, grad_params):
+    """The c10d core on the card: parity, the toy example, timings, and a
+    world-1 nccl group on the native store."""
+    pg = tdx.init_process_group(world_size=C10D_WORLD)  # the card by default
+    check(pg.device == torch.device("cuda", 0), f"the default group runs on {pg.device}")
+    n = c10d_parity()
+    print(f"  parity: {n} collectives and ReduceOps, world {C10D_WORLD} on {pg.device}, "
+          f"each equal to numpy on the host (exact)")
+    vals = toy.run(C10D_WORLD, 3)
+    check(vals == [28.0, 36.0, 44.0], f"the toy example reduced to {vals}")
+    for name in ("all_reduce", "all_gather", "reduce_scatter", "broadcast", "all_to_all"):
+        for dtype in (torch.bfloat16, torch.float32):
+            c10d_time(name, C10D_WORLD, BUCKET_BYTES, dtype, card)
+    tdx.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    tdx.init_process_group(world_size=GRAD_WORLD)
+    print(f"  CFG_1B's float32 gradient: {grad_params} params, "
+          f"{grad_params * 4 / 1e9:.3f} GB a rank")
+    c10d_time("all_reduce", GRAD_WORLD, grad_params * 4, torch.float32, card)
+    tdx.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    pg = tdx.init_process_group(backend="nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=0, world_size=1, timeout=120)
+    native = pg.store.underlying.native
+    print(f"  multiproc: world-1 nccl group over tcp://127.0.0.1:{port} up in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms (nccl connects at the first "
+          f"collective); store served by the "
+          f"{'native' if native else 'python'} daemon")
+    check(native, "the multiproc store is the Python daemon: the native store did not "
+                  "build (the g++ error is in the log)")
+    t = tdx.DistTensor.from_process_local(torch.arange(1024.0, device="cuda"))
+    t0 = time.perf_counter()
+    tdx.all_reduce(t)
+    t.block_until_ready()
+    print(f"  multiproc: first all_reduce (nccl's connection included) in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    check(t.tensor.device.type == "cuda" and torch.equal(
+        t.tensor[0], torch.arange(1024.0, device="cuda")),
+        "the world-1 nccl all_reduce changed its input")
+    tdx.destroy_process_group()
+    check(not tdx.is_initialized(), "destroy_process_group left a group behind")
+    print("  multiproc: all_reduce of a CUDA tensor through nccl, then destroyed")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -745,7 +953,15 @@ def main():
                                          check_layers=LONG_CHECK_LAYERS)
     print(f"  long in {time.perf_counter() - t0:.1f} s")
 
-    # 9. report
+    # 9. the c10d core
+    t0 = time.perf_counter()
+    print("[c10d]")
+    grad_params = sum(p.numel() for p in TransformerLM(
+        lm.config_for(lm.parse_args(SLICE_ARGV)), device="meta").parameters())
+    c10d_phase(card, grad_params)
+    print(f"  c10d in {time.perf_counter() - t0:.1f} s")
+
+    # 10. report
     kernels = []
     for name, lowerings in REPLACES.items():
         for regime, replaces in lowerings.items():

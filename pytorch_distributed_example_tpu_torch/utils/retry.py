@@ -1,0 +1,166 @@
+"""Shared retry policy: exponential backoff + jitter + deadline propagation.
+
+Every client path to shared infrastructure (store ops, rendezvous,
+p2p connect) retries through this one module so backoff behavior cannot
+drift between call sites — the same reasoning that put `device_sync` in
+benchmarks/common.py. The taxonomy contract (types.py):
+
+  * retryable — transient connection-level failures: `ConnectionError`,
+    `socket.timeout`, `OSError` (refused/reset/unreachable),
+    `DistNetworkError`, and injected `FaultTimeout`s. These back off and
+    try again while the deadline allows.
+  * fatal — everything else, plus the deadline itself: when the budget
+    is exhausted the LAST transient error is wrapped in a
+    `DistTimeoutError` (a `DistError` + `TimeoutError`) and raised; a
+    `DistTimeoutError` is never retryable, so nested retry scopes fail
+    fast instead of multiplying deadlines.
+
+Knobs (env defaults, overridable per-policy):
+
+    TDX_RETRY_BASE_S      first backoff sleep       (default 0.05)
+    TDX_RETRY_MAX_S       backoff ceiling           (default 2.0)
+    TDX_RETRY_MULT        backoff multiplier        (default 2.0)
+    TDX_RETRY_JITTER      jitter fraction in [0,1]  (default 0.5)
+    TDX_RETRY_ATTEMPTS    attempt cap, 0 = no cap   (default 0)
+
+The deadline is the primary bound (store/rendezvous timeouts propagate
+into it); the attempt cap exists for callers without a natural deadline.
+Jitter is `full jitter` scaled: sleep = d * (1 - jitter + jitter*u),
+u ~ U[0,1) from a per-call `random.Random(seed)` when a seed is given
+(tests pin exact sequences) or the process RNG otherwise.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import socket
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple, Type
+
+from ..types import DistError, DistNetworkError, DistTimeoutError
+
+__all__ = [
+    "RetryPolicy",
+    "call_with_retry",
+    "is_retryable",
+    "DEFAULT_RETRYABLE",
+]
+
+# socket.timeout is OSError in py3.10+, listed anyway for clarity
+DEFAULT_RETRYABLE: Tuple[Type[BaseException], ...] = (
+    ConnectionError,
+    socket.timeout,
+    OSError,
+    DistNetworkError,
+)
+
+
+def is_retryable(exc: BaseException) -> bool:
+    """Transient per the taxonomy — and never a deadline expiry."""
+    if isinstance(exc, DistTimeoutError):
+        return False
+    return isinstance(exc, DEFAULT_RETRYABLE)
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return float(v)
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    base_s: float = 0.05
+    max_s: float = 2.0
+    multiplier: float = 2.0
+    jitter: float = 0.5  # fraction of the backoff randomized away
+    max_attempts: int = 0  # 0 = unbounded (deadline is the bound)
+
+    @classmethod
+    def from_env(cls) -> "RetryPolicy":
+        return cls(
+            base_s=_env_float("TDX_RETRY_BASE_S", 0.05),
+            max_s=_env_float("TDX_RETRY_MAX_S", 2.0),
+            multiplier=_env_float("TDX_RETRY_MULT", 2.0),
+            jitter=min(max(_env_float("TDX_RETRY_JITTER", 0.5), 0.0), 1.0),
+            max_attempts=int(_env_float("TDX_RETRY_ATTEMPTS", 0)),
+        )
+
+    def backoff(self, attempt: int, rng: Optional[random.Random] = None) -> float:
+        """Sleep before retry number `attempt` (1-based): exponential with
+        jitter, never exceeding `max_s`."""
+        d = min(self.base_s * (self.multiplier ** (attempt - 1)), self.max_s)
+        u = (rng.random() if rng is not None else random.random())
+        return d * (1.0 - self.jitter + self.jitter * u)
+
+
+_DEFAULT_POLICY: Optional[RetryPolicy] = None
+
+
+def default_policy() -> RetryPolicy:
+    global _DEFAULT_POLICY
+    if _DEFAULT_POLICY is None:
+        _DEFAULT_POLICY = RetryPolicy.from_env()
+    return _DEFAULT_POLICY
+
+
+def call_with_retry(
+    fn: Callable,
+    *,
+    desc: str,
+    timeout: Optional[float] = None,
+    deadline: Optional[float] = None,
+    policy: Optional[RetryPolicy] = None,
+    retryable: Tuple[Type[BaseException], ...] = DEFAULT_RETRYABLE,
+    on_retry: Optional[Callable[[int, BaseException, float], None]] = None,
+    seed: Optional[int] = None,
+):
+    """Run `fn()` until it succeeds, a non-retryable error escapes, or the
+    deadline/attempt budget is spent.
+
+    `timeout` is seconds-from-now; `deadline` is an absolute
+    `time.monotonic()` instant (propagate it through nested calls so a
+    chain of retried ops shares ONE budget instead of compounding).
+    With neither, the policy's attempt cap (or 16, if unbounded) applies.
+    On budget exhaustion raises `DistTimeoutError` from the last error.
+    """
+    policy = policy or default_policy()
+    if deadline is None and timeout is not None:
+        deadline = time.monotonic() + timeout
+    cap = policy.max_attempts
+    if deadline is None and cap <= 0:
+        cap = 16  # no natural bound: refuse to retry forever
+    rng = random.Random(seed) if seed is not None else None
+    attempt = 0
+    last: Optional[BaseException] = None
+    while True:
+        attempt += 1
+        try:
+            return fn()
+        except DistTimeoutError:
+            raise  # a nested deadline already expired: fail fast
+        except retryable as e:
+            last = e
+        remaining = None if deadline is None else deadline - time.monotonic()
+        out_of_time = remaining is not None and remaining <= 0
+        out_of_tries = cap > 0 and attempt >= cap
+        if out_of_time or out_of_tries:
+            why = (
+                f"deadline exhausted after {attempt} attempts"
+                if out_of_time
+                else f"retry budget ({cap} attempts) exhausted"
+            )
+            raise DistTimeoutError(
+                f"{desc}: {why}; last error: "
+                f"{type(last).__name__}: {last}"
+            ) from last
+        sleep = policy.backoff(attempt, rng)
+        if remaining is not None:
+            sleep = min(sleep, max(remaining, 0.0))
+        if on_retry is not None:
+            on_retry(attempt, last, sleep)
+        if sleep > 0:
+            time.sleep(sleep)

@@ -251,3 +251,139 @@ def test_ring_flash_matches_dense(causal):
     torch.testing.assert_close(o, want, **_F32_TOL)
     for name, t, r in zip("qkv", ts, rs):
         torch.testing.assert_close(t.grad, r.grad, **_F32_TOL, msg=f"d{name}")
+
+
+# ---------------------------------------------------------------------------
+# the c10d core on the card
+# ---------------------------------------------------------------------------
+
+
+def _c10d_script(tdx, ReduceOp):
+    """Every driver-mode collective once, on integer-valued inputs; returns
+    each result's tensor."""
+    W = tdx.get_world_size()
+    gen = np.random.default_rng(5)
+
+    def dist(*shape, dtype=torch.float32):
+        x = gen.integers(-2, 3, (W,) + shape).astype(np.float32)
+        return tdx.DistTensor.from_stacked(torch.from_numpy(x).to(dtype))
+
+    out = {}
+    for op in ("SUM", "AVG", "PRODUCT", "MIN", "MAX"):
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            t = dist(3, 5, dtype=dtype)
+            tdx.all_reduce(t, getattr(ReduceOp, op))
+            out[f"all_reduce {op} {dtype}"] = t.tensor
+    for op in ("BAND", "BOR", "BXOR"):
+        t = dist(4, dtype=torch.int32)
+        tdx.all_reduce(t, getattr(ReduceOp, op))
+        out[f"all_reduce {op}"] = t.tensor
+    t = dist(4, dtype=torch.bool)
+    tdx.all_reduce(t, ReduceOp.SUM)
+    out["all_reduce SUM bool"] = t.tensor
+    t = dist(4)
+    tdx.all_reduce(t, ReduceOp.PREMUL_SUM(2.5))
+    out["all_reduce PREMUL_SUM(2.5)"] = t.tensor
+    t = dist(4)
+    tdx.broadcast(t, 3)
+    out["broadcast"] = t.tensor
+    t = dist(4)
+    tdx.reduce(t, 2, ReduceOp.MAX)
+    out["reduce"] = t.tensor
+    out["all_gather"] = tdx.all_gather(dist(3)).tensor
+    out["gather"] = tdx.gather(dist(3), 1).tensor
+    out["scatter"] = tdx.scatter(dist(W, 2), 4).tensor
+    out["reduce_scatter"] = tdx.reduce_scatter(dist(W, 2), ReduceOp.SUM).tensor
+    out["all_to_all"] = tdx.all_to_all(dist(W, 2)).tensor
+    out["all_to_all_single ragged"] = tdx.all_to_all_single(
+        dist(8, 2), input_split_sizes=[1, 0, 2, 1, 1, 0, 1, 2]).tensor
+    t = dist(3)
+    tdx.send(t, 5, src=2)
+    out["send"] = t.tensor
+    return out
+
+
+@pytest.mark.cuda
+def test_c10d_driver_collectives_stay_on_the_card():
+    """World 8 on cuda:0 (the one-device driver mode) against the same
+    script on the CPU: every output lies on the card and agrees exactly."""
+    _need_card()
+    import pytorch_distributed_example_tpu_torch as tdx
+    from pytorch_distributed_example_tpu_torch.types import ReduceOp
+
+    tdx.init_process_group(world_size=8, device="cpu")
+    try:
+        want = {k: v.clone() for k, v in _c10d_script(tdx, ReduceOp).items()}
+    finally:
+        tdx.destroy_process_group()
+    pg = tdx.init_process_group(world_size=8)  # the card by default
+    try:
+        assert pg.device == torch.device("cuda", 0)
+        got = _c10d_script(tdx, ReduceOp)
+    finally:
+        tdx.destroy_process_group()
+    assert got.keys() == want.keys()
+    for name, t in got.items():
+        assert t.device.type == "cuda", name
+        assert t.dtype == want[name].dtype, name
+        torch.testing.assert_close(t.cpu(), want[name], rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.cuda
+def test_c10d_work_follows_the_event():
+    """An async all_reduce queued behind a long kernel is not complete until
+    its event fires; wait() synchronizes on it."""
+    _need_card()
+    import pytorch_distributed_example_tpu_torch as tdx
+
+    tdx.init_process_group(world_size=8)
+    try:
+        t = tdx.DistTensor.from_rank_fn(lambda r: torch.full((1024,), float(r)))
+        torch.cuda._sleep(2_000_000_000)  # ~1 s of spinning ahead on the stream
+        work = tdx.all_reduce(t, async_op=True)
+        assert not work.is_completed()
+        assert work.wait() and work.is_completed()
+        assert torch.equal(t.tensor, torch.full((8, 1024), 28.0, device="cuda"))
+    finally:
+        tdx.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_c10d_toy_example_on_the_card(capsys):
+    _need_card()
+    from pytorch_distributed_example_tpu_torch.examples import toy
+
+    toy.main(["--world-size", "8", "--steps", "3"])
+    assert capsys.readouterr().out.splitlines() == [
+        "initialized: backend=xla world_size=8",
+        "step 0: all_reduce(SUM) -> 28.0 (every rank agrees: True, expect 28)",
+        "step 1: all_reduce(SUM) -> 36.0 (every rank agrees: True, expect 36)",
+        "step 2: all_reduce(SUM) -> 44.0 (every rank agrees: True, expect 44)",
+    ]
+
+
+@pytest.mark.cuda
+def test_c10d_world_one_nccl_group_on_the_native_store():
+    """Multiproc mode at world 1 on the card: the rendezvous, the port's
+    native TCPStore and torch.distributed's nccl group over it."""
+    _need_card()
+    import socket
+
+    import pytorch_distributed_example_tpu_torch as tdx
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    pg = tdx.init_process_group(backend="nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=0, world_size=1, timeout=60)
+    try:
+        assert tdx.distributed._world.mode == "multiproc"
+        assert pg.store.underlying.native
+        assert pg.backend_impl.torch_group is not None
+        t = tdx.DistTensor.from_process_local(torch.arange(6.0, device="cuda"))
+        tdx.all_reduce(t, tdx.ReduceOp.AVG)
+        assert t.tensor.device.type == "cuda"
+        assert torch.equal(t.tensor[0], torch.arange(6.0, device="cuda"))
+    finally:
+        tdx.destroy_process_group()
+    assert not tdx.is_initialized()

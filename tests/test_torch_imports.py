@@ -61,8 +61,11 @@ def test_port_imports_nothing_of_jax():
     *_, modules, last = out.stdout.splitlines()
     word, count = last.split()
     assert word == "clean", out.stdout
-    assert int(count) >= 11  # ops, models, examples, parallel and their modules
-    for name in ("ops.flash_attention", "parallel", "parallel.context_parallel"):
+    # ops, models, examples, parallel, the c10d core, and their modules
+    assert int(count) >= 33
+    for name in ("ops.flash_attention", "parallel", "parallel.context_parallel",
+                 "distributed", "store", "backends.stacked", "backends.process",
+                 "examples.toy"):
         assert f"pytorch_distributed_example_tpu_torch.{name}" in modules.split(), name
 
 
