@@ -64,14 +64,30 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    written over 3.35 TB/s); then multiproc mode as a world-1 nccl group
    through `init_process_group(init_method="tcp://...")`, whose store must
    be the native one.
-10. report: one JSON line of kernels (each Hopper kernel once per Pallas
+10. mnist: the reference workload (DDP-MNIST) on the port's data pipeline,
+   ConvNet and DDP, in driver mode on cuda:0. Three steps of the DDP train
+   step at world 8 (ZeRO auto, dropout off) against the same run on the
+   CPU (float32, TF32 off); ZeRO auto against off, bitwise over 3 steps
+   with cuDNN's deterministic algorithms; 20 steps at world 8, ZeRO auto,
+   batch 64 a rank, on SyntheticMNIST through the port's
+   DistributedSampler and DataLoader: the loss must fall, and every rank's
+   row of each all-gather must be the ranks' shards in rank order. Then
+   `bench.bench_ddp_mnist` (16 warm-up steps, 3 windows of 64, the median
+   after the first) at world 1 and 8, steps_per_call 1 and 8, in samples/s
+   per card; one profiled step at each world (device busy share,
+   launches, top kernels) and the host's ms inside c10d dispatch over an
+   unprofiled step; and the example, `examples.mnist.main(["--epochs",
+   "1"])` (world 8 on the card).
+11. report: one JSON line of kernels (each Hopper kernel once per Pallas
    lowering it replaces, with its design, "wgmma" or "simt", and its
    launches per phase), the card's name and power limit, then the `ok`
    line.
 """
 
+import contextlib
 import dataclasses
 import importlib
+import io
 import json
 import math
 import re
@@ -84,8 +100,10 @@ import numpy as np
 import torch
 
 import pytorch_distributed_example_tpu_torch as tdx
-from pytorch_distributed_example_tpu_torch.examples import lm, toy
-from pytorch_distributed_example_tpu_torch.models import TransformerConfig, TransformerLM
+from pytorch_distributed_example_tpu_torch import bench, optim
+from pytorch_distributed_example_tpu_torch.data import DataLoader, DistributedSampler, SyntheticMNIST
+from pytorch_distributed_example_tpu_torch.examples import lm, mnist, toy
+from pytorch_distributed_example_tpu_torch.models import ConvNet, TransformerConfig, TransformerLM
 from pytorch_distributed_example_tpu_torch.ops import _build, dense_attention
 from pytorch_distributed_example_tpu_torch.parallel import context_parallel as cp
 
@@ -881,6 +899,234 @@ def c10d_phase(card, grad_params):
     print("  multiproc: all_reduce of a CUDA tensor through nccl, then destroyed")
 
 
+MNIST_WORLD = 8
+MNIST_BATCH = 64  # a rank, as the reference bench.py's
+MNIST_STEPS = 20
+MNIST_CHECK_STEPS = 3
+# the bench's windows, shorter than its defaults (20 warm-up steps, windows
+# of 200) so that the whole smoke keeps its time
+MNIST_BENCH = dict(warmup=16, steps=64, windows=3)
+# float32 with TF32 off on both sides, cuDNN's convolutions against
+# oneDNN's: the same sums in other orders. Losses within 1e-5 relative,
+# params within rtol 1e-4, atol 1e-6, as tests/test_torch_ddp.py holds the
+# port against the reference.
+MNIST_LOSS_RTOL = 1e-5
+MNIST_PARAM_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+def mnist_model(device):
+    """The ConvNet from seed 0, initialized on the CPU: the same params on
+    every device."""
+    return ConvNet(device="cpu", generator=torch.Generator().manual_seed(0)).to(device)
+
+
+def mnist_batch(world, device):
+    """The reference bench.py's fixed batch (np.random.default_rng(0)), NCHW
+    on `device`, labels int64."""
+    gen = np.random.default_rng(0)
+    x = gen.standard_normal((MNIST_BATCH * world, 28, 28, 1)).astype(np.float32)
+    y = gen.integers(0, 10, MNIST_BATCH * world).astype(np.int32)
+    return mnist.to_device(x, y, device)
+
+
+def mnist_ddp_run(device, mode, has_rng):
+    """MNIST_CHECK_STEPS steps of the port's DDP train step at world 8 in
+    driver mode on `device`, on the fixed batch: (losses, params) on the
+    host."""
+    tdx.init_process_group(world_size=MNIST_WORLD, device=None if device == "cuda" else device)
+    try:
+        ddp = tdx.DistributedDataParallel(mnist_model(device))
+        opt = optim.sgd(0.01, momentum=0.5)
+        step = ddp.make_train_step(opt, mnist.loss_fn, has_rng=has_rng, shard_weight_update=mode)
+        check(step.weight_update_sharded == (mode == "auto"),
+              f"ZeRO should be {'on' if mode == 'auto' else 'off'} at world 8 under {mode}")
+        x, y = mnist_batch(MNIST_WORLD, device)
+        p, s, losses = ddp.params, opt.init(ddp.params), []
+        for i in range(MNIST_CHECK_STEPS):
+            p, s, loss = step(p, s, x, y, i) if has_rng else step(p, s, x, y)
+            losses.append(loss)
+        return torch.stack(losses).cpu(), {n: t.cpu() for n, t in p.items()}
+    finally:
+        tdx.destroy_process_group()
+
+
+def mnist_step_check():
+    """The DDP step itself (reduce-scatter, sharded update, all-gather) on
+    the card against the CPU, dropout off; then ZeRO auto against off on
+    the card, bitwise."""
+    (gloss, gparams), (closs, cparams) = (mnist_ddp_run(d, "auto", False)
+                                          for d in ("cuda", "cpu"))
+    lerr = float(((gloss - closs).abs() / closs.abs()).max())
+    perr = max(float(((gparams[n] - cparams[n]).abs()
+                      - MNIST_PARAM_TOL["rtol"] * cparams[n].abs()).max())
+               for n in cparams)
+    print(f"  {MNIST_CHECK_STEPS} DDP steps at world {MNIST_WORLD}, ZeRO auto, card vs CPU: "
+          f"losses max rel err {lerr:.3e} (limit {MNIST_LOSS_RTOL:g}); params max "
+          f"(|err| - rtol*|cpu|) {perr:.3e} (rtol {MNIST_PARAM_TOL['rtol']:g}, atol "
+          f"{MNIST_PARAM_TOL['atol']:g}); losses {gloss.tolist()}")
+    check(lerr <= MNIST_LOSS_RTOL and perr <= MNIST_PARAM_TOL["atol"],
+          "the DDP-MNIST step on the card disagrees with the CPU")
+
+    # the contract is about the update given the same gradients: cuDNN's
+    # default weight-gradient algorithms need not sum in the same order
+    # from one run to the next, so it is held with deterministic ones
+    torch.backends.cudnn.deterministic = True
+    try:
+        (aloss, aparams), (oloss, oparams) = (mnist_ddp_run("cuda", m, True)
+                                              for m in ("auto", "off"))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    bitwise = torch.equal(aloss, oloss) and all(torch.equal(aparams[n], oparams[n])
+                                                for n in aparams)
+    print(f"  ZeRO auto vs off over {MNIST_CHECK_STEPS} steps, dropout on, deterministic "
+          f"cuDNN, bitwise equal: {bitwise} (losses {aloss.tolist()})")
+    check(bitwise, "ZeRO auto and off differ on the card")
+
+
+def mnist_train_check():
+    """20 DDP steps at world 8 (ZeRO auto) on SyntheticMNIST through the
+    port's sampler and loader. Every rank's row of each all-gather must be
+    the ranks' updated shards in rank order, so every replica holds the
+    same params."""
+    pg = tdx.init_process_group(world_size=MNIST_WORLD)
+    real_gather = tdx.distributed.all_gather
+    gathered = []
+
+    def spy(tensor, group=None, async_op=False):
+        shards = tensor.tensor.clone()
+        res = real_gather(tensor, group, async_op)
+        gathered.append((shards, res.tensor))
+        return res
+
+    try:
+        data = SyntheticMNIST(4096)
+        samplers = [DistributedSampler(data, MNIST_WORLD, r) for r in range(MNIST_WORLD)]
+        loaders = [DataLoader(data, MNIST_BATCH, sampler=s) for s in samplers]
+        ddp = tdx.DistributedDataParallel(mnist_model("cuda"))
+        opt = optim.sgd(0.01, momentum=0.5)
+        step = ddp.make_train_step(opt, mnist.loss_fn, has_rng=True)
+        check(step.weight_update_sharded, "ZeRO should be on at world 8 under auto")
+        params, state, losses = ddp.params, opt.init(ddp.params), []
+        tdx.distributed.all_gather = spy
+        seq0, epoch = pg.status.last_enqueued_seq, 0
+        t0 = time.perf_counter()
+        while len(losses) < MNIST_STEPS:
+            for s in samplers:
+                s.set_epoch(epoch)
+            for micro in zip(*loaders):
+                if len(losses) == MNIST_STEPS:
+                    break
+                x, y = mnist.to_device(np.concatenate([a for a, _ in micro]),
+                                       np.concatenate([b for _, b in micro]), "cuda")
+                params, state, loss = step(params, state, x, y, len(losses))
+                losses.append(loss)
+            epoch += 1
+        losses = [float(v) for v in losses]
+        dt = time.perf_counter() - t0
+        tdx.distributed.all_gather = real_gather
+        collectives = pg.status.last_enqueued_seq - seq0
+        in_order = all(len(out) == MNIST_WORLD and all(torch.equal(row, shards) for row in out)
+                       for shards, out in gathered)
+        print(f"  {MNIST_STEPS} steps at world {MNIST_WORLD}, ZeRO auto, batch {MNIST_BATCH} a "
+              f"rank, SyntheticMNIST through the sampler and loader, in {dt:.2f} s (data "
+              f"included); losses {[round(v, 4) for v in losses]}; {collectives} collectives; "
+              f"every rank's row of all {len(gathered)} all-gathers is the {MNIST_WORLD} shards "
+              f"in rank order: {in_order}")
+        check(all(math.isfinite(v) for v in losses), "non-finite DDP-MNIST loss")
+        check(sum(losses[-5:]) < sum(losses[:5]), "the DDP-MNIST loss did not fall")
+        check(collectives == 3 * MNIST_STEPS, "each ZeRO step should make 3 collectives")
+        check(len(gathered) == MNIST_STEPS and in_order,
+              "the ranks' params disagree after the all-gather")
+    finally:
+        tdx.distributed.all_gather = real_gather
+        tdx.destroy_process_group()
+
+
+def mnist_profile(world, card):
+    """One DDP step after 5 warm-up steps: the host's ms inside c10d
+    dispatch over an unprofiled step, then a step under torch.profiler
+    (device busy share, launches, top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ddp = tdx.DistributedDataParallel(mnist_model("cuda"))
+    opt = optim.sgd(0.01, momentum=0.5)
+    step = ddp.make_train_step(opt, mnist.loss_fn, has_rng=True)
+    x, y = mnist_batch(world, "cuda")
+    params, state = ddp.params, opt.init(ddp.params)
+    for i in range(5):
+        params, state, _ = step(params, state, x, y, i)
+    torch.cuda.synchronize()
+    real, spent = tdx.ProcessGroup._dispatch, []
+
+    def timed(self, *args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return real(self, *args, **kwargs)
+        finally:
+            spent.append(time.perf_counter() - t)
+
+    tdx.ProcessGroup._dispatch = timed
+    try:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, x, y, 5)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        tdx.ProcessGroup._dispatch = real
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, x, y, 6)
+        torch.cuda.synchronize()
+        pwall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation and e.self_device_time_total > 0),
+                  reverse=True)
+    busy = sum(ms for ms, _, _ in rows)
+    print(f"  world {world}: unprofiled step {wall:.3f} ms, of which {sum(spent) * 1e3:.3f} ms "
+          f"on the host inside {len(spent)} c10d dispatches  [{card}]")
+    if not busy:
+        print("  profiler saw no device time: busy share not measured")
+        return
+    print(f"  world {world}: profiled step {pwall:.3f} ms, device busy {busy:.3f} ms "
+          f"({busy / pwall:.1%}; {busy / wall:.1%} of the unprofiled step), "
+          f"{sum(n for _, n, _ in rows)} kernel launches")
+    for ms, n, key in rows[:8]:
+        print(f"    {ms:8.4f} ms {ms / busy:6.1%} x{n:<4d} {key[:90]}")
+
+
+def mnist_phase(card):
+    mnist_step_check()
+    mnist_train_check()
+    for world in (1, MNIST_WORLD):
+        tdx.init_process_group(world_size=world)
+        try:
+            for spc in (1, 8):
+                r = bench.bench_ddp_mnist(batch_per_rank=MNIST_BATCH, steps_per_call=spc,
+                                          **MNIST_BENCH)
+                mem = r["memory"]
+                print(f"  bench_ddp_mnist world {world} ({'ZeRO' if r['weight_update_sharded'] else 'replicated update'}), "
+                      f"steps_per_call {spc}: {r['samples_per_s_per_device']:.1f} samples/s per "
+                      f"card (windows {[round(v, 1) for v in r['windows']]}), final loss "
+                      f"{r['final_loss']:.4f}, optimizer state {mem['opt_state_bytes_per_device']} "
+                      f"bytes a rank ({mem['opt_state_reduction_x']}x less than replicated)  "
+                      f"[{r['device']}; {card}]")
+                check(math.isfinite(r["final_loss"]), "non-finite bench loss")
+            mnist_profile(world, card)
+        finally:
+            tdx.destroy_process_group()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        trainer = mnist.main(["--epochs", "1"])
+    text = buf.getvalue()
+    print("  example: " + "\n  example: ".join(text.strip().splitlines()))
+    check(f"world_size={MNIST_WORLD}" in text and "Epoch: 1/1, train loss:" in text,
+          "the MNIST example did not print its epoch line at world 8")
+    check(all(math.isfinite(v) for v in trainer.losses), "non-finite loss in the example")
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -961,7 +1207,13 @@ def main():
     c10d_phase(card, grad_params)
     print(f"  c10d in {time.perf_counter() - t0:.1f} s")
 
-    # 10. report
+    # 10. the reference workload: DDP-MNIST
+    t0 = time.perf_counter()
+    print("[mnist]")
+    mnist_phase(card)
+    print(f"  mnist in {time.perf_counter() - t0:.1f} s")
+
+    # 11. report
     kernels = []
     for name, lowerings in REPLACES.items():
         for regime, replaces in lowerings.items():

@@ -11,7 +11,11 @@ kernels (`ops/flash_attention.py`); ring and Ulysses attention in driver
 mode (`parallel/context_parallel.py`); and the c10d core — process groups,
 stores, rendezvous and every collective, in driver and multiproc mode
 (`distributed.py`), driven by the toy all-reduce example
-(`examples/toy.py`). ROADMAP.md lists what is still to come.
+(`examples/toy.py`); and the reference workload on that core: the data
+pipeline (`data/`), the MNIST ConvNet (`models/convnet.py`) and DDP with
+ZeRO weight-update sharding (`parallel/ddp.py`), driven by the MNIST
+example (`examples/mnist.py`) and timed by `bench.py`. ROADMAP.md lists
+what is still to come.
 
 Typical alias, as with the reference:
 
@@ -105,5 +109,7 @@ from .store import (  # noqa: F401  (torch exposes the store family here)
     Store,
     TCPStore,
 )
+
+from .parallel.ddp import DistributedDataParallel  # noqa: F401
 
 __version__ = "0.1.0"

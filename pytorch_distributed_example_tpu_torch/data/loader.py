@@ -1,0 +1,163 @@
+"""Batched DataLoader over an index sampler, with background prefetch.
+
+A copy of the reference's `data/loader.py`: iterate sampler indices, gather
+into contiguous numpy batches. `num_workers > 0` overlaps batch ASSEMBLY
+with the train step the way torch's worker processes do, in one of two
+worker models:
+
+* ``worker_mode="thread"`` (default): a thread pool. Right for
+  numpy-gather and IO fetch work, which release the GIL.
+* ``worker_mode="process"``: real worker processes with a shared-memory
+  return path (`worker_pool.py`) — torch's `num_workers` design
+  (torch/utils/data/dataloader.py), for Python-heavy per-sample decode
+  that the GIL serializes in threads. Deterministic dispatch and
+  per-(epoch, worker) seeding; `get_worker_info()` works inside workers.
+
+`prefetch_factor` bounds how far ahead either model reads. Order is
+always the sampler's order. The batches are numpy; the train loop moves
+each global batch to the device once per step.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+
+
+class DataLoader:
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        sampler: Optional[Iterable[int]] = None,
+        drop_last: bool = False,
+        shuffle: bool = False,
+        seed: int = 0,
+        num_workers: int = 0,
+        prefetch_factor: int = 2,
+        collate_fn: Optional[Callable] = None,
+        worker_mode: str = "thread",
+        worker_init_fn: Optional[Callable] = None,
+    ):
+        if num_workers < 0 or prefetch_factor < 1:
+            raise ValueError("num_workers >= 0 and prefetch_factor >= 1")
+        if worker_mode not in ("thread", "process"):
+            raise ValueError(f"worker_mode must be thread|process, got {worker_mode!r}")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.sampler = sampler
+        self.drop_last = drop_last
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_workers = num_workers
+        self.prefetch_factor = prefetch_factor
+        self.collate_fn = collate_fn
+        self.worker_mode = worker_mode
+        self.worker_init_fn = worker_init_fn
+        self._epoch = 0
+        self._plain_epochs = 0  # per-__iter__ counter (no-sampler, no-shuffle)
+        self._pool = None  # lazily-started ProcessPool, reused across epochs
+
+    def _indices(self):
+        if self.sampler is not None:
+            return list(iter(self.sampler))
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            self._epoch += 1
+            return rng.permutation(len(self.dataset)).tolist()
+        return list(range(len(self.dataset)))
+
+    def _batches(self, indices):
+        for start in range(0, len(indices), self.batch_size):
+            batch_idx = indices[start : start + self.batch_size]
+            if self.drop_last and len(batch_idx) < self.batch_size:
+                return
+            yield np.asarray(batch_idx)
+
+    def _fetch(self, idx):
+        out = self.dataset[idx]
+        return self.collate_fn(out) if self.collate_fn is not None else out
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        indices = self._indices()
+        if self.num_workers == 0:
+            for idx in self._batches(indices):
+                yield self._fetch(idx)
+            return
+        if self.worker_mode == "process":
+            yield from self._iter_process(indices)
+            return
+        yield from self._iter_prefetch(indices)
+
+    def _iter_process(self, indices):
+        from .worker_pool import ProcessPool
+
+        if self._pool is None:
+            self._pool = ProcessPool(
+                self.dataset,
+                self.num_workers,
+                self.prefetch_factor,
+                self.collate_fn,
+                self.worker_init_fn,
+                self.seed,
+            )
+        # The reseed epoch: the sampler's set_epoch() value when one is
+        # attached (the DistributedSampler training pattern), else the
+        # shuffle counter _indices() advanced, else a plain per-__iter__
+        # counter — so the per-(epoch, worker) seeding contract fires on
+        # EVERY path, not only sampler-less shuffle.
+        if self.sampler is not None and hasattr(self.sampler, "epoch"):
+            epoch = int(self.sampler.epoch)
+        else:
+            epoch = self._epoch if self.shuffle else self._plain_epochs
+            self._plain_epochs += 1
+        yield from self._pool.run_epoch(epoch, list(self._batches(indices)))
+
+    def shutdown(self) -> None:
+        """Stop process-mode workers (no-op otherwise). Also runs on GC."""
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
+
+    def __del__(self):
+        try:
+            self.shutdown()
+        except Exception:
+            pass
+
+    def _iter_prefetch(self, indices):
+        """Fetch up to num_workers batches concurrently, keeping at most
+        num_workers * prefetch_factor in flight, delivering in order."""
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+
+        depth = self.num_workers * self.prefetch_factor
+        pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        pending = deque()
+        batch_iter = self._batches(indices)
+        try:
+            for idx in batch_iter:
+                pending.append(pool.submit(self._fetch, idx))
+                # drain only past the depth so `depth` fetches remain
+                # queued WHILE the consumer runs its step (at depth=1 a
+                # `>=` drain would serialize fetch and consume entirely).
+                # The transient depth+1 queue entry is a COMPLETED batch
+                # buffer, not an extra concurrent fetch — concurrency is
+                # capped by the pool's num_workers either way.
+                if len(pending) > depth:
+                    yield pending.popleft().result()
+            while pending:
+                yield pending.popleft().result()
+            pool.shutdown(wait=True)
+        except BaseException:
+            # consumer bailed early / fetch raised: drop queued work and
+            # do NOT block on in-flight fetches finishing
+            pool.shutdown(wait=False, cancel_futures=True)
+            raise
+
+    def __len__(self) -> int:
+        n = len(self.sampler) if self.sampler is not None else len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size

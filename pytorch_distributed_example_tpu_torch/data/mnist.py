@@ -1,0 +1,100 @@
+"""MNIST dataset without torchvision.
+
+A copy of the reference's `data/mnist.py`: it reads the raw IDX files
+(the on-disk format torchvision downloads) from a local directory, and
+falls back to a deterministic synthetic set when none is given. Nothing is
+downloaded.
+
+Normalization matches the canonical torch MNIST example: mean 0.1307, std
+0.3081. Images stay NHWC float32 numpy, as the reference's are; the port's
+ConvNet takes NCHW, and the train loop transposes once per global batch on
+its way to the device.
+"""
+
+from __future__ import annotations
+
+import gzip
+import os
+import struct
+from typing import Optional, Tuple
+
+import numpy as np
+
+MNIST_MEAN = 0.1307
+MNIST_STD = 0.3081
+
+_FILES = {
+    "train_images": "train-images-idx3-ubyte",
+    "train_labels": "train-labels-idx1-ubyte",
+    "test_images": "t10k-images-idx3-ubyte",
+    "test_labels": "t10k-labels-idx1-ubyte",
+}
+
+
+def _read_idx(path: str) -> np.ndarray:
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        magic = struct.unpack(">I", f.read(4))[0]
+        ndim = magic & 0xFF
+        dtype_code = (magic >> 8) & 0xFF
+        if dtype_code != 0x08:
+            raise ValueError(f"unsupported IDX dtype 0x{dtype_code:02x} in {path}")
+        shape = struct.unpack(f">{ndim}I", f.read(4 * ndim))
+        data = np.frombuffer(f.read(), dtype=np.uint8)
+        return data.reshape(shape)
+
+
+def _find(root: str, base: str) -> Optional[str]:
+    for sub in ("", "MNIST/raw", "mnist", "raw"):
+        for ext in ("", ".gz"):
+            p = os.path.join(root, sub, base + ext)
+            if os.path.exists(p):
+                return p
+    return None
+
+
+class MNIST:
+    """Array-backed MNIST with len/getitem (the sampler's Sized contract)."""
+
+    def __init__(self, images: np.ndarray, labels: np.ndarray, normalize: bool = True):
+        assert images.shape[0] == labels.shape[0]
+        x = images.astype(np.float32) / 255.0
+        if normalize:
+            x = (x - MNIST_MEAN) / MNIST_STD
+        # NHWC with a channel dim, the reference's layout
+        self.images = x[..., None] if x.ndim == 3 else x
+        self.labels = labels.astype(np.int32)
+
+    def __len__(self) -> int:
+        return self.images.shape[0]
+
+    def __getitem__(self, idx):
+        return self.images[idx], self.labels[idx]
+
+
+def SyntheticMNIST(n: int = 4096, seed: int = 0, normalize: bool = True) -> MNIST:
+    """Deterministic fake MNIST (28×28 uint8, 10 classes) for tests/bench.
+
+    Class-dependent structure so a ConvNet can actually fit it (loss falls).
+    """
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, size=n).astype(np.uint8)
+    images = rng.integers(0, 40, size=(n, 28, 28)).astype(np.uint8)
+    # stamp a class-dependent bright block so the task is learnable
+    for c in range(10):
+        sel = labels == c
+        r, col = divmod(c, 4)
+        images[sel, 4 + 5 * r : 9 + 5 * r, 4 + 6 * col : 9 + 6 * col] += 180
+    return MNIST(np.clip(images, 0, 255), labels, normalize=normalize)
+
+
+def load_mnist(root: Optional[str], train: bool = True, synthetic_n: int = 4096) -> MNIST:
+    """Load real MNIST from `root` if present, else synthetic."""
+    if root:
+        prefix = "train" if train else "test"
+        img_p = _find(root, _FILES[f"{prefix}_images"])
+        lbl_p = _find(root, _FILES[f"{prefix}_labels"])
+        if img_p and lbl_p:
+            return MNIST(_read_idx(img_p), _read_idx(lbl_p))
+    return SyntheticMNIST(synthetic_n if train else max(synthetic_n // 4, 512),
+                          seed=0 if train else 1)

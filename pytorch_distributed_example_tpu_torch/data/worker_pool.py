@@ -1,0 +1,386 @@
+"""Process-based DataLoader workers with a shared-memory return path.
+
+A copy of the reference's `data/worker_pool.py`. torch's DataLoader forks
+worker PROCESSES to escape the GIL on Python-heavy per-sample decode
+(torch/utils/data/dataloader.py, the `num_workers` semantics the reference
+example relies on). This module is that design:
+
+* N worker processes, each owning `prefetch_factor` reusable
+  shared-memory segments;
+* STRICTLY deterministic dispatch — batch seq -> worker (seq % N),
+  slot (seq // N) % prefetch_factor — so augmentation RNG streams are
+  reproducible run-to-run (torch's _worker_queue_idx_cycle contract);
+* batches whose leaves are numpy arrays return through shared memory
+  (one write in the worker, one read-side copy in the parent — no
+  pickling of the bulk bytes); anything else falls back to pickle;
+* per-epoch worker seeding: `seed_for(base_seed, epoch, worker_id)`,
+  exposed in the worker via `get_worker_info()` (torch parity) and
+  applied to numpy's global RNG before the first fetch of each epoch;
+* a worker exception travels back with its traceback and re-raises in
+  the parent naming the worker (torch's _MultiProcessingDataLoaderIter
+  error contract); a dead worker is detected by liveness polling, not
+  an eternal queue.get.
+
+The parent copies each batch out of the segment at receive time, which
+is what makes slot reuse safe: a slot is re-dispatched only after the
+result that used it was drained from the result queue.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import os
+import pickle
+import queue as queue_mod
+import traceback
+from dataclasses import dataclass
+from multiprocessing import shared_memory
+from typing import Any, Callable, List, Optional
+
+import numpy as np
+
+_WORKER_INFO = None
+
+
+def _attach_shm(name: str) -> shared_memory.SharedMemory:
+    """Attach to a worker-owned segment. 3.13+: track=False (the WORKER
+    owns unlink). Pre-3.13 attach also registers with the shared
+    resource_tracker; that's left in place — the worker's unlink
+    unregisters once, and racing a manual unregister against it makes
+    the tracker daemon KeyError. Orderly pool shutdown (atexit below)
+    is what keeps exit clean."""
+    try:
+        return shared_memory.SharedMemory(name=name, track=False)
+    except TypeError:
+        return shared_memory.SharedMemory(name=name)
+
+
+@dataclass
+class WorkerInfo:
+    """What `get_worker_info()` reports inside a worker process
+    (torch `torch.utils.data.get_worker_info` parity)."""
+
+    id: int
+    num_workers: int
+    seed: int
+    epoch: int
+
+
+def get_worker_info() -> Optional[WorkerInfo]:
+    """Inside a loader worker: this worker's identity + epoch seed.
+    In the main process (or thread mode): None."""
+    return _WORKER_INFO
+
+
+def seed_for(base_seed: int, epoch: int, worker_id: int, num_workers: int) -> int:
+    """Deterministic per-(epoch, worker) seed, distinct across both."""
+    return (base_seed + epoch * max(num_workers, 1) + worker_id) % (2**31)
+
+
+def _flatten_batch(out):
+    """(treedef, leaves): tuple/list/dict nests of numpy arrays -> shm;
+    anything else -> None (pickle fallback)."""
+    leaves: List[np.ndarray] = []
+
+    def rec(x):
+        if isinstance(x, np.ndarray) and x.dtype != object:
+            leaves.append(x)
+            return ("leaf", len(leaves) - 1)
+        if isinstance(x, tuple):
+            return ("tuple", [rec(v) for v in x])
+        if isinstance(x, list):
+            return ("list", [rec(v) for v in x])
+        if isinstance(x, dict):
+            return ("dict", [(k, rec(v)) for k, v in x.items()])
+        return None
+
+    tree = rec(out)
+
+    def ok(t):
+        if t is None:
+            return False
+        kind, body = t
+        if kind == "leaf":
+            return True
+        if kind == "dict":
+            return all(ok(v) for _, v in body)
+        return all(ok(v) for v in body)
+
+    return (tree, leaves) if ok(tree) else (None, None)
+
+
+def _unflatten_batch(tree, leaves):
+    kind, body = tree
+    if kind == "leaf":
+        return leaves[body]
+    if kind == "tuple":
+        return tuple(_unflatten_batch(v, leaves) for v in body)
+    if kind == "list":
+        return [_unflatten_batch(v, leaves) for v in body]
+    return {k: _unflatten_batch(v, leaves) for k, v in body}
+
+
+def _worker_main(
+    worker_id: int,
+    num_workers: int,
+    dataset,
+    collate_fn: Optional[Callable],
+    worker_init_fn: Optional[Callable],
+    base_seed: int,
+    prefetch_factor: int,
+    index_q,
+    result_q,
+):
+    """Worker loop: (run, seq, epoch, indices, slot) -> fetch -> shm
+    write -> (run, seq, worker_id, slot, meta). None shuts the worker
+    down. `run` tags which run_epoch() call dispatched the task, so the
+    parent can discard leftovers of an abandoned iteration."""
+    global _WORKER_INFO
+    segments: List[Optional[shared_memory.SharedMemory]] = [None] * prefetch_factor
+    # worker_init_fn runs ONCE per worker lifetime (torch's contract,
+    # incl. persistent_workers=True) — per-epoch re-invocation would
+    # leak any connections/mmaps it opens. Only the RESEED is per-epoch.
+    # A startup failure must still reach the parent WITH its traceback
+    # (run tag 0 = fatal, any iteration), not as a bare dead-worker.
+    try:
+        seed0 = seed_for(base_seed, 0, worker_id, num_workers)
+        _WORKER_INFO = WorkerInfo(worker_id, num_workers, seed0, 0)
+        np.random.seed(seed0)
+        if worker_init_fn is not None:
+            worker_init_fn(worker_id)
+    except Exception:
+        result_q.put((0, -1, worker_id, -1, ("err", traceback.format_exc())))
+        return
+    cur_epoch = 0
+    try:
+        while True:
+            task = index_q.get()
+            if task is None:
+                break
+            run, seq, epoch, indices, slot = task
+            if epoch != cur_epoch:
+                cur_epoch = epoch
+                seed = seed_for(base_seed, epoch, worker_id, num_workers)
+                _WORKER_INFO = WorkerInfo(worker_id, num_workers, seed, epoch)
+                np.random.seed(seed)  # the torch-parity global-RNG contract
+            try:
+                out = dataset[indices]
+                if collate_fn is not None:
+                    out = collate_fn(out)
+                tree, leaves = _flatten_batch(out)
+                if tree is None:
+                    result_q.put(
+                        (run, seq, worker_id, slot, ("pkl", pickle.dumps(out)))
+                    )
+                    continue
+                total = sum(a.nbytes for a in leaves)
+                seg = segments[slot]
+                if seg is None or seg.size < total:
+                    if seg is not None:
+                        seg.close()
+                        seg.unlink()
+                    seg = shared_memory.SharedMemory(
+                        create=True, size=max(total, 1)
+                    )
+                    segments[slot] = seg
+                metas = []
+                off = 0
+                for a in leaves:
+                    a = np.ascontiguousarray(a)
+                    seg.buf[off : off + a.nbytes] = memoryview(a).cast("B")
+                    metas.append((str(a.dtype), a.shape, off))
+                    off += a.nbytes
+                result_q.put(
+                    (run, seq, worker_id, slot, ("shm", seg.name, tree, metas))
+                )
+            except Exception:
+                result_q.put(
+                    (run, seq, worker_id, slot, ("err", traceback.format_exc()))
+                )
+    finally:
+        for seg in segments:
+            if seg is not None:
+                try:
+                    seg.close()
+                    seg.unlink()
+                except Exception:
+                    pass
+
+
+class ProcessPool:
+    """Epoch-spanning pool of loader workers (persistent across epochs:
+    spawning processes per epoch would pay fork+import every epoch)."""
+
+    def __init__(
+        self,
+        dataset,
+        num_workers: int,
+        prefetch_factor: int,
+        collate_fn: Optional[Callable],
+        worker_init_fn: Optional[Callable],
+        base_seed: int,
+    ):
+        self.num_workers = num_workers
+        self.prefetch_factor = prefetch_factor
+        # Start the resource tracker BEFORE forking: otherwise each
+        # worker lazily spawns its own tracker for the segments it
+        # creates, while the parent's tracker registers every attach and
+        # (since only workers unlink) warns ENOENT for all of them at
+        # exit. One shared tracker sees register+unregister pairs.
+        try:
+            from multiprocessing import resource_tracker
+
+            resource_tracker.ensure_running()
+        except Exception:
+            pass
+        # spawn by default: this framework's parent process is RELIABLY
+        # multi-threaded in real use (watchdog scanner, store daemon,
+        # prefetch threads), and fork() from a multi-threaded parent can
+        # deadlock the child if any lock is held at fork time. Spawn requires a
+        # picklable dataset/collate/init_fn (torch's spawn contract) and
+        # pays interpreter+import bring-up ONCE per pool (workers persist
+        # across epochs). TDX_LOADER_START_METHOD=fork remains the
+        # opt-in fast path for single-threaded parents that need
+        # copy-on-write sharing of a large in-memory dataset.
+        ctx = mp.get_context(os.environ.get("TDX_LOADER_START_METHOD", "spawn"))
+        self._result_q = ctx.Queue()
+        self._index_qs = [ctx.Queue() for _ in range(num_workers)]
+        self._procs = [
+            ctx.Process(
+                target=_worker_main,
+                args=(
+                    w,
+                    num_workers,
+                    dataset,
+                    collate_fn,
+                    worker_init_fn,
+                    base_seed,
+                    prefetch_factor,
+                    self._index_qs[w],
+                    self._result_q,
+                ),
+                daemon=True,
+                name=f"tdx-loader-w{w}",
+            )
+            for w in range(num_workers)
+        ]
+        for p in self._procs:
+            p.start()
+        self._closed = False
+        self._run = 0  # run_epoch() incarnation counter (stale-result tag)
+        # daemon workers are TERMINATED (not joined) if the parent exits
+        # first, which can interrupt their shm unlink mid-flight; close
+        # pools before interpreter teardown instead.
+        import atexit
+
+        atexit.register(self.close)
+
+    # -- one epoch ---------------------------------------------------------
+
+    def run_epoch(self, epoch: int, batches: List[np.ndarray]):
+        """Yield fetched batches in order. `batches` is the full epoch's
+        index arrays; dispatch is seq%N / slot (seq//N)%P, a slot
+        re-dispatched only after its previous result was received.
+
+        Each call gets a fresh `run` tag; results carrying an older tag
+        (an abandoned earlier iteration — early `break`, raised error)
+        are discarded instead of being delivered as this epoch's
+        batches. Discarding without attaching also keeps slot reuse
+        safe: the worker only overwrites a slot after its queue drained
+        the stale tasks that used it."""
+        self._run += 1
+        run = self._run
+        n = len(batches)
+        W, P = self.num_workers, self.prefetch_factor
+        next_dispatch = 0
+        received: dict = {}
+        next_yield = 0
+
+        def dispatch_upto(limit):
+            nonlocal next_dispatch
+            while next_dispatch < min(limit, n):
+                s = next_dispatch
+                self._index_qs[s % W].put((run, s, epoch, batches[s], (s // W) % P))
+                next_dispatch += 1
+
+        dispatch_upto(W * P)  # fill every slot
+        while next_yield < n:
+            if next_yield in received:
+                batch = received.pop(next_yield)
+                next_yield += 1
+                # the slot that produced batch `next_yield-1` is free:
+                # its next occupant is seq+W*P
+                dispatch_upto(next_yield + W * P)
+                yield batch
+                continue
+            try:
+                r, seq, wid, slot, body = self._result_q.get(timeout=5.0)
+            except queue_mod.Empty:
+                dead = [w for w, p in enumerate(self._procs) if not p.is_alive()]
+                if dead:
+                    raise RuntimeError(
+                        f"DataLoader worker(s) {dead} exited unexpectedly"
+                    ) from None
+                continue
+            if r == 0:  # worker startup failure: fatal in any run
+                self._materialize(wid, body)  # raises with the traceback
+            if r != run:
+                continue  # leftover from an abandoned iteration
+            received[seq] = self._materialize(wid, body)
+
+    def _materialize(self, wid: int, body):
+        kind = body[0]
+        if kind == "err":
+            raise RuntimeError(
+                f"DataLoader worker {wid} raised:\n{body[1]}"
+            )
+        if kind == "pkl":
+            return pickle.loads(body[1])
+        _, name, tree, metas = body
+        seg = _attach_shm(name)
+        try:
+            leaves = []
+            for dtype, shape, off in metas:
+                dt = np.dtype(dtype)
+                count = int(np.prod(shape, dtype=np.int64))
+                view = np.frombuffer(seg.buf, dtype=dt, count=count, offset=off)
+                leaves.append(view.reshape(shape).copy())  # copy out: slot reuse
+                del view  # release the exported buffer before seg.close()
+            return _unflatten_batch(tree, leaves)
+        finally:
+            seg.close()
+
+    # -- teardown ----------------------------------------------------------
+
+    def close(self):
+        if self._closed:
+            return
+        self._closed = True
+        import atexit
+
+        try:  # drop the atexit strong ref: closed pools must be GC-able
+            atexit.unregister(self.close)
+        except Exception:
+            pass
+        for q in self._index_qs:
+            try:
+                q.put(None)
+            except Exception:
+                pass
+        for p in self._procs:
+            p.join(timeout=5.0)
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=2.0)
+        for q in self._index_qs + [self._result_q]:
+            try:
+                q.close()
+            except Exception:
+                pass
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

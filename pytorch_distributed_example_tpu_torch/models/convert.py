@@ -1,6 +1,6 @@
 """Carry the reference's flax params across to the port's state dicts.
 
-`from_flax` takes the TransformerLM param tree as numpy arrays (the
+`from_flax` (TransformerLM) and `convnet_from_flax` (ConvNet) take the TransformerLM param tree as numpy arrays (the
 reference's `model.init(...)` with every leaf passed through
 `np.asarray`; the top-level "params" collection is optional) and returns a
 `state_dict` for `models.transformer.TransformerLM`:
@@ -11,7 +11,16 @@ reference's `model.init(...)` with every leaf passed through
     */attn_norm|mlp_norm/scale     -> ....weight
     final_norm/scale               -> final_norm.weight
 
-The tests pass JAX gradients through the same function, to compare them
+`convnet_from_flax` maps the ConvNet's tree onto `models.convnet.ConvNet`:
+
+    Conv_0, Conv_1 /kernel -> conv1, conv2 .weight, HWIO -> OIHW
+    Dense_0 /kernel        -> fc1.weight, its 320 rows permuted from the
+                              reference's (h, w, c) flatten order to the
+                              port's (c, h, w), then transposed
+    Dense_1 /kernel        -> fc2.weight, transposed
+    */bias                 -> ....bias, as is
+
+The tests pass JAX gradients through the same functions, to compare them
 with the port's `.grad`s.
 """
 
@@ -50,4 +59,29 @@ def from_flax(params) -> dict:
         else:
             raise KeyError(f"no port counterpart for flax param {'/'.join(path)}")
         out[".".join(mods) + ".weight"] = torch.tensor(arr)
+    return out
+
+
+_CONVNET = {"Conv_0": "conv1", "Conv_1": "conv2", "Dense_0": "fc1", "Dense_1": "fc2"}
+_POOLED = (4, 4, 20)  # (h, w, c) of the activations Dense_0 reads
+
+
+def convnet_from_flax(params) -> dict:
+    if "params" in params:
+        params = params["params"]
+    out = {}
+    for path, leaf in _flatten(params):
+        arr = np.asarray(leaf)
+        if len(path) != 2 or path[0] not in _CONVNET or path[1] not in ("kernel", "bias"):
+            raise KeyError(f"no port counterpart for flax param {'/'.join(path)}")
+        layer, kind = path
+        if kind == "kernel" and layer.startswith("Conv"):
+            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        elif kind == "kernel" and layer == "Dense_0":
+            h, w, c = _POOLED
+            arr = arr.reshape(h, w, c, -1).transpose(2, 0, 1, 3).reshape(h * w * c, -1).T
+        elif kind == "kernel":
+            arr = arr.T
+        out[f"{_CONVNET[layer]}.{'weight' if kind == 'kernel' else 'bias'}"] = torch.tensor(
+            np.ascontiguousarray(arr))
     return out

@@ -28,6 +28,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+    # the optimizer and ptxas spread the instances over every core: on the
+    # 8-core host of an H100 80GB HBM3 the flash library built in 7.0 s
+    # instead of 16.0 (chip_smoke.py's [build] line), with the same ptxas
+    # report (registers, spills, barriers) for every instance
+    "-split-compile=0", "-Xptxas", "--split-compile=0",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}

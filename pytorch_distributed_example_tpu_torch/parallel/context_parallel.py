@@ -3,10 +3,12 @@
 The port of the JAX package's `parallel/context_parallel.py`. There each
 rank holds its sequence shard inside `shard_map`: ring attention moves the
 KV shards one hop around the ring with `lax.ppermute`, Ulysses reshards
-with `lax.all_to_all`. Until the port has its c10d core (ROADMAP, Queue 1,
-"c10d core") it runs the ranks in driver mode: the W ranks' shards are one
-rank-stacked tensor (W, B, L/W, H, D) on one device, the layout of the
-reference's own driver mode. So:
+with `lax.all_to_all`. The port has its c10d core (`distributed.py`), but
+the ring does not go through it yet: it runs the ranks in driver mode
+only, the W ranks' shards one rank-stacked tensor (W, B, L/W, H, D) on one
+device, the layout of the reference's own driver mode, until its
+multiproc mode routes the shift through the core's isend/irecv (ROADMAP,
+Queue 1 item 2). So:
 
 * the ring shift i -> i+1 is `torch.roll(x, 1, dims=0)`, and a rank's
   `axis_index` is its index along dim 0;
@@ -19,8 +21,8 @@ reference's own driver mode. So:
 * Ulysses' all_to_all is a reshape and permute of the stacked dims.
 
 `make_cp_attention(world, ...)` takes and returns global (B, L, H, D)
-tensors; the world size stands in for the reference's mesh until the c10d
-core brings one. The multi-process mode follows that core.
+tensors; a bare world size stands in for the reference's mesh until that
+multiproc mode takes a process group or a `DeviceMesh` of the core.
 """
 
 from __future__ import annotations

@@ -25,6 +25,7 @@ def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m cuda on the H100)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 # On the SIMT route kernel and plain version both compute in float32 from the
@@ -387,3 +388,55 @@ def test_c10d_world_one_nccl_group_on_the_native_store():
     finally:
         tdx.destroy_process_group()
     assert not tdx.is_initialized()
+
+
+def _ddp_run(device, shard, has_rng, steps):
+    """`tests/_ddp_cases.run` on a world-8 driver-mode group on `device`.
+    The module is loaded from its file: where another installed package is
+    named `tests`, `from tests import ...` would find that one."""
+    import importlib.util
+    import os
+
+    import pytorch_distributed_example_tpu_torch as tdx
+
+    spec = importlib.util.spec_from_file_location(
+        "_ddp_cases", os.path.join(os.path.dirname(__file__), "_ddp_cases.py"))
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+
+    tdx.init_process_group(world_size=8, device=device)
+    try:
+        return cases.run(tdx, steps, shard, has_rng=has_rng)
+    finally:
+        tdx.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_ddp_step_on_the_card_matches_the_cpu():
+    """Driver mode at world 8 on cuda:0 (ZeRO auto, dropout off) against the
+    same run on the CPU: cuDNN's convolution algorithms sum in another
+    order than oneDNN's, so losses are held to rtol 1e-5 and params to
+    rtol 1e-4, atol 1e-6 (float32; TF32 off)."""
+    _need_card()
+    card = _ddp_run(None, "auto", False, 3)
+    cpu = _ddp_run("cpu", "auto", False, 3)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5, atol=0)
+    for n, p in card[1].items():
+        np.testing.assert_allclose(p, cpu[1][n], rtol=1e-4, atol=1e-6, err_msg=n)
+
+
+@pytest.mark.cuda
+def test_ddp_zero_auto_matches_off_bitwise_on_the_card():
+    """The contract is about the update given the same gradients, so both
+    runs take cuDNN's deterministic algorithms: its default weight-gradient
+    ones need not sum in the same order from one run to the next."""
+    _need_card()
+    torch.backends.cudnn.deterministic = True
+    try:
+        auto = _ddp_run(None, "auto", True, 3)
+        off = _ddp_run(None, "off", True, 3)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert auto[0] == off[0]
+    for n in auto[1]:
+        np.testing.assert_array_equal(auto[1][n], off[1][n], err_msg=n)

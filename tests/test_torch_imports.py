@@ -61,11 +61,14 @@ def test_port_imports_nothing_of_jax():
     *_, modules, last = out.stdout.splitlines()
     word, count = last.split()
     assert word == "clean", out.stdout
-    # ops, models, examples, parallel, the c10d core, and their modules
-    assert int(count) >= 33
+    # ops, models, examples, parallel, the c10d core, data, DDP and their
+    # modules
+    assert int(count) >= 48
     for name in ("ops.flash_attention", "parallel", "parallel.context_parallel",
                  "distributed", "store", "backends.stacked", "backends.process",
-                 "examples.toy"):
+                 "examples.toy", "data.sampler", "data.loader", "models.convnet",
+                 "parallel.ddp", "parallel.zero", "parallel.reducer", "examples.mnist",
+                 "bench", "numerics"):
         assert f"pytorch_distributed_example_tpu_torch.{name}" in modules.split(), name
 
 
