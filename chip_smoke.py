@@ -78,7 +78,23 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    launches, top kernels) and the host's ms inside c10d dispatch over an
    unprofiled step; and the example, `examples.mnist.main(["--epochs",
    "1"])` (world 8 on the card).
-11. report: one JSON line of kernels (each Hopper kernel once per Pallas
+11. fsdp_tp: the trainer over an ("fsdp", "tp") mesh of 2 x 2 in driver
+   mode on cuda:0 (`examples/lm.py` with --tp 2 at 4 ranks: fully_shard by
+   the reference's transformer rules, the batch split over fsdp, AdamW on
+   the shards), at the slice's full width, depth and global work. Its
+   first step's loss and every gathered gradient against the single-card
+   step on the same weights and tokens (|dloss| <= 1e-2, rms(diff)/rms <=
+   3e-2), three steps with a finite, falling loss, two warm-up steps, 3
+   timed steps (step time, tokens/s, MFU as the slice counts it, peak
+   memory, per-rank bytes of params and optimizer state), then one
+   profiled step in which F, KV and Q must launch once a layer for all
+   four ranks, on the wgmma route. The MoE (8 experts, top-1) with its
+   depth cut to 4 layers: its first step against the single card in
+   float32 (loss and gradients; bf16 rounding moves a few tokens to other
+   experts), then the same run as the dense one in bf16 (loss against the
+   single card), with the aux values; then `make_ep_moe` at 4 ranks
+   against its single-rank computation at the same width.
+12. report: one JSON line of kernels (each Hopper kernel once per Pallas
    lowering it replaces, with its design, "wgmma" or "simt", and its
    launches per phase), the card's name and power limit, then the `ok`
    line.
@@ -105,7 +121,9 @@ from pytorch_distributed_example_tpu_torch.data import DataLoader, DistributedSa
 from pytorch_distributed_example_tpu_torch.examples import lm, mnist, toy
 from pytorch_distributed_example_tpu_torch.models import ConvNet, TransformerConfig, TransformerLM
 from pytorch_distributed_example_tpu_torch.ops import _build, dense_attention
+from pytorch_distributed_example_tpu_torch.dtensor import DTensor
 from pytorch_distributed_example_tpu_torch.parallel import context_parallel as cp
+from pytorch_distributed_example_tpu_torch.parallel import expert_parallel as ep
 
 # the module (its package exports the `flash_attention` function by that name)
 fa = importlib.import_module("pytorch_distributed_example_tpu_torch.ops.flash_attention")
@@ -126,6 +144,18 @@ LONG_CHECK_LAYERS = 2  # the dense path's f32 scores take 17.2 GB a layer at L 1
 LONG_WARMUP_STEPS = 1
 LONG_TIMED_STEPS = 2
 RING_WORLD, RING_SHARD = 4, 16384
+# the sharded trainer: fsdp 2 x tp 2 in driver mode on cuda:0, the slice's
+# global work; the MoE at the same width, its depth cut to 4 layers
+FSDP_TP_WORLD, FSDP_TP_TP = 4, 2
+FSDP_TP_ARGV = SLICE_ARGV + ["--tp", str(FSDP_TP_TP)]
+MOE_ARGV = ["--vocab-size", "32000", "--d-model", "2048", "--n-layers", "4", "--n-heads", "16",
+            "--seq", "1024", "--batch-size", "4", "--bf16", "--lr", "1e-3",
+            "--tp", str(FSDP_TP_TP), "--n-experts", "8"]
+FSDP_TP_STEPS = 3  # checked steps, which warm up the timed ones
+# bf16 against the single card: o/down's partial products are summed over
+# tp where the single card sums in one matmul
+SHARDED_LOSS_TOL, SHARDED_GRAD_RMS = 1e-2, 3e-2
+EP_WORLD, EP_EXPERTS = 4, 8
 SOURCE = "pytorch_distributed_example_tpu_torch/csrc/flash_attention.cu"
 WGMMA_SOURCE = "pytorch_distributed_example_tpu_torch/csrc/flash_wgmma.cuh"
 PALLAS = "pytorch_distributed_example_tpu/ops/flash_attention.py"
@@ -139,7 +169,7 @@ REPLACES = {
 }
 # the phases that drive the port's main paths, by the regime they put the
 # kernels in
-PHASES = {"resident": ("slice",), "streamed": ("ring", "long")}
+PHASES = {"resident": ("slice", "fsdp_tp"), "streamed": ("ring", "long")}
 
 
 class SmokeFailure(RuntimeError):
@@ -517,7 +547,7 @@ def train_phase(argv, warmup_steps, timed_steps, card, check_layers=None):
     counted, then one profiled step. Returns the launches of the timed
     steps."""
     args = lm.parse_args(argv)
-    model, opt, next_tokens = lm.build(args)
+    model, opt, next_tokens = lm.build(args, world=1)
     cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
     print(f"  config: vocab {cfg.vocab_size}, d {cfg.d_model}, layers {cfg.n_layers}, "
@@ -1127,6 +1157,156 @@ def mnist_phase(card):
     torch.cuda.empty_cache()
 
 
+def rel_rms(got, want):
+    return float((got.float() - want.float()).pow(2).mean().sqrt()
+                 / want.float().pow(2).mean().sqrt().clamp_min(1e-30))
+
+
+def sharded_first_step(argv, grads=True):
+    """The trainer (`examples/lm.py`) over fsdp 2 x tp 2 in driver mode on
+    cuda:0, from the weights of a single-card model: its first step's loss
+    and every gathered gradient against that model's, held to the bf16
+    tolerance (the gradients only with `grads`). Returns (the FSDPModule, its optimizer,
+    next_tokens, args, param count, the first loss)."""
+    args = lm.parse_args(argv)
+    # the single-card model and token stream: the weights the sharded
+    # trainer's own build would make (init seed 0)
+    model, _, next_tokens = lm.build(lm.parse_args([*argv, "--tp", "1"]), world=1)
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = next_tokens()
+    loss1 = lm.loss_fn(model(tokens), tokens)
+    loss1.backward()
+    want = {n: p.grad for n, p in model.named_parameters()}
+    loss1 = float(loss1.detach())
+    for p in model.parameters():
+        p.grad = None
+    mod = lm.shard(model, args.lr, FSDP_TP_WORLD, FSDP_TP_TP)
+    opt = mod.step.init_opt_state(mod.params)
+    print(f"  config: vocab {cfg.vocab_size}, d {cfg.d_model}, layers {cfg.n_layers}, heads "
+          f"{cfg.n_heads}, d_ff {cfg.ffn_dim}, experts {cfg.n_experts}, seq {args.seq}, global "
+          f"batch {args.batch_size}, {cfg.dtype}; {n_params / 1e6:.1f}M params; mesh fsdp "
+          f"{mod.mesh.shape[0]} x tp {mod.mesh.shape[1]} (driver mode on {mod.mesh.device})")
+    loss = float(lm.train_step(mod, opt, tokens))
+    worst, worst_name = 0.0, None
+    for name, dt in mod.params.items():
+        got = DTensor(dt._local.grad, dt.device_mesh, dt.placements).full_tensor()
+        r = rel_rms(got, want[name])
+        if r > worst:
+            worst, worst_name = r, name
+    del want
+    print(f"  first step against the single card on the same weights and tokens: loss "
+          f"{loss:.5f} vs {loss1:.5f}; largest rms(grad diff)/rms(grad) {worst:.3e} "
+          f"({worst_name}){'' if grads else ', not checked'}")
+    check(abs(loss - loss1) <= SHARDED_LOSS_TOL and (worst <= SHARDED_GRAD_RMS or not grads),
+          f"the sharded step disagrees with the single card beyond the bf16 tolerance "
+          f"(|dloss| <= {SHARDED_LOSS_TOL}, rms ratio <= {SHARDED_GRAD_RMS})")
+    return mod, opt, next_tokens, args, n_params, loss
+
+
+def sharded_train(argv, card, timed_steps, grads=True):
+    """`sharded_first_step`, then three steps with a finite, falling loss,
+    `timed_steps` timed steps, and one profiled step whose launches are
+    counted. Returns (routes of the profiled step, aux of the MoE layers or
+    None)."""
+    mod, opt, next_tokens, args, n_params, first = sharded_first_step(argv, grads)
+    cfg = mod.module.cfg
+    losses = [first]
+    for _ in range(FSDP_TP_STEPS - 1):
+        losses.append(float(lm.train_step(mod, opt, next_tokens())))
+    print(f"  losses of the first {FSDP_TP_STEPS} steps: {losses}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          "the sharded trainer's loss is not finite and falling")
+    # the step after the checked ones still ran ~40% slow on the H100
+    for _ in range(WARMUP_STEPS):
+        lm.train_step(mod, opt, next_tokens())
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(timed_steps):
+        batch = next_tokens()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = lm.train_step(mod, opt, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    check(math.isfinite(float(loss)), "non-finite loss in a timed step")
+    peak = torch.cuda.max_memory_allocated()
+    mean_s = sum(step_s) / len(step_s)
+    model_flops = ((6.0 * n_params + 12.0 * cfg.n_layers * cfg.d_model * args.seq)
+                   * args.batch_size * args.seq)
+    mem = mod.step.memory_report(mod.params, opt)
+    print(f"  step times (s) {step_s}; mean step {mean_s * 1e3:.2f} ms, "
+          f"{args.batch_size * args.seq / mean_s:.0f} tokens/s, MFU "
+          f"{model_flops / mean_s / PEAK_FLOPS[torch.bfloat16]:.4f} (as the slice counts it), "
+          f"peak memory {peak / 2 ** 30:.2f} GiB  [{card}]")
+    print(f"  per rank: params {mem['param_bytes_per_device']} bytes of "
+          f"{mem['param_bytes']}, optimizer state {mem['opt_state_bytes_per_device']} of "
+          f"{mem['opt_state_bytes']} ({mem['opt_state_reduction_x']}x less than replicated)")
+    aux = getattr(mod.module, "sharded_aux", None)
+    if cfg.n_experts:
+        aux = [float(a.detach()) for a in aux]
+        print(f"  MoE load-balance aux by layer (last step): {aux}")
+        check(len(aux) == cfg.n_layers and all(math.isfinite(a) for a in aux), "bad MoE aux")
+    print("[profile] one more step under torch.profiler; its launches counted")
+    fa.reset_launch_counts()
+    profile_step(mod, opt, next_tokens(), mean_s * 1e3)
+    launches, routes = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
+    print(f"  launches in the profiled step: {launches}; by route: {routes}")
+    check(all(launches[n] == cfg.n_layers for n in REPLACES),
+          f"F, KV and Q should launch once a layer for all {FSDP_TP_WORLD} ranks: {launches}")
+    check(routes == want_routes(cfg.n_layers),
+          f"F, KV and Q should all take the wgmma route: {routes}")
+    del mod, opt
+    torch.cuda.empty_cache()
+    return routes, aux
+
+
+def ep_moe_check(T_=4096, D=2048, F_=5504, E=EP_EXPERTS, device="cuda"):
+    """`make_ep_moe` over EP_WORLD ranks in driver mode on cuda:0, at CFG_1B's
+    width (the slice's 4096 tokens, d 2048, d_ff 5504, 8 experts, bf16),
+    against its plain single-rank computation: each rank's tokens through
+    `moe_mlp` over every expert, the aux the ranks' mean."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    x = torch.randn(T_, D, device=device, generator=gen).to(torch.bfloat16)
+    up = (torch.randn(E, D, F_, device=device, generator=gen) / math.sqrt(D)).to(torch.bfloat16)
+    down = (torch.randn(E, F_, D, device=device, generator=gen) / math.sqrt(F_)).to(
+        torch.bfloat16)
+    router = torch.randn(D, E, device=device, generator=gen) / math.sqrt(D)
+    mesh = tdx.DeviceMesh([device] * EP_WORLD, (EP_WORLD,), ("ep",))
+    y, aux = ep.make_ep_moe(mesh, "ep")(x, up, down, router)
+    rows = [ep.moe_mlp(xr, up, down, router) for xr in x.chunk(EP_WORLD)]
+    want = torch.cat([r[0] for r in rows])
+    want_aux = sum(float(r[1]) for r in rows) / EP_WORLD
+    r = rel_rms(y, want)
+    print(f"  make_ep_moe at {EP_WORLD} ep ranks, {T_} tokens, d {D}, d_ff {F_}, {E} experts, "
+          f"bf16: rms(diff)/rms {r:.3e}, max |diff| {float((y - want).abs().max()):.3e}; aux "
+          f"{float(aux):.6f} vs {want_aux:.6f}")
+    check(y.shape == (T_, D) and bool(torch.isfinite(y).all()) and r <= 1e-2
+          and abs(float(aux) - want_aux) <= 1e-5,
+          "make_ep_moe disagrees with its single-rank computation (rms ratio <= 1e-2, "
+          "|daux| <= 1e-5)")
+
+
+def fsdp_tp_phase(card):
+    """The sharded trainer, dense at CFG_1B's full width and depth and MoE
+    at full width with 4 layers, then the ep-sharded MoE. Returns the
+    dense profiled step's routes."""
+    print("  dense:")
+    routes, _ = sharded_train(FSDP_TP_ARGV, card, TIMED_STEPS)
+    print("  MoE (8 experts, top-1, capacity 1.25; depth cut to 4 layers), float32 first "
+          "step:")
+    # in bf16 the tp ranks' rounding can move a token to another expert (a
+    # discrete choice), whose experts' gradients then differ by far more
+    # than rounding; in float32 (TF32 off) the routing is the single
+    # card's, and the step is held to it, gradients included
+    sharded_first_step([a for a in MOE_ARGV if a != "--bf16"])
+    torch.cuda.empty_cache()
+    print("  MoE, bf16 (loss against the single card; timed):")
+    sharded_train(MOE_ARGV, card, TIMED_STEPS, grads=False)
+    ep_moe_check()
+    return routes
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1213,7 +1393,13 @@ def main():
     mnist_phase(card)
     print(f"  mnist in {time.perf_counter() - t0:.1f} s")
 
-    # 11. report
+    # 11. sharded training: fsdp 2 x tp 2, dense and MoE
+    t0 = time.perf_counter()
+    print("[fsdp_tp]")
+    phase_launches["fsdp_tp"] = fsdp_tp_phase(card)
+    print(f"  fsdp_tp in {time.perf_counter() - t0:.1f} s")
+
+    # 12. report
     kernels = []
     for name, lowerings in REPLACES.items():
         for regime, replaces in lowerings.items():

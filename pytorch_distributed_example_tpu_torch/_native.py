@@ -108,6 +108,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_long,
         ctypes.c_char_p,
         ctypes.c_long,
+        ctypes.c_double,
     ]
     lib.tdx_store_client_response.restype = ctypes.POINTER(ctypes.c_char)
     lib.tdx_store_client_response.argtypes = [ctypes.c_void_p]

@@ -267,14 +267,29 @@ struct Daemon {
 };
 
 // --------------------------------------------------------------- client --
+constexpr int kNotSent = -1;
+constexpr int kNoResponse = -2;
+
 struct Client {
   int fd = -1;
   std::mutex mu;
   std::string last;  // last response payload
 
-  bool call(uint8_t cmd, const char* key_p, size_t key_n, const char* val_p,
-            size_t val_n) {
+  // 0: the response is in `last`; kNotSent: the request did not fully
+  // leave (the daemon applies a request only once all of it has arrived,
+  // so it was not applied); kNoResponse: the request was sent and its
+  // response was lost (it may have been applied).
+  int call(uint8_t cmd, const char* key_p, size_t key_n, const char* val_p,
+           size_t val_n, double timeout_s) {
     std::lock_guard<std::mutex> lock(mu);
+    // each call waits as long as its own op has left, whatever budget
+    // the connection was dialed with
+    timeval tv;
+    if (timeout_s < 0.001) timeout_s = 0.001;
+    tv.tv_sec = static_cast<long>(timeout_s);
+    tv.tv_usec = static_cast<long>((timeout_s - tv.tv_sec) * 1e6);
+    setsockopt(fd, SOL_SOCKET, SO_RCVTIMEO, &tv, sizeof(tv));
+    setsockopt(fd, SOL_SOCKET, SO_SNDTIMEO, &tv, sizeof(tv));
     uint32_t klen = static_cast<uint32_t>(key_n);
     uint32_t vlen = static_cast<uint32_t>(val_n);
     // header and value go out as separate send()s: large values would
@@ -286,13 +301,13 @@ struct Client {
     hdr.append(reinterpret_cast<char*>(&klen), 4);
     hdr.append(key_p, key_n);
     hdr.append(reinterpret_cast<char*>(&vlen), 4);
-    if (!send_all(fd, hdr.data(), hdr.size())) return false;
-    if (val_n && !send_all(fd, val_p, val_n)) return false;
+    if (!send_all(fd, hdr.data(), hdr.size())) return kNotSent;
+    if (val_n && !send_all(fd, val_p, val_n)) return kNotSent;
     uint32_t rlen;
-    if (!recv_all(fd, &rlen, 4)) return false;
+    if (!recv_all(fd, &rlen, 4)) return kNoResponse;
     last.resize(rlen);
-    if (rlen && !recv_all(fd, last.data(), rlen)) return false;
-    return true;
+    if (rlen && !recv_all(fd, last.data(), rlen)) return kNoResponse;
+    return 0;
   }
 };
 
@@ -409,15 +424,17 @@ void tdx_store_client_close(void* h) {
   delete c;
 }
 
-// Returns response length, or -1 on transport error. Response bytes are
-// fetched with tdx_store_client_response (valid until the next call).
+// Returns the response length; -1 when the request was not (fully) sent,
+// so not applied; -2 when it was sent and its response was lost. Waits at
+// most timeout_s for each send and receive. Response bytes are fetched
+// with tdx_store_client_response (valid until the next call).
 long tdx_store_client_call(void* h, int cmd, const char* key, long klen,
-                           const char* val, long vlen) {
+                           const char* val, long vlen, double timeout_s) {
   auto* c = static_cast<Client*>(h);
   // zero-copy through the ABI: the Python bytes buffers are sent directly
-  if (!c->call(static_cast<uint8_t>(cmd), key, static_cast<size_t>(klen),
-               val, static_cast<size_t>(vlen)))
-    return -1;
+  int rc = c->call(static_cast<uint8_t>(cmd), key, static_cast<size_t>(klen),
+                   val, static_cast<size_t>(vlen), timeout_s);
+  if (rc != 0) return rc;
   return static_cast<long>(c->last.size());
 }
 

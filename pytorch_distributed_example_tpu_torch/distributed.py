@@ -714,6 +714,17 @@ def destroy_process_group(group: Optional[ProcessGroup] = None) -> None:
             pg.backend_impl.shutdown()
         if tdist.is_initialized():
             tdist.destroy_process_group()  # every torch.distributed group
+        # Drop the last references to torch's groups here, so their gloo
+        # worker threads are joined now. A ProcessGroup the caller still
+        # holds (init_process_group's and new_group's return values) used
+        # to keep its torch group alive until interpreter finalization;
+        # joining its threads there meant a worker that needed the GIL
+        # (to free its last work's tensors) was ended by Python's
+        # pthread_exit, whose forced unwind through a noexcept frame calls
+        # std::terminate: "terminate called without an active exception".
+        for pg in _world.pg_map.values():
+            pg.torch_group = None
+        _world.torch_store = None
         st = _world.store
         if st is not None:
             if _world.mode == "multiproc" and _world.default_pg is not None:
@@ -748,6 +759,7 @@ def destroy_process_group(group: Optional[ProcessGroup] = None) -> None:
         group.backend_impl.shutdown()
         if group.torch_group is not None and group.torch_group is not tdist.GroupMember.NON_GROUP_MEMBER:
             tdist.destroy_process_group(group.torch_group)
+        group.torch_group = None  # joins its threads now (see above)
         _world.pg_map.pop(group.group_name, None)
 
 

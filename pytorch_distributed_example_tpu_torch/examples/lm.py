@@ -1,5 +1,5 @@
-"""TransformerLM training on one card: the port of the reference's
-`examples/lm/main.py` (its single-chip path) and of `bench.py`'s MFU step.
+"""TransformerLM training: the port of the reference's `examples/lm/main.py`
+and of `bench.py`'s MFU step.
 
 Run:  python -m pytorch_distributed_example_tpu_torch.examples.lm --steps 50
       python -m pytorch_distributed_example_tpu_torch.examples.lm \\
@@ -12,21 +12,33 @@ A causal LM on the reference's Markov synthetic token stream (numpy seed
 0). One step is the forward, cross-entropy of logits[:, :-1] against
 tokens[:, 1:] (mean), the backward, and AdamW with optax.adamw's defaults.
 It runs on cuda:0 and raises when there is no card; `--cpu` runs it on the
-CPU with the kernels' plain versions. `--tp` and `--n-experts` are refused:
-the mesh/FSDP wrap is the identity on one card, and sharded training is a
-later part of the port.
+CPU with the kernels' plain versions.
+
+As the reference's trainer it trains over an ("fsdp", "tp") mesh with
+fsdp = W // tp: `fully_shard` by `transformer_sharding_rules("tp",
+"fsdp")`, the batch split over fsdp, AdamW on the shards. W is the number
+of ranks in driver mode, all of them on the one device: the
+TDX_EXAMPLES_CPU_DEVICES variable (default 2), the count the reference
+forces its host devices to under --cpu; here it is read on the card as
+well. At W = 1 the step is the single-card one. `--n-experts` switches
+every MLP to the MoE.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import math
+import os
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models import TransformerConfig, TransformerLM
+from ..mesh import DeviceMesh
+from ..models import TransformerConfig, TransformerLM, transformer_sharding_rules
+from ..parallel.fsdp import FSDPModule, fully_shard
 
 
 def batches(data: np.ndarray, batch: int, seq: int, seed: int):
@@ -44,24 +56,26 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--n-heads", type=int, default=8)
     ap.add_argument("--n-kv-heads", type=int, default=None,
                     help="fewer than --n-heads is grouped-query attention")
-    ap.add_argument("--n-experts", type=int, default=0, help="refused: not ported")
+    ap.add_argument("--n-experts", type=int, default=0,
+                    help="> 0: every MLP is a top-1 MoE of this many experts")
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--batch-size", type=int, default=16)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--tp", type=int, default=1, help="refused above 1: not ported")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks; the rest of the W ranks are fsdp")
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--no-flash", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the kernels' plain versions)")
-    args = ap.parse_args(argv)
-    if args.tp != 1:
-        ap.error("--tp is not ported yet (ROADMAP.md, Queue 1, 'Sharded training')")
-    if args.n_experts:
-        ap.error("--n-experts is not ported yet (ROADMAP.md, Queue 1, 'Sharded training')")
-    return args
+    return ap.parse_args(argv)
+
+
+def world_size() -> int:
+    """The driver-mode rank count W: TDX_EXAMPLES_CPU_DEVICES, default 2."""
+    return int(os.environ.get("TDX_EXAMPLES_CPU_DEVICES", "2"))
 
 
 def device_for(args) -> torch.device:
@@ -79,6 +93,7 @@ def config_for(args) -> TransformerConfig:
         n_layers=args.n_layers,
         n_heads=args.n_heads,
         n_kv_heads=args.n_kv_heads,
+        n_experts=args.n_experts,
         max_seq_len=args.seq,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         use_flash=not args.no_flash,
@@ -92,14 +107,23 @@ def loss_fn(logits, tokens):
     return F.cross_entropy(logits[:, :-1].reshape(-1, V), tokens[:, 1:].reshape(-1))
 
 
+def adamw(lr: float):
+    """optax.adamw's defaults (torch's own weight decay default is 1e-2), as
+    a callable taking the parameters."""
+    return functools.partial(torch.optim.AdamW, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
 def make_optimizer(model, lr: float) -> torch.optim.AdamW:
-    # optax.adamw's defaults; torch's own weight decay default is 1e-2
-    return torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                             eps=1e-8, weight_decay=1e-4)
+    return adamw(lr)(model.parameters())
 
 
 def train_step(model, opt, tokens) -> torch.Tensor:
-    """One step; returns the loss (on the model's device, not synchronised)."""
+    """One step; returns the loss (on the model's device, not synchronised).
+    `model` is a TransformerLM, or the FSDPModule of `build` at W > 1."""
+    if isinstance(model, FSDPModule):
+        _, _, loss = model.step(model.params, opt, tokens, tokens)
+        return loss
     opt.zero_grad(set_to_none=True)
     loss = loss_fn(model(tokens), tokens)
     loss.backward()
@@ -107,9 +131,31 @@ def train_step(model, opt, tokens) -> torch.Tensor:
     return loss.detach()
 
 
-def build(args):
-    """(model, optimizer, next_tokens) for parsed `args`; `next_tokens()`
-    draws the next (batch, seq) int64 batch onto the model's device."""
+def shard(model, lr: float, world: int, tp: int) -> FSDPModule:
+    """`model` fully sharded over an ("fsdp", "tp") mesh of `world` ranks on
+    its device, as the reference's trainer wraps it, with its train step
+    as `.step` (AdamW). The model's own copy of the weights moves to the
+    meta device: the shards are the weights from here on."""
+    if world % tp:
+        raise ValueError(f"--tp {tp} does not divide the {world} ranks")
+    device = next(model.parameters()).device
+    mesh = DeviceMesh([device] * world, (world // tp, tp), ("fsdp", "tp"))
+    mod = fully_shard(model, None, mesh, axis="fsdp",
+                      rules=transformer_sharding_rules("tp", "fsdp"), data_axes=("fsdp",))
+    model.to("meta")
+    mod.step = mod.make_train_step(adamw(lr), loss_fn)
+    return mod
+
+
+def build(args, world=None):
+    """(model, optimizer, next_tokens) for parsed `args` over `world` ranks
+    (default `world_size()`); `next_tokens()` draws the next (batch, seq)
+    int64 global batch onto the model's device. At world 1 the model is a
+    TransformerLM and the optimizer torch's AdamW; above, the FSDPModule
+    of `shard` and its optimizer state."""
+    world = world_size() if world is None else world
+    if world == 1 and args.tp != 1:
+        raise ValueError(f"--tp {args.tp} needs that many ranks (TDX_EXAMPLES_CPU_DEVICES)")
     device = device_for(args)
     gen = np.random.default_rng(0)
     # Markovian synthetic stream so the LM has learnable structure
@@ -117,7 +163,11 @@ def build(args):
     # init seed 0, as the reference's PRNGKey(0); the bits differ
     init_gen = torch.Generator(device=device).manual_seed(0)
     model = TransformerLM(config_for(args), device=device, generator=init_gen)
-    opt = make_optimizer(model, args.lr)
+    if world == 1:
+        opt = make_optimizer(model, args.lr)
+    else:
+        model = shard(model, args.lr, world, args.tp)
+        opt = model.step.init_opt_state(model.params)
     it = batches(data, args.batch_size, args.seq + 1, 1)
     next(it)  # the reference draws its init batch from the stream first
 
@@ -131,8 +181,14 @@ def main(argv=None) -> list:
     """Train for --steps steps; returns the per-step losses."""
     args = parse_args(argv)
     model, opt, next_tokens = build(args)
-    device = next(model.parameters()).device
-    n_params = sum(p.numel() for p in model.parameters())
+    if isinstance(model, FSDPModule):
+        device = model.mesh.device
+        n_params = sum(math.prod(p.shape) for p in model.params.values())
+        print(f"devices={model.mesh.size} (driver mode on {device}) "
+              f"mesh=fsdp{model.mesh.shape[0]}xtp{model.mesh.shape[1]}")
+    else:
+        device = next(model.parameters()).device
+        n_params = sum(p.numel() for p in model.parameters())
     print(f"device={device} params={n_params / 1e6:.1f}M  starting {args.steps} steps")
     losses = []
     t0 = time.perf_counter()

@@ -10,6 +10,11 @@ reference's `model.init(...)` with every leaf passed through
     lm_head/kernel                 -> lm_head.weight, transposed
     */attn_norm|mlp_norm/scale     -> ....weight
     final_norm/scale               -> final_norm.weight
+    */mlp/router|experts_up|experts_down -> ....mlp.router|experts_up|experts_down,
+                                      as is (the MoE keeps the reference's layout)
+
+`to_flax` is its inverse: a state dict (tensors or `DTensor`s, gathered
+with `full_tensor`) back to the flax-shaped tree of numpy arrays.
 
 `convnet_from_flax` maps the ConvNet's tree onto `models.convnet.ConvNet`:
 
@@ -56,9 +61,42 @@ def from_flax(params) -> dict:
             arr = arr.T
         elif leaf_name == "scale" and mods[-1].endswith("_norm"):
             pass
+        elif leaf_name in _MOE and mods and mods[-1] == "mlp":
+            out[".".join(mods + [leaf_name])] = torch.tensor(arr)
+            continue
         else:
             raise KeyError(f"no port counterpart for flax param {'/'.join(path)}")
         out[".".join(mods) + ".weight"] = torch.tensor(arr)
+    return out
+
+
+_MOE = ("router", "experts_up", "experts_down")
+
+
+def to_flax(state) -> dict:
+    """A TransformerLM state dict (tensors or DTensors) -> the reference's
+    param tree as numpy arrays (without the "params" wrapper)."""
+    out: dict = {}
+    for name, value in state.items():
+        t = value.full_tensor() if hasattr(value, "full_tensor") else value
+        arr = t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 else \
+            t.detach().cpu().numpy()
+        parts = name.split(".")
+        if parts[0] == "layers":
+            parts = [f"layers_{parts[1]}"] + parts[2:]
+        *mods, leaf = parts
+        if leaf in _MOE:
+            mods, flax_leaf = mods + [leaf], None
+        elif mods == ["tok_embed"]:
+            flax_leaf = "embedding"
+        elif mods[-1].endswith("_norm"):
+            flax_leaf = "scale"
+        else:
+            flax_leaf, arr = "kernel", arr.T
+        node = out
+        for m in mods[:-1] if flax_leaf is None else mods:
+            node = node.setdefault(m, {})
+        node[mods[-1] if flax_leaf is None else flax_leaf] = np.ascontiguousarray(arr)
     return out
 
 

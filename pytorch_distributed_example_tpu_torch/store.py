@@ -397,6 +397,9 @@ _CMD_DELETE = 6
 _CMD_NUMKEYS = 7
 _CMD_PING = 8
 
+# tdx_store_client_call's return for a request that did not fully leave
+_NATIVE_NOT_SENT = -1
+
 # fault-injection point names + retry descriptions per wire command
 _CMD_NAMES = {
     _CMD_SET: "set",
@@ -658,11 +661,16 @@ class TCPStore(Store):
         if self.native:
             if self._native_client is None:
                 self._connect_native(deadline=deadline)
-            # the native client performs send+recv in one call: treat
-            # any failure of a non-idempotent op as ambiguous
+            # the native client sends and receives in one call, each wait
+            # bounded by what is left of this op's deadline; it tells a
+            # request that never fully left (not applied: retryable for
+            # every op) from one whose response was lost
             n = self._lib.tdx_store_client_call(
-                self._native_client, cmd, kb, len(kb), val, len(val)
+                self._native_client, cmd, kb, len(kb), val, len(val),
+                max(deadline - time.monotonic(), 0.001),
             )
+            if n == _NATIVE_NOT_SENT:
+                raise ConnectionError("native store request not sent")
             if n < 0:
                 if cmd == _CMD_ADD:
                     self._drop_connection_locked()
@@ -670,7 +678,7 @@ class TCPStore(Store):
                         f"store add({key!r}) failed after the request may "
                         "have been applied; not retrying a non-idempotent op"
                     )
-                raise ConnectionError("native store call failed")
+                raise ConnectionError("native store response lost")
             import ctypes
 
             return ctypes.string_at(

@@ -29,7 +29,8 @@ import pytest
 import pytorch_distributed_example_tpu as jtdx
 from pytorch_distributed_example_tpu.types import ReduceOp as JOp
 from tests import _c10d_cases as cases
-from tests._mp_util import REPO, free_port, worker_env
+from tests._mp_util import REPO
+from tests._torch_gang import gang_env, gang_port
 
 GANG_TIMEOUT_S = 120
 
@@ -116,8 +117,8 @@ def _gang(script, tmp_path, extra_env=None, world=cases.W):
     """Run `script` as ranks 0..world-1 of one gang; (returncodes, outputs)."""
     path = tmp_path / "worker.py"
     path.write_text(script)
-    port = free_port()
-    env = {**worker_env(), **(extra_env or {})}
+    port = gang_port()
+    env = {**gang_env(), **(extra_env or {})}
     procs = [subprocess.Popen([sys.executable, str(path), str(r), str(world), str(port),
                                str(tmp_path / f"rank{r}.pkl")],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, cwd=REPO)

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_distributed_example_tpu_torch.dtensor import DTensor
 from pytorch_distributed_example_tpu_torch.examples import lm
 from pytorch_distributed_example_tpu_torch.ops import dense_attention
 from pytorch_distributed_example_tpu_torch.parallel import context_parallel as tcp
@@ -440,3 +441,58 @@ def test_ddp_zero_auto_matches_off_bitwise_on_the_card():
     assert auto[0] == off[0]
     for n in auto[1]:
         np.testing.assert_array_equal(auto[1][n], off[1][n], err_msg=n)
+
+
+_SHARDED_ARGV = ["--vocab-size", "128", "--d-model", "256", "--n-layers", "2", "--n-heads", "2",
+                 "--seq", "128", "--batch-size", "4", "--lr", "1e-3"]
+
+
+def _sharded_first_step(device, experts):
+    """The first step of the trainer's fsdp 2 x tp 2 step on `device` from
+    the same weights: (loss, every gradient gathered, the next two losses)."""
+    args = lm.parse_args(["--cpu", *_SHARDED_ARGV, "--tp", "2", *experts])
+    cpu = lm.TransformerLM(lm.config_for(args), device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    model = lm.TransformerLM(lm.config_for(args), device=device)
+    model.load_state_dict(cpu.state_dict())
+    mod = lm.shard(model, args.lr, 4, 2)
+    opt = mod.step.init_opt_state(mod.params)
+    toks = [torch.from_numpy(np.random.default_rng(i).integers(0, 128, (4, 128))).to(device)
+            for i in range(3)]
+    losses = [float(lm.train_step(mod, opt, toks[0]))]
+    grads = {k: DTensor(v._local.grad, v.device_mesh, v.placements).full_tensor().cpu()
+             for k, v in mod.params.items()}
+    losses += [float(lm.train_step(mod, opt, t)) for t in toks[1:]]
+    return losses, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("experts", [[], ["--n-experts", "4"]], ids=["dense", "moe"])
+def test_sharded_step_on_the_card_matches_the_cpu(experts):
+    """float32, TF32 off: the SIMT kernels on the card against the plain
+    versions on the CPU, the same arithmetic in another order. The first
+    step's gradients to rtol 1e-4 and 1e-5 of their largest entry, three
+    steps' losses to rtol 1e-5."""
+    _need_card()
+    card = _sharded_first_step("cuda", experts)
+    cpu = _sharded_first_step("cpu", experts)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5, atol=0)
+    for k, g in cpu[1].items():
+        torch.testing.assert_close(card[1][k], g, rtol=1e-4,
+                                   atol=1e-5 * float(g.abs().max()), msg=k)
+
+
+@pytest.mark.cuda
+def test_sharded_step_launches_each_kernel_once_a_layer():
+    """bf16 at head dim 128 over fsdp 2 x tp 2: the four ranks fold into
+    B*H, so F, KV and Q launch once a layer a step, on the wgmma route."""
+    _need_card()
+    args = lm.parse_args([*_SHARDED_ARGV, "--bf16", "--tp", "2"])
+    mod, opt, next_tokens = lm.build(args, world=4)
+    lm.train_step(mod, opt, next_tokens())
+    tfa.reset_launch_counts()
+    loss = lm.train_step(mod, opt, next_tokens())
+    assert np.isfinite(float(loss))
+    assert dict(tfa.LAUNCHES) == {n: args.n_layers for n in tfa.LAUNCHES}
+    assert all(tfa.ROUTE_LAUNCHES[f"{n}:wgmma"] == args.n_layers for n in tfa.LAUNCHES)
+

@@ -51,7 +51,8 @@ from pytorch_distributed_example_tpu_torch.parallel.ddp import (
 from pytorch_distributed_example_tpu_torch.parallel.reducer import Reducer
 from pytorch_distributed_example_tpu_torch.utils.flight_recorder import global_recorder
 from tests import _ddp_cases as cases
-from tests._mp_util import REPO, free_port, worker_env
+from tests._mp_util import REPO
+from tests._torch_gang import gang_env, gang_port
 
 W = 8
 STEPS = 5
@@ -471,10 +472,10 @@ def gang(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ddp_gang")
     script = tmp / "worker.py"
     script.write_text(GANG_WORKER)
-    ports = [free_port(), free_port()]
+    ports = [gang_port(), gang_port()]
     procs = [subprocess.Popen([sys.executable, str(script), str(r), "2", str(ports[0]),
                                str(ports[1]), str(tmp / f"rank{r}.pkl")],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=worker_env(),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=gang_env(),
                               cwd=REPO)
              for r in range(2)]
     outs = []

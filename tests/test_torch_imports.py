@@ -61,14 +61,16 @@ def test_port_imports_nothing_of_jax():
     *_, modules, last = out.stdout.splitlines()
     word, count = last.split()
     assert word == "clean", out.stdout
-    # ops, models, examples, parallel, the c10d core, data, DDP and their
-    # modules
-    assert int(count) >= 48
+    # ops, models, examples, parallel, the c10d core, data, DDP, sharded
+    # training and their modules
+    assert int(count) >= 56
     for name in ("ops.flash_attention", "parallel", "parallel.context_parallel",
                  "distributed", "store", "backends.stacked", "backends.process",
                  "examples.toy", "data.sampler", "data.loader", "models.convnet",
                  "parallel.ddp", "parallel.zero", "parallel.reducer", "examples.mnist",
-                 "bench", "numerics"):
+                 "bench", "numerics", "nn", "nn.functional", "dtensor", "parallel.sharding",
+                 "parallel.tensor_parallel", "parallel.expert_parallel", "parallel.fsdp",
+                 "utils.memstats"):
         assert f"pytorch_distributed_example_tpu_torch.{name}" in modules.split(), name
 
 

@@ -73,7 +73,18 @@ def test_main_without_card_raises(monkeypatch):
         lm.main([*TINY, "--steps", "1"])
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--n-experts", "4"]])
-def test_unported_flags_are_refused(flag):
-    with pytest.raises(SystemExit):
-        lm.parse_args(["--cpu", *flag])
+@pytest.mark.parametrize("experts", [[], ["--n-experts", "4"]], ids=["dense", "moe"])
+def test_tp_and_experts_flags_train(monkeypatch, experts):
+    """The reference's `--tp 2 [--n-experts 4]` drive: 4 driver-mode ranks
+    as fsdp 2 x tp 2, two steps with a finite loss."""
+    monkeypatch.setenv("TDX_EXAMPLES_CPU_DEVICES", "4")
+    losses = lm.main(["--cpu", *TINY, "--tp", "2", *experts, "--steps", "2"])
+    assert len(losses) == 2 and np.isfinite(losses).all()
+
+
+def test_one_rank_is_the_single_card_step(monkeypatch):
+    monkeypatch.setenv("TDX_EXAMPLES_CPU_DEVICES", "1")
+    model, opt, _ = lm.build(lm.parse_args(["--cpu", *TINY]))
+    assert isinstance(model, ttr.TransformerLM) and isinstance(opt, torch.optim.AdamW)
+    with pytest.raises(ValueError, match="--tp 2"):
+        lm.build(lm.parse_args(["--cpu", *TINY, "--tp", "2"]))

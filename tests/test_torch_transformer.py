@@ -77,8 +77,8 @@ def test_from_flax_covers_every_param_with_its_shape():
 
 
 def test_from_flax_refuses_unknown_params():
-    with pytest.raises(KeyError, match="experts_up"):
-        convert.from_flax({"layers_0": {"mlp": {"experts_up": np.zeros((2, 3, 4))}}})
+    with pytest.raises(KeyError, match="experts_gate"):
+        convert.from_flax({"layers_0": {"mlp": {"experts_gate": np.zeros((2, 3, 4))}}})
 
 
 @pytest.mark.parametrize("use_flash", [True, False])
@@ -174,10 +174,39 @@ def test_init_follows_flax_distributions():
     assert torch.equal(m.final_norm.weight, torch.ones(256))
 
 
+@pytest.mark.parametrize("k", [1, 2])
+def test_moe_model_matches_jax(k):
+    """n_experts > 0: every MLP is the MoE; logits, the first layer's aux
+    and the loss's gradients against the reference's on the same params."""
+    kw = dict(vocab_size=64, d_model=64, n_layers=2, n_heads=4, max_seq_len=32,
+              n_experts=4, moe_top_k=k, use_flash=False)
+    jmodel = jtr.TransformerLM(jtr.TransformerConfig(**kw))
+    toks = _tokens(3)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.asarray(toks))
+    tmodel = ttr.TransformerLM(ttr.TransformerConfig(**kw), device="cpu")
+    tmodel.load_state_dict(convert.from_flax(jax.tree.map(np.asarray, params)))
+    logits, state = jax.jit(lambda p, t: jmodel.apply(p, t, mutable=["intermediates"]))(
+        params, jnp.asarray(toks))
+    t = torch.from_numpy(toks).long()
+    got = tmodel(t)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(logits), **LOGIT_TOL)
+    want_aux = state["intermediates"]["layers_0"]["mlp"]["moe_aux"][0]
+    np.testing.assert_allclose(float(tmodel.layers[0].mlp.aux.detach()), float(want_aux),
+                               rtol=1e-6)
+    value, grads = jax.jit(jax.value_and_grad(_jax_loss, argnums=1),
+                           static_argnums=0)(jmodel, params, jnp.asarray(toks))
+    loss = loss_fn(got, t)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(value), rtol=1e-5)
+    want = convert.from_flax(jax.tree.map(np.asarray, grads))
+    for name, p in tmodel.named_parameters():
+        scale = float(want[name].abs().max())
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), rtol=0,
+                                   atol=GRAD_REL * scale, err_msg=name)
+
+
 def test_unported_options_raise():
     cfg = ttr.TransformerConfig(vocab_size=64, d_model=64, n_layers=1, n_heads=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.TransformerLM(dataclasses.replace(cfg, n_experts=4), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttr.TransformerLM(cfg, device="cpu")(torch.zeros(1, 8, dtype=torch.long), decode=True)
 
