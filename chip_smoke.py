@@ -94,7 +94,29 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    experts), then the same run as the dense one in bf16 (loss against the
    single card), with the aux values; then `make_ep_moe` at 4 ranks
    against its single-rank computation at the same width.
-12. report: one JSON line of kernels (each Hopper kernel once per Pallas
+12. serve: the serving path (the KV-cache decode path, generate() and
+   the paged `ServeEngine`), after `[fsdp_tp]`, TF32 still off. A small
+   float32 model (2 layers, d 64, 4 heads over 2 KV heads, vocab 64,
+   max_seq_len 64) on the card against the same weights on the CPU:
+   decode-path prefill logits (rtol 1e-5, atol 1e-5 of max|cpu|),
+   generate() greedy and sampled (T 0.8, top-k 8) token for token, and a
+   12-request engine trace (a pool that preempts, chunked prefill at 8,
+   the prefix cache on; float and int8 pools) with equal completions.
+   Then CFG_1B at full width, max_seq_len 2048, bf16: prefill logits of
+   4 x 512 tokens through the decode path against the flash forward
+   (rms(diff)/rms <= 3e-2); 48 requests of the bimodal new-token mix on
+   prompts of 256 or 512 tokens with chunked prefill at 256, once with the
+   full pool and once with 192 blocks, which must preempt, and every
+   greedy stream identical across the two; the bimodal burst of
+   `benchmarks/serve_bench.py` (48 requests, prompts 8-64, 8 slots,
+   unchunked) timed with a float and an int8 pool (tokens/s, TTFT and TPOT
+   p50/p99, peak memory, pool bytes; the int8 pool's greedy match rate
+   reported); one steady 8-slot decode step by CUDA events and under
+   torch.profiler (busy share, launches, top kernels, the paged gather's
+   share) and the gather alone; and `examples.generate.main` on the card.
+   No flash kernel launches on the serve path (the logits gate's flash
+   forward is the comparison, before the counts are reset).
+13. report: one JSON line of kernels (each Hopper kernel once per Pallas
    lowering it replaces, with its design, "wgmma" or "simt", and its
    launches per phase), the card's name and power limit, then the `ok`
    line.
@@ -1307,6 +1329,253 @@ def fsdp_tp_phase(card):
     return routes
 
 
+# serving: the KV-cache decode path, generate() and the paged engine
+SERVE_SMALL = dict(vocab_size=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                   max_seq_len=64, use_flash=False)
+# CFG_1B (benchmarks/llama_scaled.py:33) at max_seq_len 2048, bf16
+SERVE_ARGV = ["--vocab-size", "32000", "--d-model", "2048", "--n-layers", "16",
+              "--n-heads", "16", "--seq", "2048", "--bf16"]
+SERVE_SLOTS, SERVE_BLOCK = 8, 16
+SERVE_GATE = (4, 512)  # prompts x tokens for the decode-path logits gate
+SERVE_RMS_TOL = 3e-2  # the flash-vs-dense gate of PERF.md section 2
+SERVE_REQUESTS = 48
+# the preemption-determinism run: prompts of 256 or 512 tokens, so every
+# prefill chunk is 256 wide whatever shares its step (equal program shapes
+# in both runs), and 192 blocks (3072 tokens) against up to 8 x 640 tokens
+DETERMINISM_CHUNK, DETERMINISM_POOL = 256, 192
+
+
+def bimodal_traffic(n, seed=0, prompt_lens=None):
+    """`benchmarks/serve_bench.py::make_traffic(n, 0.0, seed)` (one burst):
+    prompts of 8-64 tokens, 70% of requests wanting 8-16 new tokens and
+    30% 96-128; prompt tokens from the same numpy generator afterwards.
+    `prompt_lens` replaces the prompt lengths."""
+    gen = np.random.default_rng(seed)
+    lens = gen.integers(8, 65, n)
+    is_long = gen.random(n) < 0.3
+    new = np.where(is_long, gen.integers(96, 129, n), gen.integers(8, 17, n))
+    if prompt_lens is not None:
+        lens = prompt_lens
+    return [(gen.integers(0, 32000, int(lens[i])).astype(np.int32), int(new[i]), i)
+            for i in range(n)]
+
+
+def serve_run(model, traffic, **kw):
+    """Submit every request at once and run the engine dry; returns the
+    engine and the host seconds."""
+    from pytorch_distributed_example_tpu_torch.serve import ServeEngine
+
+    eng = ServeEngine(model, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for prompt, budget, seed in traffic:
+        eng.submit(prompt, budget, rid=f"r{seed}", seed=seed)
+    eng.run(max_steps=100000)
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def serve_small_check():
+    """A small float32 model (GQA) on the card against the same weights on
+    the CPU, TF32 off: decode-path prefill logits, generate() greedy and
+    sampled, and a 12-request engine trace with preemptions, chunked
+    prefill and the prefix cache, float and int8 pools."""
+    from pytorch_distributed_example_tpu_torch.models import generate, init_cache
+
+    cfg = TransformerConfig(**SERVE_SMALL)
+    cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = TransformerLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    gen = np.random.default_rng(0)
+    prompts = torch.as_tensor(gen.integers(0, 64, (3, 24)))
+    with torch.no_grad():
+        want = cpu(prompts, decode=True, cache=init_cache(cpu, 3))
+        got = card(prompts.cuda(), decode=True, cache=init_cache(card, 3)).cpu()
+    err, top = float((got - want).abs().max()), float(want.abs().max())
+    print(f"  small f32 decode-path prefill: card vs CPU max_abs_err {err:.3e} (max|cpu| "
+          f"{top:.3e})")
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5 * top),
+          "decode-path logits on the card disagree with the CPU")
+    for kw in (dict(), dict(temperature=0.8, top_k=8)):
+        a = generate(cpu, prompts[:, :10], 40, **kw)
+        b = generate(card, prompts[:, :10].cuda(), 40, **kw).cpu()
+        check(torch.equal(a, b), f"generate({kw}) on the card gives other tokens than the CPU")
+    print("  generate() greedy and sampled (T 0.8, top-k 8): the card's tokens are the CPU's")
+    preamble = gen.integers(0, 64, 12).astype(np.int32)
+    traffic = [(np.concatenate([preamble, gen.integers(0, 64, int(gen.integers(2, 20)))])
+                .astype(np.int32), int(gen.integers(4, 24)), i) for i in range(12)]
+    for quant in (False, True):
+        kw = dict(slots=4, block_size=8, pool_blocks=14, prefill_chunk_tokens=8,
+                  min_bucket=8, prefix_cache=True, kv_quant=quant)
+        runs = [serve_run(m, traffic, **kw)[0] for m in (cpu, card)]
+        outs = [{r: c.tokens for r, c in e.completions.items()} for e in runs]
+        pre = [e.metrics.preempted for e in runs]
+        check(len(outs[1]) == len(traffic) and outs[0] == outs[1],
+              f"engine (kv_quant={quant}) on the card gives other completions than the CPU")
+        check(pre[0] == pre[1] and pre[1] > 0, f"preemptions {pre}: none, or unequal")
+        print(f"  engine, 12 requests, chunk 8, prefix cache, kv_quant={quant}: card == CPU "
+              f"token for token; {pre[1]} preemptions, {runs[1].prefix.stats()['hits']} "
+              f"prefix hits")
+
+
+def serve_logits_gate(model):
+    """Prefill logits through the decode path (dense cache, dense attention)
+    against the train path's forward (flash) on the same weights."""
+    from pytorch_distributed_example_tpu_torch.models import init_cache
+
+    B, L = SERVE_GATE
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, 32000, (B, L)), device="cuda")
+    with torch.no_grad():
+        dec = model(toks, decode=True, cache=init_cache(model, B))
+        ref = model(toks)
+    r = rel_rms(dec, ref)
+    check(bool(torch.isfinite(dec).all()) and dec.shape == (B, L, 32000), "bad decode logits")
+    print(f"  logits gate: {B} prompts x {L}, decode path vs the flash forward: "
+          f"rms(diff)/rms = {r:.4e} (<= {SERVE_RMS_TOL})")
+    check(r <= SERVE_RMS_TOL, "decode-path logits stray from the train path")
+
+
+def serve_profile(model, card):
+    """One steady decode step of 8 slots: its time by CUDA events and on the
+    host, then under torch.profiler (device busy share, launches, top
+    kernels, and the paged gather's share), and the gather alone."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from pytorch_distributed_example_tpu_torch.models import transformer as ttr
+    from pytorch_distributed_example_tpu_torch.ops import gather_paged_kv
+    from pytorch_distributed_example_tpu_torch.serve import ServeEngine
+
+    eng = ServeEngine(model, slots=SERVE_SLOTS, block_size=SERVE_BLOCK, min_bucket=8)
+    gen = np.random.default_rng(2)
+    for i in range(SERVE_SLOTS):
+        eng.submit(gen.integers(0, 32000, 48).astype(np.int32), 200, rid=f"p{i}", seed=i)
+    for _ in range(6):  # admit and prefill all 8, then decode
+        eng.step()
+    check(len(eng._decoding) == SERVE_SLOTS, "profile engine not at 8 decoding slots")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(10):
+        eng.step()
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 10
+    ev_ms = start.elapsed_time(end) / 10
+    real = ttr.gather_paged_kv
+
+    def annotated(*a, **k):
+        with record_function("gather_paged_kv"):
+            return real(*a, **k)
+
+    ttr.gather_paged_kv = annotated
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            pwall = (time.perf_counter() - t0) * 1e3
+    finally:
+        ttr.gather_paged_kv = real
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation and e.self_device_time_total > 0),
+                  reverse=True)
+    busy = sum(ms for ms, _, _ in rows)
+    gather = sum(e.device_time_total for e in prof.events()
+                 if e.name == "gather_paged_kv"
+                 and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+    print(f"  decode step, 8 slots: {ev_ms:.4f} ms by CUDA events, {host_ms:.4f} ms on the "
+          f"host (mean of 10 engine steps)  [{card}]")
+    if not busy:
+        print("  profiler saw no device time: busy share not measured")
+    else:
+        print(f"  profiled step {pwall:.4f} ms: device busy {busy:.4f} ms ({busy / pwall:.1%}), "
+              f"{sum(n for _, n, _ in rows)} kernel launches; gather_paged_kv "
+              f"{gather:.4f} ms ({gather / busy:.1%} of device time)")
+        for ms, n, key in rows[:10]:
+            print(f"    {ms:9.4f} ms {ms / busy:6.1%} x{n:<4d} {key[:90]}")
+    attn = eng.cache.tree["layers_0"]["attn"]
+    bt = torch.as_tensor(eng.cache.block_tables, device="cuda")
+    g_ms = time_ms(lambda: gather_paged_kv(attn["k"], attn["v"], bt), iters=20)
+    moved = 2 * 2 * bt.numel() * SERVE_BLOCK * attn["k"].shape[2] * attn["k"].shape[3] * 2
+    print(f"  gather_paged_kv alone, one layer at (8, {bt.shape[1]}) tables: {g_ms:.4f} ms "
+          f"({moved / g_ms / 1e6:.1f} GB/s over {moved / 1e6:.1f} MB read + written); "
+          f"x{model.cfg.n_layers} = {g_ms * model.cfg.n_layers:.4f} ms a step")
+
+
+def serve_timing(model, card, quant, want=None):
+    """The bimodal burst through the engine, unchunked, 8 slots; returns
+    the completions."""
+    from pytorch_distributed_example_tpu_torch.serve.metrics import percentile
+
+    traffic = bimodal_traffic(SERVE_REQUESTS)
+    torch.cuda.reset_peak_memory_stats()
+    eng, wall = serve_run(model, traffic, slots=SERVE_SLOTS, block_size=SERVE_BLOCK,
+                          min_bucket=8, kv_quant=quant)
+    m = eng.metrics
+    out = {r: c.tokens for r, c in eng.completions.items()}
+    check(len(out) == SERVE_REQUESTS, "bimodal run lost requests")
+    ms = {f"{name}_p{q}": percentile(values, q) * 1e3
+          for name, values in (("ttft", m.ttft_s), ("tpot", m.tpot_s)) for q in (50, 99)}
+    print(f"  bimodal, kv_quant={quant}: {SERVE_REQUESTS} requests, {m.tokens_completed} "
+          f"tokens in {wall:.4f} s = {m.tokens_completed / wall:.2f} tok/s; {m.steps} steps; "
+          f"TTFT p50 {ms['ttft_p50']:.3f} / p99 {ms['ttft_p99']:.3f} ms, TPOT p50 "
+          f"{ms['tpot_p50']:.3f} / p99 {ms['tpot_p99']:.3f} ms; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; pool "
+          f"{eng.cache.num_blocks} blocks x {eng.cache.bytes_per_block} B = "
+          f"{eng.cache.num_blocks * eng.cache.bytes_per_block / 2**30:.3f} GiB  [{card}]")
+    if want is not None:
+        match = sum(a == b for r in want for a, b in zip(want[r], out[r]))
+        total = sum(len(v) for v in want.values())
+        print(f"  int8 pool against the float pool: {match} of {total} greedy tokens match "
+              f"({match / total:.2%}; reported, not gated)")
+    return out
+
+
+def serve_phase(card):
+    """Serving: small float32 card-against-CPU checks, then CFG_1B at full
+    width in bf16: the logits gate, token-identical greedy streams between
+    a full and a preemption-forcing pool, the bimodal timings, a profiled
+    decode step, and the generate example. No flash kernel may launch on
+    the serve path."""
+    from pytorch_distributed_example_tpu_torch.examples import generate as gen_example
+
+    serve_small_check()
+    args = lm.parse_args(SERVE_ARGV)
+    model = TransformerLM(lm.config_for(args), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(0))
+    serve_logits_gate(model)
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    lens = 256 * np.random.default_rng(3).integers(1, 3, SERVE_REQUESTS)
+    traffic = bimodal_traffic(SERVE_REQUESTS, prompt_lens=lens)
+    runs = []
+    for pool in (None, DETERMINISM_POOL):
+        eng, wall = serve_run(model, traffic, slots=SERVE_SLOTS, block_size=SERVE_BLOCK,
+                              pool_blocks=pool, prefill_chunk_tokens=DETERMINISM_CHUNK,
+                              min_bucket=8)
+        runs.append(({r: c.tokens for r, c in eng.completions.items()}, eng.metrics.preempted))
+        print(f"  determinism: {SERVE_REQUESTS} requests (prompts 256/512), chunk "
+              f"{DETERMINISM_CHUNK}, pool {eng.cache.num_blocks} blocks: "
+              f"{eng.metrics.preempted} preemptions, {eng.metrics.steps} steps, {wall:.2f} s")
+    check(runs[0][1] == 0 and runs[1][1] > 0, "the cut pool did not preempt (or the full did)")
+    check(len(runs[0][0]) == SERVE_REQUESTS and runs[0][0] == runs[1][0],
+          "greedy streams differ between the full and the preemption-forcing pool")
+    print("  every request's greedy tokens are identical across the two pools")
+    want = serve_timing(model, card, quant=False)
+    serve_timing(model, card, quant=True, want=want)
+    serve_profile(model, card)
+    del model
+    torch.cuda.empty_cache()
+    out = gen_example.main(["--steps", "60", "--new", "24"])
+    check(len(out["tokens"]) == 24, "the generate example did not generate")
+    launches = dict(fa.LAUNCHES)
+    print(f"  flash launches on the serve path: {launches}")
+    check(sum(launches.values()) == 0, "a flash kernel launched on the serve path")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1399,7 +1668,14 @@ def main():
     phase_launches["fsdp_tp"] = fsdp_tp_phase(card)
     print(f"  fsdp_tp in {time.perf_counter() - t0:.1f} s")
 
-    # 12. report
+    # 12. serving at CFG_1B width
+    t0 = time.perf_counter()
+    print("[serve]")
+    serve_phase(card)
+    torch.cuda.empty_cache()
+    print(f"  serve in {time.perf_counter() - t0:.1f} s")
+
+    # 13. report
     kernels = []
     for name, lowerings in REPLACES.items():
         for regime, replaces in lowerings.items():

@@ -27,6 +27,13 @@ with `full_tensor`) back to the flax-shaped tree of numpy arrays.
 
 The tests pass JAX gradients through the same functions, to compare them
 with the port's `.grad`s.
+
+`cache_from_flax` and `cache_to_flax` carry a KV cache tree (the
+reference's "cache" collection, numpy leaves) to the port's layout and
+back: `layers_{i}/attn/{k, v, index}` for the dense cache, `{k, v}` and
+the int8 pool's `{k_scale, v_scale}` for the paged pool, whose port
+tensors hold one more block, the sink (`serve/cache.py`), added as zeros
+and dropped on the way back.
 """
 
 from __future__ import annotations
@@ -122,4 +129,47 @@ def convnet_from_flax(params) -> dict:
             arr = arr.T
         out[f"{_CONVNET[layer]}.{'weight' if kind == 'kernel' else 'bias'}"] = torch.tensor(
             np.ascontiguousarray(arr))
+    return out
+
+
+def _tensor(arr, device=None) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # numpy has no bf16 of its own
+        return torch.tensor(arr.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.tensor(arr, device=device)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def cache_from_flax(tree, device=None) -> dict:
+    """A reference KV cache tree (numpy leaves; the "cache" wrapper is
+    optional) -> the port's nested dict of tensors on `device`."""
+    if "cache" in tree:
+        tree = tree["cache"]
+    out = {}
+    for layer, node in tree.items():
+        attn = node["attn"]
+        paged = "index" not in attn
+        leaves = {}
+        for name, arr in attn.items():
+            t = _tensor(arr, device)
+            if paged:  # append the sink block
+                t = torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
+            leaves[name] = t
+        out[layer] = {"attn": leaves}
+    return out
+
+
+def cache_to_flax(tree) -> dict:
+    """The port's KV cache -> the reference's tree of numpy arrays, the
+    paged pool's sink block dropped (bf16 leaves come back as float32)."""
+    out = {}
+    for layer, node in tree.items():
+        attn = node["attn"]
+        paged = "index" not in attn
+        out[layer] = {"attn": {name: _numpy(t[:-1] if paged else t)
+                               for name, t in attn.items()}}
     return out

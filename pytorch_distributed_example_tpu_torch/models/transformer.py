@@ -16,8 +16,17 @@ reference's (in, out) kernels across.
 is kept on the module as `aux` (the reference sows it, and its trainer's
 loss leaves it out). `sharding_rules` is the reference's 2-D Megatron +
 ZeRO layout on the port's names, and `sharded_forward` runs the model
-over that layout in driver mode (below). Not ported yet: the KV-cache
-decode path (`decode=True` raises `NotImplementedError`).
+over that layout in driver mode (below).
+
+`forward(tokens, decode=True, cache=...)` is the KV-cache path of the
+reference's `Attention._decode` / `_decode_paged` (:153-364): the cache is
+an explicit argument, a nested dict of tensors keyed as the reference's
+flax "cache" collection (`layers_{i}` -> `attn` -> `k`, `v`, and `index`
+for the dense cache or `k_scale`, `v_scale` for the int8 pool), which the
+forward updates in place, as the reference's donated buffers are.
+`models/generate.py::init_cache` and `serve/cache.py::init_paged_cache`
+build it. Attention over the cache is dense (einsum, masked softmax,
+einsum), as in the reference; no flash kernel runs on this path.
 """
 
 from __future__ import annotations
@@ -31,7 +40,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import dense_attention, flash_attention, resolved_block_sizes
+from ..ops import (dense_attention, flash_attention, gather_paged_kv, quantize_kv,
+                   resolved_block_sizes)
+from ..ops.flash_attention import NEG_INF
 from ..nn import functional as nnf
 from ..parallel.expert_parallel import moe_mlp
 
@@ -116,6 +127,26 @@ def apply_rope(x, cos, sin):
     return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
+def apply_rope_batched(x, cos, sin):
+    """x: (B, L, H, D); cos/sin: (B, L, D/2), each row at its own absolute
+    positions (the serve engine's slot batch)."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    r1 = x1 * c - x2 * s
+    r2 = x2 * c + x1 * s
+    return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def _window(start, L: int, M: int):
+    """The positions a `lax.dynamic_slice_in_dim` / `dynamic_update_slice_in_dim`
+    of length L at `start` covers in a dim of size M: XLA clamps the start
+    to [0, M - L] so the window fits, where torch slicing would truncate.
+    `start` is a device tensor of any shape (no host sync)."""
+    base = start.clamp(0, M - L)
+    return base.unsqueeze(-1) + torch.arange(L, device=start.device)
+
+
 def _flash_ok(L: int, Dh: int) -> bool:
     # L must tile by the block sizes flash_attention will use; lengths
     # nothing tiles take dense attention instead of raising
@@ -133,7 +164,7 @@ class Attention(nn.Module):
         self.v_proj = Dense(d, KV * Dh, cfg.dtype, device)
         self.o_proj = Dense(H * Dh, d, cfg.dtype, device)
 
-    def forward(self, x, cos, sin):
+    def forward(self, x, cos, sin, cache=None, positions=None, block_tables=None):
         cfg = self.cfg
         B, L, _ = x.shape
         H, KV, Dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
@@ -141,6 +172,13 @@ class Attention(nn.Module):
         k = self.k_proj(x).reshape(B, L, KV, Dh)
         v = self.v_proj(x).reshape(B, L, KV, Dh)
         scale = 1.0 / (Dh ** 0.5)
+        if cache is not None:
+            if block_tables is not None:
+                if positions is None:
+                    raise ValueError("block_tables requires positions")
+                return self._decode_paged(q, k, v, cos, sin, scale, cache, positions,
+                                          block_tables)
+            return self._decode(q, k, v, cos, sin, scale, cache, positions)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if KV != H:  # GQA: each kv head serves H/KV consecutive query heads
@@ -151,6 +189,105 @@ class Attention(nn.Module):
         else:
             o = dense_attention(q, k, v, causal=cfg.causal, scale=scale)
         return self.o_proj(o.reshape(B, L, H * Dh))
+
+    def _decode(self, q, k, v, cos, sin, scale, cache, positions=None):
+        """The dense KV-cache step (reference :153-263). `cache` holds k, v
+        (B, M, KV, Dh) and the scalar `index` (a 0-d int32 tensor): this
+        call's K/V land at the index, which advances by L; the queries
+        attend every cached key at or before their absolute position.
+        With `positions` ((B,) int) row b writes at positions[b] and attends
+        keys at or before its own position, and the index is neither read
+        nor advanced. Windows that would run past M clamp their start as
+        XLA's dynamic slices do (`_window`)."""
+        B, L, KV, Dh = k.shape
+        M = self.cfg.max_seq_len
+        ck, cv = cache["k"], cache["v"]
+        key_pos = torch.arange(M, device=k.device)
+        if positions is None:
+            idx = cache["index"]
+            win = _window(idx, L, M)  # (L,)
+            c, s = cos[win], sin[win]
+            q, k = apply_rope(q, c, s), apply_rope(k, c, s)
+            ck.index_copy_(1, win, k.to(ck.dtype))
+            cv.index_copy_(1, win, v.to(cv.dtype))
+            q_pos = idx + torch.arange(L, device=k.device)  # the unclamped positions
+            idx.add_(L)
+            mask = (key_pos[None, :] <= q_pos[:, None])[None]  # (1, L, M)
+        else:
+            pos = positions.long()[:, None] + torch.arange(L, device=k.device)  # (B, L)
+            # XLA's gather clamps an index past the table
+            rp = pos.clamp(0, M - 1)
+            c, s = cos[rp], sin[rp]
+            q, k = apply_rope_batched(q, c, s), apply_rope_batched(k, c, s)
+            rows = _window(positions.long(), L, M)  # (B, L)
+            b = torch.arange(B, device=k.device)[:, None].expand(B, L)
+            ck.index_put_((b, rows), k.to(ck.dtype))
+            cv.index_put_((b, rows), v.to(cv.dtype))
+            mask = key_pos[None, None, :] <= pos[:, :, None]  # (B, L, M)
+        return self._attend(q, ck, cv, mask, scale)
+
+    def _decode_paged(self, q, k, v, cos, sin, scale, cache, positions, block_tables):
+        """The paged KV-cache step (reference :265-364) over one block pool
+        shared by every row. The pool holds num_blocks + 1 blocks: the last
+        is a sink that is never allocated (`serve/cache.py`). Token p of
+        row b writes to flat row `block_tables[b, p // bs] * bs + p % bs`;
+        a write through an unallocated entry (== num_blocks) or past the
+        table lands in the sink, where the reference's `mode="drop"`
+        scatter discards it. The gather reads the sink for unallocated
+        entries where the reference reads a clamped real block; the causal
+        mask hides both. An int8 pool (`k_scale`/`v_scale` present)
+        quantizes on scatter and dequantizes in the gather."""
+        cfg = self.cfg
+        B, L, KV, Dh = k.shape
+        M = cfg.max_seq_len
+        ck, cv = cache["k"], cache["v"]
+        nblk, bs = ck.shape[0] - 1, ck.shape[1]
+        bt = torch.as_tensor(block_tables, device=k.device).long()
+        nb = bt.shape[1]
+
+        pos = positions.long()[:, None] + torch.arange(L, device=k.device)  # (B, L)
+        safe = pos.clamp(0, M - 1)  # RoPE table bound; overshoot lands in the sink
+        c, s = cos[safe], sin[safe]
+        q, k = apply_rope_batched(q, c, s), apply_rope_batched(k, c, s)
+
+        lb = pos // bs
+        off = pos % bs
+        phys = torch.gather(bt, 1, lb.clamp(0, nb - 1))  # == nblk when unallocated
+        sink = nblk * bs + off
+        flat = torch.where((lb < nb) & (phys < nblk), phys * bs + off, sink).reshape(B * L)
+
+        def scatter(pool, upd):
+            pool.view(-1, *pool.shape[2:]).index_copy_(0, flat, upd.reshape(B * L, *pool.shape[2:]))
+
+        if "k_scale" in cache:
+            qk, sk = quantize_kv(k)
+            qv, sv = quantize_kv(v)
+            scatter(ck, qk)
+            scatter(cv, qv)
+            scatter(cache["k_scale"], sk)
+            scatter(cache["v_scale"], sv)
+            kf, vf = gather_paged_kv(ck, cv, bt, k_scale=cache["k_scale"],
+                                     v_scale=cache["v_scale"], out_dtype=cfg.dtype)
+        else:
+            scatter(ck, k.to(ck.dtype))
+            scatter(cv, v.to(cv.dtype))
+            kf, vf = gather_paged_kv(ck, cv, bt)
+        key_pos = torch.arange(nb * bs, device=k.device)  # the span the tables cover
+        mask = key_pos[None, None, :] <= pos[:, :, None]  # (B, L, nb*bs)
+        return self._attend(q, kf, vf, mask, scale)
+
+    def _attend(self, q, kf, vf, mask, scale):
+        """Dense causal attention of q (B, L, H, Dh) over a cache (B, Mc, KV,
+        Dh) under `mask` ((1 or B), L, Mc), with the query heads grouped
+        over the un-repeated KV heads (GQA), as the reference."""
+        B, L, H, Dh = q.shape
+        KV = kf.shape[2]
+        qg = q.reshape(B, L, KV, H // KV, Dh)
+        s = torch.einsum("blkrd,bmkd->bkrlm", qg, kf) * scale  # (B, KV, rep, L, Mc)
+        s = torch.where(mask[:, None, None], s.float(), NEG_INF)
+        p = torch.softmax(s, dim=-1).to(vf.dtype)
+        o = torch.einsum("bkrlm,bmkd->blkrd", p, vf).reshape(B, L, H * Dh)
+        return self.o_proj(o)
 
 
 class MLP(nn.Module):
@@ -200,8 +337,8 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device)
         self.mlp = MoE(cfg, device) if cfg.n_experts > 0 else MLP(cfg, device)
 
-    def forward(self, x, cos, sin):
-        x = x + self.attn(self.attn_norm(x), cos, sin)
+    def forward(self, x, cos, sin, cache=None, positions=None, block_tables=None):
+        x = x + self.attn(self.attn_norm(x), cos, sin, cache, positions, block_tables)
         return x + self.mlp(self.mlp_norm(x))
 
 
@@ -262,18 +399,33 @@ class TransformerLM(nn.Module):
                     nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                                           generator=generator)
 
-    def forward(self, tokens, decode: bool = False):
-        if decode:
-            raise NotImplementedError(
-                "decode=True (the KV-cache path) is not ported yet: "
-                "ROADMAP.md, Queue 1, 'Generation and serving'"
-            )
+    def forward(self, tokens, decode: bool = False, positions=None, block_tables=None,
+                cache=None):
+        """tokens (B, L) -> logits (B, L, vocab) float32.
+
+        `decode=True` takes the KV-cache path over `cache` (see the module
+        docstring), which it updates in place: once with the prompt
+        (prefill), then a token at a time (`models/generate.py`).
+        `positions` ((B,) int) gives each row its own cache position, the
+        serve engine's slot batch; `block_tables` ((B, nb) int, with
+        `positions`) switches the cache to the paged block pool."""
         cfg = self.cfg
+        if decode:
+            if not cfg.causal:
+                raise ValueError("decode=True requires a causal model (the KV-cache step "
+                                 "attends positions <= index)")
+            if cache is None:
+                raise ValueError("decode=True needs the cache: models.generate.init_cache "
+                                 "or serve.cache.init_paged_cache")
+        elif cache is not None or positions is not None or block_tables is not None:
+            raise ValueError("cache, positions and block_tables apply with decode=True")
         x = self.tok_embed(tokens).to(cfg.dtype)
-        cos, sin = rope_freqs(cfg.head_dim, tokens.shape[1], cfg.rope_theta,
-                              device=tokens.device)
-        for layer in self.layers:
-            if cfg.remat:
+        cos, sin = rope_freqs(cfg.head_dim, cfg.max_seq_len if decode else tokens.shape[1],
+                              cfg.rope_theta, device=tokens.device)
+        for i, layer in enumerate(self.layers):
+            if decode:
+                x = layer(x, cos, sin, cache[f"layers_{i}"]["attn"], positions, block_tables)
+            elif cfg.remat:
                 x = checkpoint(layer, x, cos, sin, use_reentrant=False)
             else:
                 x = layer(x, cos, sin)

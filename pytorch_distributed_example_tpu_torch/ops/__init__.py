@@ -1,11 +1,14 @@
 """Hand-written Hopper kernels for the port's hot ops, each beside its plain
-PyTorch version (used for CPU tensors), and the dense attention oracle."""
+PyTorch version (used for CPU tensors), the dense attention oracle, and the
+paged KV cache's gather and int8 codec (torch ops; no kernel is owed)."""
 
 from .flash_attention import (  # noqa: F401
     LAUNCHES,
     flash_attention,
     flash_with_lse,
+    gather_paged_kv,
     reset_launch_counts,
     resolved_block_sizes,
 )
+from .quant import dequantize_kv, quantize_kv  # noqa: F401
 from .reference import dense_attention  # noqa: F401

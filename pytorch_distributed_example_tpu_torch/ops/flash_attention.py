@@ -497,3 +497,32 @@ def flash_attention(
     bq, bk = resolved_block_sizes(L, block_q, block_k)
     o, _ = flash_with_lse(_to_bh(q), _to_bh(k), _to_bh(v), scale, causal, bq, bk)
     return _from_bh(o, B, H)
+
+
+def gather_paged_kv(pool_k, pool_v, block_tables, k_scale=None, v_scale=None,
+                    out_dtype=None):
+    """Each row's logical K/V layout out of a paged block pool (reference
+    `ops/flash_attention.py:809-847`), a plain torch gather: no kernel
+    stands behind it in either package.
+
+    pool_k/pool_v: (num_blocks, block_size, KV, Dh); block_tables: (B, nb)
+    integer ids. Returns ((B, nb*block_size, KV, Dh),) * 2 in logical
+    position order. An id past the pool's last block reads the last block,
+    as XLA's gather clamps it; the caller's causal mask hides what it
+    reads. (The serve pool's last block is its sink, `serve/cache.py`, so
+    there the id `num_blocks` marking an unallocated block is in range.)
+
+    With `k_scale`/`v_scale` ((num_blocks, block_size, KV) float32, the
+    int8 pool's scale planes) the gather dequantizes: the int8 payload
+    times its scale, cast to `out_dtype` (float32 by default)."""
+    B, nb = block_tables.shape
+    _, bs, KV, Dh = pool_k.shape
+    idx = block_tables.long().clamp(0, pool_k.shape[0] - 1)
+
+    def one(pool, scale):
+        g = pool[idx]  # (B, nb, bs, KV, Dh)
+        if scale is not None:
+            g = (g.float() * scale[idx][..., None]).to(out_dtype or torch.float32)
+        return g.reshape(B, nb * bs, KV, Dh)
+
+    return one(pool_k, k_scale), one(pool_v, v_scale)

@@ -496,3 +496,115 @@ def test_sharded_step_launches_each_kernel_once_a_layer():
     assert dict(tfa.LAUNCHES) == {n: args.n_layers for n in tfa.LAUNCHES}
     assert all(tfa.ROUTE_LAUNCHES[f"{n}:wgmma"] == args.n_layers for n in tfa.LAUNCHES)
 
+
+
+# -- serving: the decode path, generate() and the engine on the card ----------
+
+_SERVE_CFG = dict(vocab_size=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                  max_seq_len=64, use_flash=False)
+
+
+def _serve_models(dtype=torch.float32, **over):
+    """The same random weights (seed 0) on the CPU and on the card."""
+    from pytorch_distributed_example_tpu_torch.models import TransformerConfig, TransformerLM
+
+    cfg = TransformerConfig(**{**_SERVE_CFG, **over}, dtype=dtype)
+    cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = TransformerLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _f32_close(got, want, msg=None):
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()), msg=msg)
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_decode_paths_on_the_card_match_the_cpu():
+    """float32, TF32 off: the scalar-index, positions= and paged paths,
+    with table entries equal to num_blocks, a position past the table and a
+    parked lane at M - 1; no device-side assert follows."""
+    _need_card()
+    from pytorch_distributed_example_tpu_torch.models.generate import init_cache
+    from pytorch_distributed_example_tpu_torch.serve.cache import init_paged_cache
+
+    cpu, card = _serve_models()
+    gen = np.random.default_rng(0)
+    M = _SERVE_CFG["max_seq_len"]
+    caches = [init_cache(cpu, 2), init_cache(card, 2)]
+    for L in (9, 1, 1, 4):
+        toks = torch.as_tensor(gen.integers(0, 64, (2, L)))
+        outs = [m(toks.to(m.lm_head.weight.device), decode=True, cache=c)
+                for m, c in zip((cpu, card), caches)]
+        _f32_close(outs[1], outs[0], "scalar-index path")
+    pos = torch.tensor([3, M - 2], dtype=torch.int32)
+    toks = torch.as_tensor(gen.integers(0, 64, (2, 4)))
+    outs = [m(toks.to(m.lm_head.weight.device), decode=True, cache=c,
+              positions=pos.to(m.lm_head.weight.device)) for m, c in zip((cpu, card), caches)]
+    _f32_close(outs[1], outs[0], "positions= path")
+    nblk, bs = 20, 8
+    bt = torch.full((3, M // bs), nblk, dtype=torch.int32)
+    bt[0, :2] = torch.tensor([4, 9])
+    bt[1] = torch.tensor([0, 1, 2, 3, 5, 6, 7, 8])
+    pos = torch.tensor([5, M - 2, M - 1], dtype=torch.int32)  # row 2 parked
+    toks = torch.as_tensor(gen.integers(0, 64, (3, 4)))
+    for quantized in (False, True):
+        pools = [init_paged_cache(m, nblk, bs, quantized=quantized) for m in (cpu, card)]
+        outs = []
+        for m, pool in zip((cpu, card), pools):
+            dev = m.lm_head.weight.device
+            m(toks[1:2].to(dev), decode=True, cache=pool, positions=torch.zeros(1, device=dev,
+              dtype=torch.int32), block_tables=bt[1:2].to(dev))
+            outs.append(m(toks.to(dev), decode=True, cache=pool, positions=pos.to(dev),
+                          block_tables=bt.to(dev)))
+        torch.cuda.synchronize()
+        _f32_close(outs[1][:2], outs[0][:2], f"paged path, int8 {quantized}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature,top_k", [(0.0, None), (0.8, 8)])
+def test_generate_on_the_card_matches_the_cpu(temperature, top_k):
+    _need_card()
+    from pytorch_distributed_example_tpu_torch.models import generate
+
+    cpu, card = _serve_models()
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(0, 64, (3, 7)))
+    want = generate(cpu, prompt, 20, temperature=temperature, top_k=top_k)
+    got = generate(card, prompt, 20, temperature=temperature, top_k=top_k)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+def _serve_trace(n, seed):
+    """Prompts of 16 or 32 tokens: with chunked prefill at 16 every chunk is
+    16 wide whatever shares its step, so both runs compute on equal shapes."""
+    gen = np.random.default_rng(seed)
+    return [(gen.integers(0, 64, 16 * int(gen.integers(1, 3))).astype(np.int32),
+             int(gen.integers(4, 24)), i) for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_engine_preemption_is_token_exact_on_the_card():
+    """bf16 at a small width: the full pool against one cut to force
+    preemptions, chunked prefill at one chunk size and the same slots, so
+    both runs compute on the same shapes; no flash kernel launches."""
+    _need_card()
+    from pytorch_distributed_example_tpu_torch.serve import ServeEngine
+
+    _, card = _serve_models(torch.bfloat16)
+    outs, preempted = [], []
+    tfa.reset_launch_counts()
+    for pool in (None, 12):
+        eng = ServeEngine(card, slots=4, block_size=8, pool_blocks=pool,
+                          prefill_chunk_tokens=16, min_bucket=8)
+        for prompt, budget, seed in _serve_trace(12, 2):
+            eng.submit(prompt, budget, rid=f"r{seed}", seed=seed)
+        out = eng.run(max_steps=5000)
+        outs.append({rid: c.tokens for rid, c in out.items()})
+        preempted.append(eng.metrics.preempted)
+    assert preempted[0] == 0 and preempted[1] > 0
+    assert outs[0] == outs[1]
+    assert sum(tfa.LAUNCHES.values()) == 0

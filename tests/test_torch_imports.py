@@ -62,15 +62,17 @@ def test_port_imports_nothing_of_jax():
     word, count = last.split()
     assert word == "clean", out.stdout
     # ops, models, examples, parallel, the c10d core, data, DDP, sharded
-    # training and their modules
-    assert int(count) >= 56
+    # training, generation and serving, and their modules
+    assert int(count) >= 68
     for name in ("ops.flash_attention", "parallel", "parallel.context_parallel",
                  "distributed", "store", "backends.stacked", "backends.process",
                  "examples.toy", "data.sampler", "data.loader", "models.convnet",
                  "parallel.ddp", "parallel.zero", "parallel.reducer", "examples.mnist",
                  "bench", "numerics", "nn", "nn.functional", "dtensor", "parallel.sharding",
                  "parallel.tensor_parallel", "parallel.expert_parallel", "parallel.fsdp",
-                 "utils.memstats"):
+                 "utils.memstats", "prng", "ops.quant", "models.generate", "serve",
+                 "serve.bucketing", "serve.queue", "serve.metrics", "serve.prefix",
+                 "serve.cache", "serve.decode", "serve.engine", "examples.generate"):
         assert f"pytorch_distributed_example_tpu_torch.{name}" in modules.split(), name
 
 

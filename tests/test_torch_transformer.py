@@ -206,9 +206,14 @@ def test_moe_model_matches_jax(k):
 
 
 def test_unported_options_raise():
+    # the decode path is ported: without its cache it raises, naming
+    # init_cache, and the train path refuses the decode-only arguments
     cfg = ttr.TransformerConfig(vocab_size=64, d_model=64, n_layers=1, n_heads=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.TransformerLM(cfg, device="cpu")(torch.zeros(1, 8, dtype=torch.long), decode=True)
+    model = ttr.TransformerLM(cfg, device="cpu")
+    with pytest.raises(ValueError, match="init_cache"):
+        model(torch.zeros(1, 8, dtype=torch.long), decode=True)
+    with pytest.raises(ValueError, match="decode=True"):
+        model(torch.zeros(1, 8, dtype=torch.long), positions=torch.zeros(1, dtype=torch.long))
 
 
 def test_model_defaults_to_the_card_and_raises_without_one(monkeypatch):
