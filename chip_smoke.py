@@ -116,10 +116,38 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    share) and the gather alone; and `examples.generate.main` on the card.
    No flash kernel launches on the serve path (the logits gate's flash
    forward is the comparison, before the counts are reset).
-13. report: one JSON line of kernels (each Hopper kernel once per Pallas
+13. serve_fleet: serving across ranks and pools, after `[serve]`, TF32
+   still off. The small float32 model on the card against the CPU: a tp 2
+   engine (driver mode, `mesh=`) gives the single engine's and the CPU's
+   greedy tokens, float and int8 pools; a 1 x 1 `DisaggRouter` over
+   `HashStore` gives the colocated engine's completions, greedy and
+   sampled, one migration a request; a republished migration is byte for
+   byte the first (bf16 and int8 pools). Then CFG_1B at full width,
+   max_seq_len 2048, bf16, block 16: tp 2 prefill logits (4 x 512 through
+   the paged programs) against the single-card engine (rms(diff)/rms <=
+   3e-2); the [serve] bimodal burst through tp 1 and tp 2 engines of 8
+   slots (tokens/s, TTFT and TPOT p50/p99, pool bytes a rank, peak memory;
+   the tp 2 greedy match rate reported); a steady tp 2 decode step by
+   CUDA events and under torch.profiler with the tp seams annotated;
+   `redistribute_for_serving` from the trainer's fsdp 2 x tp 2 layout
+   into a tp 2 engine (the move's peak memory no more than the serve
+   layout and one leaf; logits against the single card <= 3e-2).
+   `serve_bench.py --trace disagg` at its defaults (16 steady requests
+   decoding when 32 long-prompt requests arrive; chunk 32, 18 slots):
+   colocated against a prefill and a decode engine on the card over
+   HashStore, the decode steps' p99 under the burst, migrations, bytes
+   and each part's ms a request, and the regimes' token match; on the
+   determinism construct (16 requests, prompts 256/512, chunk 256) disagg
+   must equal colocated token for token. `ServeRouter` over 2 replicas:
+   the bimodal burst (tokens/s against one engine, rebinds), and a
+   mid-flight `remove_replica` on the determinism construct, sealed into
+   HashStore, whose greedy tokens must equal one unscaled engine's (the
+   colocated run of the disagg construct). No flash kernel launches in
+   the phase.
+14. report: one JSON line of kernels (each Hopper kernel once per Pallas
    lowering it replaces, with its design, "wgmma" or "simt", and its
-   launches per phase), the card's name and power limit, then the `ok`
-   line.
+   launches per phase, `serve_fleet` among them), the card's name and
+   power limit, then the `ok` line.
 """
 
 import contextlib
@@ -1576,6 +1604,581 @@ def serve_phase(card):
     check(sum(launches.values()) == 0, "a flash kernel launched on the serve path")
 
 
+# serving across ranks and pools: tensor-parallel decode, disaggregated
+# prefill/decode with KV migration, and the replica router
+FLEET_TP = 2
+FLEET_DET_REQUESTS = 16  # the determinism construct's requests (prompts 256/512, chunk 256)
+# benchmarks/serve_bench.py --trace disagg at its defaults (:703-800)
+DISAGG_STEADY, DISAGG_BURST, DISAGG_CHUNK, DISAGG_SLOTS = 16, 32, 32, 18
+ROUTER_REPLICAS = 2
+
+
+def tp_mesh(T, device="cuda"):
+    """A driver-mode ("tp", T) mesh: the one card T times."""
+    return tdx.DeviceMesh([device] * T, (T,), ("tp",))
+
+
+def sync():
+    torch.cuda.synchronize()
+
+
+def completions(eng):
+    return {r: c.tokens for r, c in eng.completions.items()}
+
+
+def match_rate(want, got):
+    """(equal tokens, total tokens, equal requests) of `got` against `want`."""
+    same = sum(a == b for r in want for a, b in zip(want[r], got.get(r, [])))
+    return same, sum(len(v) for v in want.values()), sum(want[r] == got.get(r) for r in want)
+
+
+def determinism_traffic(n):
+    """The bimodal new-token mix on prompts of 256 or 512 tokens, so with
+    prefill chunks of 256 every chunk is 256 wide whatever shares its step
+    (the [serve] phase's construct for bf16 token equality)."""
+    lens = 256 * np.random.default_rng(3).integers(1, 3, n)
+    return bimodal_traffic(n, prompt_lens=lens)
+
+
+@contextlib.contextmanager
+def patched(owner, name, wrap):
+    """Replace `owner.name` by `wrap(original)` for the block."""
+    real = getattr(owner, name)
+    setattr(owner, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def fleet_small_check():
+    """A small float32 model (GQA, 2 KV heads) on the card against the
+    CPU, TF32 off: the tp 2 engine's greedy tokens equal the single
+    engine's and the CPU's, float and int8 pools; a 1 x 1 DisaggRouter
+    over the port's HashStore gives the colocated engine's completions,
+    greedy and sampled, one migration a request; a republished migration
+    is byte for byte the first (bf16 and int8 pools)."""
+    from pytorch_distributed_example_tpu_torch.serve import ServeEngine
+    from pytorch_distributed_example_tpu_torch.serve.disagg import DisaggRouter, send_handoff
+    from pytorch_distributed_example_tpu_torch.store import HashStore
+
+    cfg = TransformerConfig(**SERVE_SMALL)
+    cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = TransformerLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    gen = np.random.default_rng(5)
+    traffic = [(gen.integers(0, 64, int(gen.integers(4, 30))).astype(np.int32),
+                int(gen.integers(4, 24)), i) for i in range(12)]
+    for quant in (False, True):
+        kw = dict(slots=4, block_size=8, pool_blocks=14, prefill_chunk_tokens=8, min_bucket=8,
+                  kv_quant=quant)
+        runs = [serve_run(cpu, traffic, **kw)[0], serve_run(card, traffic, **kw)[0],
+                serve_run(card, traffic, mesh=tp_mesh(FLEET_TP), **kw)[0]]
+        outs = [completions(e) for e in runs]
+        check(len(outs[0]) == len(traffic) and outs[0] == outs[1] == outs[2],
+              f"tp {FLEET_TP} engine (kv_quant={quant}) on the card gives other tokens than "
+              f"the single engine or the CPU")
+        print(f"  tp {FLEET_TP} engine, 12 requests, chunk 8, kv_quant={quant}: tokens == the "
+              f"card's single engine == the CPU's; {runs[2].metrics.preempted} preemptions")
+    kw = dict(slots=4, block_size=8, pool_blocks=64, prefill_chunk_tokens=8, min_bucket=8)
+    for sampling in (dict(), dict(temperature=0.8, top_k=8)):
+        colo = serve_run(card, traffic, **kw, **sampling)[0]
+        router = DisaggRouter(HashStore(),
+                              lambda i: ServeEngine(card, role="prefill", **kw, **sampling),
+                              lambda i: ServeEngine(card, role="decode", **kw, **sampling),
+                              chunk_blocks=2)
+        for prompt, budget, seed in traffic:
+            router.submit(prompt, budget, rid=f"r{seed}", seed=seed)
+        got = {r: c.tokens for r, c in router.run(max_steps=100000).items()}
+        check(got == completions(colo) and router.migrations == len(traffic),
+              f"disagg 1 x 1 ({sampling or 'greedy'}) differs from the colocated engine, or "
+              f"migrations {router.migrations} != {len(traffic)}")
+        print(f"  disagg 1 x 1 over HashStore, {sampling or 'greedy'}: completions == the "
+              f"colocated engine's; {router.migrations} migrations")
+    bf16 = TransformerLM(dataclasses.replace(cfg, dtype=torch.bfloat16), device="cuda")
+    bf16.load_state_dict(cpu.state_dict())
+    for quant in (False, True):
+        src = ServeEngine(bf16, role="prefill", kv_quant=quant, **kw)
+        src.submit(traffic[0][0], 5, rid="m0", seed=0)
+        handoffs = []
+        while not handoffs:
+            src.step()
+            handoffs = src.pop_handoffs()
+        store = HashStore()
+        n = send_handoff(store, src, handoffs[0], chunk_blocks=1)
+        keys = ["serve/migrate/m0"] + [f"serve/migrate/m0/chunk{i}" for i in range(n)]
+        first = [store.get(k) for k in keys]
+        check(send_handoff(store, src, handoffs[0], chunk_blocks=1) == n
+              and [store.get(k) for k in keys] == first,
+              f"a republished migration ({src.cache.wire_dtype} pool) is not byte-identical")
+        print(f"  republished migration, {src.cache.wire_dtype} pool: {n} chunks and the "
+              f"manifest byte-identical ({sum(map(len, first))} bytes)")
+
+
+def engine_prefill_logits(eng, toks):
+    """Each row of `toks` prefilled whole through `eng`'s own paged prefill
+    program into a fresh slot; the (B, L, V) logits, float32."""
+    out = []
+    for row in toks:
+        slot = eng.cache.allocate()
+        check(eng.cache.ensure_blocks(slot, len(row) - 1), "logits gate: pool too small")
+        _, logits = eng._prefill_chunk(eng.cache.tree, row[None],
+                                       eng.cache.block_tables[slot:slot + 1], 0)
+        out.append(logits.float())
+        eng.cache.free(slot)
+    return torch.stack(out)
+
+
+def fleet_bimodal(model, card, mesh=None):
+    """The [serve] phase's bimodal burst (48 requests, 8 slots, unchunked)
+    through a tp 1 or a tp `mesh` engine: tok/s, TTFT and TPOT p50/p99,
+    pool bytes a rank, peak memory. Returns (completions, tok/s)."""
+    from pytorch_distributed_example_tpu_torch.serve.metrics import percentile
+
+    T = 1 if mesh is None else mesh.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    eng, wall = serve_run(model, bimodal_traffic(SERVE_REQUESTS), slots=SERVE_SLOTS,
+                          block_size=SERVE_BLOCK, min_bucket=8, mesh=mesh)
+    m = eng.metrics
+    out = completions(eng)
+    check(len(out) == SERVE_REQUESTS, f"tp {T} bimodal run lost requests")
+    ms = {f"{name}_p{q}": percentile(values, q) * 1e3
+          for name, values in (("ttft", m.ttft_s), ("tpot", m.tpot_s)) for q in (50, 99)}
+    rate = m.tokens_completed / wall
+    print(f"  bimodal, tp {T}: {SERVE_REQUESTS} requests, {m.tokens_completed} tokens in "
+          f"{wall:.4f} s = {rate:.2f} tok/s; {m.steps} steps; TTFT p50 {ms['ttft_p50']:.3f} / "
+          f"p99 {ms['ttft_p99']:.3f} ms, TPOT p50 {ms['tpot_p50']:.3f} / p99 "
+          f"{ms['tpot_p99']:.3f} ms; pool {eng.cache.num_blocks * eng.cache.bytes_per_block / T / 2**30:.3f} "
+          f"GiB a rank ({T} rank{'s' if T > 1 else ''}); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    return out, rate
+
+
+TP_SPANS = ("tp.column", "tp.row_partials", "tp.row_sum", "tp.gather")
+
+
+def fleet_tp_profile(model, card):
+    """One steady 8-slot tp 2 decode step: CUDA events over 10 engine
+    steps, then one step under torch.profiler with the tp seams annotated
+    (the column products, the row-parallel float32 partials, their sum
+    over the rank dim, the all-gathers of the embedding and the logits)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from pytorch_distributed_example_tpu_torch.nn import functional as nnf
+    from pytorch_distributed_example_tpu_torch.parallel import tensor_parallel as tpm
+    from pytorch_distributed_example_tpu_torch.serve import ServeEngine
+
+    eng = ServeEngine(model, slots=SERVE_SLOTS, block_size=SERVE_BLOCK, min_bucket=8,
+                      mesh=tp_mesh(FLEET_TP))
+    gen = np.random.default_rng(2)
+    for i in range(SERVE_SLOTS):
+        eng.submit(gen.integers(0, 32000, 48).astype(np.int32), 200, rid=f"p{i}", seed=i)
+    for _ in range(6):
+        eng.step()
+    check(len(eng._decoding) == SERVE_SLOTS, "tp profile engine not at 8 decoding slots")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sync()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(10):
+        eng.step()
+    end.record()
+    sync()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 10
+    ev_ms = start.elapsed_time(end) / 10
+
+    def span(label):
+        def wrap(real):
+            def annotated(*a, **k):
+                with record_function(label):
+                    return real(*a, **k)
+            return annotated
+        return wrap
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(tpm, "column_parallel", span("tp.column")))
+        stack.enter_context(patched(tpm, "_bmm_f32", span("tp.row_partials")))
+        stack.enter_context(patched(nnf, "all_reduce", span("tp.row_sum")))
+        stack.enter_context(patched(nnf, "all_gather", span("tp.gather")))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            sync()
+            pwall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation and e.self_device_time_total > 0),
+                  reverse=True)
+    busy = sum(ms for ms, _, _ in rows)
+    spans = {label: sum(e.device_time_total for e in prof.events()
+                        if e.name == label and e.device_type == torch.autograd.DeviceType.CPU)
+             / 1e3 for label in TP_SPANS}
+    print(f"  tp {FLEET_TP} decode step, 8 slots: {ev_ms:.4f} ms by CUDA events, "
+          f"{host_ms:.4f} ms on the host (mean of 10 engine steps)  [{card}]")
+    if not busy:
+        print("  profiler saw no device time: busy share not measured")
+    else:
+        print(f"  profiled step {pwall:.4f} ms: device busy {busy:.4f} ms ({busy / pwall:.1%}), "
+              f"{sum(n for _, n, _ in rows)} kernel launches; by tp seam: "
+              + ", ".join(f"{k} {v:.4f} ms ({v / busy:.1%})" for k, v in spans.items()))
+        for ms, n, key in rows[:10]:
+            print(f"    {ms:9.4f} ms {ms / busy:6.1%} x{n:<4d} {key[:90]}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def fleet_redistribute(model, card, want_logits, toks):
+    """`dtensor.redistribute_for_serving` from the trainer's fsdp 2 x tp 2
+    layout (`lm.shard`, the [fsdp_tp] phase's, of the same seed-0 weights
+    as `model`) to a tp 2 engine's: the move's peak memory above what was
+    allocated before it may hold the serve layout (one copy of the
+    weights) and one leaf more, no replicated copy; the engine's prefill
+    logits match the single-card engine's (`want_logits`)."""
+    from pytorch_distributed_example_tpu_torch.dtensor import redistribute_for_serving
+    from pytorch_distributed_example_tpu_torch.serve import ServeEngine
+
+    args = lm.parse_args(SERVE_ARGV)
+    trainer = TransformerLM(lm.config_for(args), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+    mod = lm.shard(trainer, args.lr, FSDP_TP_WORLD, FSDP_TP_TP)
+    params = mod.params
+    param_bytes = sum(math.prod(p.shape) * p.dtype.itemsize for p in params.values())
+    biggest = max(math.prod(p.shape) * p.dtype.itemsize for p in params.values())
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    serve_params = redistribute_for_serving(params, tp_mesh(FLEET_TP))
+    sync()
+    move_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    print(f"  redistribute_for_serving, fsdp {FSDP_TP_WORLD // FSDP_TP_TP} x tp {FSDP_TP_TP} -> "
+          f"tp {FLEET_TP}: {move_s * 1e3:.1f} ms; peak {peak / 2**30:.3f} GiB above the "
+          f"{base / 2**30:.3f} GiB before the move, {held / 2**30:.3f} GiB held after; the "
+          f"weights {param_bytes / 2**30:.3f} GiB, the largest leaf {biggest / 2**20:.1f} MiB  "
+          f"[{card}]")
+    check(peak <= param_bytes + biggest,
+          "the move held more than the serve layout and one leaf: a replicated copy was made")
+    del mod, params, trainer
+    torch.cuda.empty_cache()
+    eng = ServeEngine(model, slots=len(toks), block_size=SERVE_BLOCK, min_bucket=8,
+                      mesh=tp_mesh(FLEET_TP), params=serve_params)
+    del serve_params
+    r = rel_rms(engine_prefill_logits(eng, toks), want_logits)
+    print(f"  the redistributed tp {FLEET_TP} engine's prefill logits vs the single-card "
+          f"engine's: rms(diff)/rms = {r:.4e} (<= {SERVE_RMS_TOL})")
+    check(r <= SERVE_RMS_TOL, "the redistributed weights' logits stray from the single card")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def fleet_tp(model, card):
+    """Tensor-parallel decode at CFG_1B, tp 2 in driver mode: the prefill
+    logits gate against the single-card engine, the bimodal burst at tp 1
+    and tp 2, a profiled tp 2 step, and the move from the trainer's
+    layout. Returns the tp 1 tok/s."""
+    from pytorch_distributed_example_tpu_torch.serve import ServeEngine
+
+    B, L = SERVE_GATE
+    toks = np.random.default_rng(1).integers(0, 32000, (B, L)).astype(np.int32)
+    kw = dict(slots=B, block_size=SERVE_BLOCK, min_bucket=8)
+    single = engine_prefill_logits(ServeEngine(model, **kw), toks)
+    tp2 = engine_prefill_logits(ServeEngine(model, mesh=tp_mesh(FLEET_TP), **kw), toks)
+    r = rel_rms(tp2, single)
+    check(bool(torch.isfinite(tp2).all()) and tp2.shape == (B, L, 32000), "bad tp logits")
+    print(f"  logits gate: {B} prompts x {L}, tp {FLEET_TP} engine vs the single-card engine "
+          f"(prefill through the paged programs): rms(diff)/rms = {r:.4e} (<= {SERVE_RMS_TOL})")
+    check(r <= SERVE_RMS_TOL, "tp decode logits stray from the single card")
+    del tp2
+    torch.cuda.empty_cache()
+    out1, rate1 = fleet_bimodal(model, card)
+    out2, rate2 = fleet_bimodal(model, card, mesh=tp_mesh(FLEET_TP))
+    same, total, reqs = match_rate(out1, out2)
+    print(f"  tp {FLEET_TP} against tp 1: {same} of {total} greedy tokens match ({same / total:.2%}), "
+          f"{reqs} of {len(out1)} requests whole (reported, not gated); tok/s tp {FLEET_TP} / "
+          f"tp 1 = {rate2 / rate1:.3f}")
+    fleet_tp_profile(model, card)
+    fleet_redistribute(model, card, single, toks)
+    return rate1
+
+
+def disagg_traffic():
+    """`serve_bench.py --trace disagg`'s requests at its defaults: 16 steady
+    (prompts 12-20, budget 48) and 32 burst (prompts 96-128, budget 3)."""
+    gen = np.random.default_rng(0)
+    steady = [(int(gen.integers(12, 21)), 48) for _ in range(DISAGG_STEADY)]
+    burst = [(int(gen.integers(96, 129)), 3) for _ in range(DISAGG_BURST)]
+    s = [(gen.integers(0, 32000, p).astype(np.int32), b, f"s{i}", i)
+         for i, (p, b) in enumerate(steady)]
+    b = [(gen.integers(0, 32000, p).astype(np.int32), n, f"b{i}", 1000 + i)
+         for i, (p, n) in enumerate(burst)]
+    return s, b
+
+
+def steady_decoding(eng):
+    return any(r is not None and r.rid.startswith("s") and s in eng._decoding
+               for s, r in enumerate(eng._slot_req))
+
+
+class MigrationClock:
+    """Host time of each part of a migration, by wrapping the migration
+    plane's seams: export (the device gather and copy to the host),
+    pack/seal (npz, CRC), store (sets and gets), unseal/import (CRC check,
+    npz read, the copy up and the scatter). The device parts synchronize
+    first, so their queue does not leak into another part."""
+
+    PARTS = ("export", "pack/seal", "store", "unseal/import")
+
+    def __init__(self):
+        self.ms = dict.fromkeys(self.PARTS, 0.0)
+        self.blocks = 0
+        self.bytes = 0
+
+    def timed(self, part, device=False):
+        def wrap(real):
+            def run(*a, **k):
+                if device:
+                    sync()
+                t0 = time.perf_counter()
+                out = real(*a, **k)
+                if device:
+                    sync()
+                self.ms[part] += (time.perf_counter() - t0) * 1e3
+                return out
+            return run
+        return wrap
+
+    @contextlib.contextmanager
+    def attached(self, store):
+        from pytorch_distributed_example_tpu_torch.serve import cache
+        from pytorch_distributed_example_tpu_torch.serve.disagg import migrate
+
+        clock = self
+
+        def export_counted(real):
+            def run(pool, ids):
+                clock.blocks += len(ids)
+                clock.bytes += len(ids) * pool.bytes_per_block
+                return real(pool, ids)
+            return run
+
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(cache.PagedKVCache, "export_blocks",
+                                        lambda r: export_counted(self.timed("export", True)(r))))
+            stack.enter_context(patched(cache.PagedKVCache, "import_blocks",
+                                        self.timed("unseal/import", True)))
+            for name in ("_pack_tree", "_seal_chunk"):
+                stack.enter_context(patched(migrate, name, self.timed("pack/seal")))
+            for name in ("_unseal_chunk", "_unpack_tree"):
+                stack.enter_context(patched(migrate, name, self.timed("unseal/import")))
+            for name in ("set", "get"):
+                stack.enter_context(patched(store, name, self.timed("store")))
+            yield self
+
+
+def fleet_disagg(model, card):
+    """`serve_bench.py --trace disagg` at CFG_1B: the steady requests
+    decode, then the burst arrives; colocated (one chunked-prefill engine)
+    against disagg (a prefill and a decode engine on the one card, sharing
+    the model, over HashStore). The figure of merit is the decode steps'
+    p99 while the steady requests decode under the burst. Then the
+    determinism construct, where the two must agree token for token.
+    Returns the colocated engine's completions on that construct."""
+    from pytorch_distributed_example_tpu_torch.serve import ServeEngine
+    from pytorch_distributed_example_tpu_torch.serve.disagg import DisaggRouter
+    from pytorch_distributed_example_tpu_torch.serve.metrics import percentile
+    from pytorch_distributed_example_tpu_torch.store import HashStore
+
+    steady, burst = disagg_traffic()
+    n = len(steady) + len(burst)
+
+    def mk(role, **kw):
+        kw = dict(dict(slots=DISAGG_SLOTS, min_bucket=8, prefill_chunk_tokens=DISAGG_CHUNK,
+                       block_size=SERVE_BLOCK), **kw)
+        return ServeEngine(model, role=role, **kw)
+
+    def submit(fn, reqs):
+        for prompt, budget, rid, seed in reqs:
+            fn(prompt, budget, rid=rid, seed=seed)
+
+    warm = DisaggRouter(HashStore(), lambda i: mk("prefill"), lambda i: mk("decode"))
+    submit(warm.submit, [(steady[0][0], 3, "w0", 0), (burst[0][0], 2, "w1", 0)])
+    warm.run(max_steps=10000)
+    del warm
+    regimes = {}
+    # colocated: one chunked-prefill engine
+    colo = mk("both")
+    submit(colo.submit, steady)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(100000):
+        if steady_decoding(colo) and not colo._prefilling:
+            break
+        colo.step()
+    submit(colo.submit, burst)
+    lat = []
+    while colo.pending:
+        s0 = time.perf_counter()
+        colo.step()
+        dt = time.perf_counter() - s0
+        if steady_decoding(colo) and len(colo.completions) < n:
+            lat.append(dt)
+    sync()
+    regimes["colocated"] = (time.perf_counter() - t0, lat, dict(colo.completions))
+    del colo
+    torch.cuda.empty_cache()
+    # disagg: the decode pool's step time under the same burst
+    store = HashStore()
+    router = DisaggRouter(store, lambda i: mk("prefill"), lambda i: mk("decode"))
+    mig = MigrationClock()
+    with mig.attached(store):
+        submit(router.submit, steady)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(100000):
+            if router.migrations >= len(steady):
+                break
+            router.step()
+        submit(router.submit, burst)
+        lat = []
+        real_step = router.decode.step
+
+        def timed_decode_step():
+            s0 = time.perf_counter()
+            busy = real_step()
+            dt = time.perf_counter() - s0
+            if steady_decoding(router.decode.engines()[0][1]) and len(router.completions) < n:
+                lat.append(dt)
+            return busy
+
+        router.decode.step = timed_decode_step
+        router.run(max_steps=100000)
+        sync()
+        span = time.perf_counter() - t0
+    regimes["disagg"] = (span, lat, dict(router.completions))
+    check(len(regimes["disagg"][2]) == n and router.migrations == n,
+          f"disagg lost requests or migrations ({router.migrations} of {n})")
+    for name, (span, lat, comps) in regimes.items():
+        toks = sum(len(c.tokens) for c in comps.values())
+        ttft = [c.ttft_s for c in comps.values()]
+        tpot = [c.tpot_s for c in comps.values()]
+        print(f"  disagg trace, {name}: {n} requests, {toks} tokens in {span:.4f} s = "
+              f"{toks / span:.2f} tok/s; TTFT p50 {percentile(ttft, 50) * 1e3:.3f} / p99 "
+              f"{percentile(ttft, 99) * 1e3:.3f} ms, TPOT p50 {percentile(tpot, 50) * 1e3:.3f} "
+              f"/ p99 {percentile(tpot, 99) * 1e3:.3f} ms; decode steps under the burst: "
+              f"{len(lat)}, p50 {percentile(lat, 50) * 1e3:.3f} / p99 "
+              f"{percentile(lat, 99) * 1e3:.3f} ms  [{card}]")
+    p99 = {k: percentile(v[1], 99) for k, v in regimes.items()}
+    per = {k: v / router.migrations for k, v in mig.ms.items()}
+    print(f"  decode-step p99 during the burst, colocated / disagg = "
+          f"{p99['colocated'] / p99['disagg']:.3f}; {router.migrations} migrations, "
+          f"{mig.blocks} blocks, {mig.bytes / 2**20:.1f} MiB ({mig.bytes / mig.blocks / 2**20:.3f} "
+          f"MiB a block); ms a request: " + ", ".join(f"{k} {v:.3f}" for k, v in per.items())
+          + f"; total {sum(per.values()):.3f}  [{card}]")
+    same, total, reqs = match_rate(*({r: c.tokens for r, c in regimes[k][2].items()}
+                                     for k in ("colocated", "disagg")))
+    print(f"  disagg trace token match against colocated: {same} of {total} tokens "
+          f"({same / total:.2%}), {reqs} of {n} requests whole (reported, not gated)")
+    del router, regimes
+    torch.cuda.empty_cache()
+    # the determinism construct: equal program shapes in both regimes
+    traffic = determinism_traffic(FLEET_DET_REQUESTS)
+    kw = dict(slots=SERVE_SLOTS, prefill_chunk_tokens=DETERMINISM_CHUNK)
+    colo = serve_run(model, traffic, block_size=SERVE_BLOCK, min_bucket=8, **kw)[0]
+    router = DisaggRouter(HashStore(), lambda i: mk("prefill", **kw),
+                          lambda i: mk("decode", **kw))
+    for prompt, budget, seed in traffic:
+        router.submit(prompt, budget, rid=f"r{seed}", seed=seed)
+    got = {r: c.tokens for r, c in router.run(max_steps=100000).items()}
+    check(got == completions(colo) and router.migrations == len(traffic),
+          "disagg differs from colocated on the determinism construct")
+    print(f"  determinism construct ({len(traffic)} requests, prompts 256/512, chunk "
+          f"{DETERMINISM_CHUNK}): disagg == colocated token for token, "
+          f"{router.migrations} migrations")
+    return completions(colo)
+
+
+def fleet_router(model, card, one_engine_rate, want):
+    """`ServeRouter` over 2 replicas on the card: the bimodal burst (tok/s
+    against one engine, rebinds), then a mid-flight `remove_replica` on
+    the determinism construct, its snapshot sealed into HashStore: every
+    request completes with the greedy tokens of the unscaled run (`want`,
+    one engine of the same slots and chunk on the same traffic)."""
+    from pytorch_distributed_example_tpu_torch.serve import ServeEngine, ServeRouter
+    from pytorch_distributed_example_tpu_torch.serve.elastic import load_serve_state
+    from pytorch_distributed_example_tpu_torch.store import HashStore
+
+    def router(store=None, **kw):
+        return ServeRouter(lambda i: ServeEngine(model, slots=SERVE_SLOTS,
+                                                 block_size=SERVE_BLOCK, min_bucket=8, **kw),
+                           replicas=ROUTER_REPLICAS, store=store)
+
+    def submit(r, traffic):
+        for prompt, budget, seed in traffic:
+            r.submit(prompt, budget, rid=f"r{seed}", seed=seed, tenant=f"t{seed % 8}")
+
+    r = router()
+    sync()
+    t0 = time.perf_counter()
+    submit(r, bimodal_traffic(SERVE_REQUESTS))
+    out = r.run(max_steps=100000)
+    sync()
+    wall = time.perf_counter() - t0
+    check(len(out) == SERVE_REQUESTS, "the router lost requests")
+    toks = sum(len(c.tokens) for c in out.values())
+    print(f"  router, {ROUTER_REPLICAS} replicas of 8 slots, bimodal: {toks} tokens in "
+          f"{wall:.4f} s = {toks / wall:.2f} tok/s ({toks / wall / one_engine_rate:.3f}x one "
+          f"engine's {one_engine_rate:.2f}); {r.rebinds} rebinds  [{card}]")
+    del r
+    torch.cuda.empty_cache()
+    traffic = determinism_traffic(FLEET_DET_REQUESTS)
+    store = HashStore()
+    r = router(store=store, prefill_chunk_tokens=DETERMINISM_CHUNK)
+    submit(r, traffic)
+    for _ in range(12):
+        r.step()
+    victim = r.remove_replica()
+    state, gen = load_serve_state(store, key_prefix=f"serve/replica{victim}")
+    got = {k: c.tokens for k, c in r.run(max_steps=100000).items()}
+    check(state is not None and len(got) == len(traffic) and got == want,
+          "scale-in mid-flight lost requests or changed greedy tokens")
+    print(f"  router scale-in mid-flight on the determinism construct: replica {victim} "
+          f"drained after 12 steps ({len(state['requests'])} accepted and "
+          f"{len(state['queued'])} queued requests sealed as generation {gen}); all "
+          f"{len(got)} requests complete with the greedy tokens of one unscaled engine")
+
+
+def serve_fleet_phase(card):
+    """Serving across ranks and pools: small float32 card-against-CPU
+    checks, then CFG_1B at full width in bf16: tensor-parallel decode,
+    the disagg trace and the replica router. No flash kernel may launch.
+    Returns the phase's launch counts by route."""
+    t0 = time.perf_counter()
+    fleet_small_check()
+    print(f"  small checks in {time.perf_counter() - t0:.1f} s")
+    args = lm.parse_args(SERVE_ARGV)
+    model = TransformerLM(lm.config_for(args), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(0))
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    rate1 = fleet_tp(model, card)
+    print(f"  tp decode in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    unscaled = fleet_disagg(model, card)
+    print(f"  disagg in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fleet_router(model, card, rate1, unscaled)
+    print(f"  router in {time.perf_counter() - t0:.1f} s")
+    routes = dict(fa.ROUTE_LAUNCHES)
+    print(f"  flash launches on the serve_fleet path: {dict(fa.LAUNCHES)}")
+    check(sum(fa.LAUNCHES.values()) == 0, "a flash kernel launched on the serve_fleet path")
+    del model
+    torch.cuda.empty_cache()
+    return routes
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1675,12 +2278,20 @@ def main():
     torch.cuda.empty_cache()
     print(f"  serve in {time.perf_counter() - t0:.1f} s")
 
-    # 13. report
+    # 13. serving across ranks and pools: tp decode, disagg, the router
+    t0 = time.perf_counter()
+    print("[serve_fleet]")
+    phase_launches["serve_fleet"] = serve_fleet_phase(card)
+    torch.cuda.empty_cache()
+    print(f"  serve_fleet in {time.perf_counter() - t0:.1f} s")
+
+    # 14. report
     kernels = []
     for name, lowerings in REPLACES.items():
         for regime, replaces in lowerings.items():
             design = results[regime][name]["design"]
-            by_phase = {ph: phase_launches[ph][f"{name}:{design}"] for ph in PHASES[regime]}
+            by_phase = {ph: phase_launches[ph].get(f"{name}:{design}", 0)
+                        for ph in PHASES[regime] + ("serve_fleet",)}
             kernels.append({"name": name, "route": "cuda",
                             "source": WGMMA_SOURCE if design == "wgmma" else SOURCE,
                             "replaces": replaces, "regime": regime,

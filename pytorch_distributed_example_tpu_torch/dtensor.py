@@ -20,8 +20,11 @@ tensor dim sharded by at most one axis.
 Arithmetic applies the op to the global values; where the reference reads
 the result's sharding back from XLA's propagation, the port keeps the
 left operand's placements when the result has its shape and replicates it
-otherwise. `redistribute_for_serving`/`redistribute_tree` wait for the
-serving slice (ROADMAP).
+otherwise.
+
+`redistribute_tree` moves leaves across meshes shard to shard, and
+`redistribute_for_serving` takes a trainer's params (e.g. over
+("fsdp", "tp")) to the tensor-parallel serve layout over ("tp",).
 """
 
 from __future__ import annotations
@@ -323,3 +326,83 @@ def distribute_module(params, device_mesh: DeviceMesh,
 def unwrap_module(tree: Mapping[str, Any]) -> Dict[str, Any]:
     """name -> DTensor (or tensor) -> name -> global tensor."""
     return {k: v.to_global() if isinstance(v, DTensor) else v for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# cross-layout redistribution (train mesh -> serve mesh)
+# ---------------------------------------------------------------------------
+
+
+def _move(x, mesh: DeviceMesh, placements) -> DTensor:
+    """One leaf into `mesh` + `placements`, shard to shard.
+
+    When the source mesh's axes that the target mesh also has are the
+    target's, in order and size, every other source axis is folded out of
+    the stack (its shards joined along their tensor dim, its Partial
+    addends reduced, a Replicate dropped) and the stacked locals are the
+    result: no rank's value is held whole beside its shards. Only a
+    placement that changes on a kept axis, or another axis set or size,
+    goes through this one leaf's global value."""
+    if not isinstance(x, DTensor):
+        return distribute_tensor(x, mesh, placements)
+    src = x.device_mesh
+    kept = [i for i, ax in enumerate(src.axis_names) if ax in mesh.axis_names]
+    if [src.axis_names[i] for i in kept] != list(mesh.axis_names) or \
+            [src.shape[i] for i in kept] != list(mesh.shape):
+        return distribute_tensor(x.full_tensor(), mesh, placements)
+    a, ns = x._local, len(src.shape)
+    for i in reversed(range(len(src.shape))):
+        p = x.placements[i]
+        if i in kept:
+            continue
+        if isinstance(p, Shard):
+            a = torch.cat(a.unbind(i), dim=ns - 1 + p.dim)
+        elif isinstance(p, Partial):
+            a = fold(p.reduce_op)(a.movedim(i, 0))
+        else:
+            a = a.squeeze(i)
+        ns -= 1
+    out = DTensor(a, mesh, [x.placements[i] for i in kept])
+    placements = _normalize(placements, mesh, ndim=len(x.shape))
+    return out if out.placements == placements else out.redistribute(placements)
+
+
+def redistribute_tree(tree, mesh: DeviceMesh, specs):
+    """Move every leaf of `tree` (a mapping, nested or flat, of `DTensor`s
+    or tensors) into `mesh` + `specs` (the same structure; each a spec as
+    `parallel.sharding.spec_for` gives) shard to shard (`_move`): the
+    tree-level face of `DTensor.redistribute`, usable across meshes. No
+    leaf is held whole on the way unless its placement on a kept axis
+    changes (memory-efficient array redistribution, arxiv 2112.01075)."""
+    if isinstance(tree, Mapping):
+        return {k: redistribute_tree(v, mesh, specs[k]) for k, v in tree.items()}
+    return _move(tree, mesh, spec_to_placements(specs, mesh))
+
+
+def redistribute_for_serving(params, serve_mesh: DeviceMesh, rules=None,
+                             tp_axis: str = "tp"):
+    """Train-layout params -> the tensor-parallel serving layout, directly.
+
+    `params` maps the port's parameter names to what the trainer holds
+    (`DTensor`s over an ("fsdp", "tp") mesh from `fully_shard` /
+    `stacked_forward`, or plain tensors); the result is laid out by the
+    serve engine's own rules (`models.transformer.sharding_rules(tp_axis,
+    fsdp_axis=None)` unless `rules` overrides) over `serve_mesh`. Each
+    leaf moves shard to shard (`redistribute_tree`): the fsdp shards of
+    a tp rank are joined into that rank's serve shard, and no replicated
+    copy of the model is made on the way. Feed the result to
+    `ServeEngine(model, mesh=serve_mesh, params=...)`.
+
+    Accepts and preserves a flax-style ``{"params": ...}`` wrapper."""
+    from .parallel import sharding as shd
+
+    if rules is None:
+        from .models.transformer import sharding_rules
+
+        rules = sharding_rules(tp_axis=tp_axis, fsdp_axis=None)
+    wrapped = isinstance(params, Mapping) and set(params) == {"params"}
+    tree = params["params"] if wrapped else params
+    specs = {name: shd.spec_for(name, tuple(t.shape), rules, serve_mesh)
+             for name, t in tree.items()}
+    out = redistribute_tree(dict(tree), serve_mesh, specs)
+    return {"params": out} if wrapped else out

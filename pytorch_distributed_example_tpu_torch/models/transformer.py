@@ -27,6 +27,8 @@ forward updates in place, as the reference's donated buffers are.
 `models/generate.py::init_cache` and `serve/cache.py::init_paged_cache`
 build it. Attention over the cache is dense (einsum, masked softmax,
 einsum), as in the reference; no flash kernel runs on this path.
+`TensorParallelDecoder` runs that paged path over a driver-mode ("tp",
+T) mesh, for the serve engine's ``mesh=``.
 """
 
 from __future__ import annotations
@@ -484,12 +486,16 @@ def _gathered(p, tp_dim: Optional[int], dtype, fsdp_axis: str, tp_axis: str, T: 
     `dtype`; then (T, *its tp rank's part of dim `tp_dim`), or the whole
     tensor once where `tp_dim` is None. A dim the layout left whole
     (`spec_for` drops an axis that does not divide it) is split here."""
-    from ..dtensor import Partial, Shard
+    from ..dtensor import Partial, Replicate, Shard
 
-    pf, pt = p.placements
+    if len(p.placements) == 1:  # a ("tp",) mesh: nothing to gather over fsdp
+        pf, pt = Replicate(), p.placements[0]
+        a = p._local.to(dtype).unsqueeze(0)
+    else:
+        pf, pt = p.placements
+        a = p._local.to(dtype)  # (F or 1, T or 1, *local)
     if isinstance(pf, Partial) or isinstance(pt, Partial):
         raise ValueError("a parameter with a pending Partial placement")
-    a = p._local.to(dtype)  # (F or 1, T or 1, *local)
     if isinstance(pf, Shard):
         a = nnf.all_gather(a, fsdp_axis, pf.dim, axes=(fsdp_axis, tp_axis), replica=True)
     else:
@@ -599,3 +605,185 @@ def stacked_forward(cfg: TransformerConfig, params, tokens, mesh, fsdp_axis: str
     logits = column(h, w("lm_head.weight", 0)).float()  # (T, N, V/T)
     logits = nnf.all_gather(logits, tp_axis, -1, replica=True)
     return logits.reshape(Fb, B, L, -1), aux
+
+
+# ---------------------------------------------------------------------------
+# the paged decode path over a ("tp", T) mesh, in driver mode
+# ---------------------------------------------------------------------------
+
+
+def _rope_ranked(x, c, s):
+    """`apply_rope_batched` on a rank-leading x (T, B, L, heads, D) with
+    the rows' angles c/s (B, L, D/2): the same float32 arithmetic per
+    element."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    c = c[None, :, :, None, :]
+    s = s[None, :, :, None, :]
+    r1 = x1 * c - x2 * s
+    r2 = x2 * c + x1 * s
+    return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# name pattern -> (tp dim of the (out, in) weight, keep float32)
+_TP_LAYOUT = [
+    (r"tok_embed\.weight$", 1, True),
+    (r"(q_proj|k_proj|v_proj|gate_proj|up_proj)\.weight$", 0, False),
+    (r"(o_proj|down_proj)\.weight$", 1, False),
+    (r"lm_head\.weight$", 0, False),
+    (r"(attn_norm|mlp_norm|final_norm)\.weight$", None, True),
+]
+
+
+class TensorParallelDecoder:
+    """The paged KV-cache decode path (`Attention._decode_paged`) over a
+    driver-mode (``tp``, T) mesh: every tp rank's work on the mesh's one
+    device, the ranks a leading dim, as `stacked_forward` runs training.
+
+    The weights take their tp layout once, here (`sharding_rules(tp_axis,
+    fsdp_axis=None)` through `_gathered`), cast to the compute dtype
+    where the model casts them per call: q/k/v, gate/up and the LM head
+    column-parallel (T, out/T, in), o and down row-parallel (T, out,
+    in/T), the embedding split on d_model and kept float32, the norms
+    whole. `params` (name -> `DTensor` over `mesh`, e.g. from
+    `dtensor.redistribute_for_serving`) replaces the model's own weights.
+
+    A call is the model's decode call on the paged pool: `cache` holds
+    the KV-head-sharded pool (`parallel.tensor_parallel.shard_kv_pool`),
+    rank t's shard (T, num_blocks + 1, bs, KV/T, Dh) the heads [t·KV/T,
+    (t+1)·KV/T). Each rank scatters its own heads' K/V and gathers them
+    back; the table math, the sink routing, RoPE and the int8 codec are
+    the single-card path's, computed once for all ranks. The row-parallel
+    projections sum the ranks' float32 partial products and round once
+    (`parallel.tensor_parallel.row_parallel`); bf16 partials would round
+    twice. Returns float32 logits (B, L, V)."""
+
+    def __init__(self, model, mesh, params=None, tp_axis: str = "tp"):
+        import re
+
+        from ..dtensor import DTensor, distribute_tensor, spec_to_placements
+        from ..parallel.sharding import spec_for
+
+        cfg = model.cfg
+        if tuple(mesh.axis_names) != (tp_axis,):
+            raise ValueError(f"tensor-parallel decode wants a ({tp_axis!r},) mesh, got "
+                             f"{mesh.axis_names}")
+        T = mesh.axis_size(tp_axis)
+        if cfg.n_heads % T or cfg.kv_heads % T:
+            raise ValueError(f"{cfg.n_heads} heads and {cfg.kv_heads} kv heads must split "
+                             f"over {T} tp ranks")
+        if cfg.n_experts > 0:
+            raise NotImplementedError("tensor-parallel decode of the MoE MLP is not ported "
+                                      "(ROADMAP.md, Queue 1 item 2)")
+        dev, md = next(model.parameters()).device, torch.device(mesh.device)
+        if (md.type, md.index or 0) != (dev.type, dev.index or 0):
+            raise ValueError(f"the mesh holds {mesh.device}, the model {dev}")
+        self.cfg, self.mesh, self.axis, self.T = cfg, mesh, tp_axis, T
+        rules = sharding_rules(tp_axis=tp_axis, fsdp_axis=None)
+        src = params if params is not None else model.state_dict()
+        self.w = {}
+        for name, t in src.items():
+            for pat, tp_dim, f32 in _TP_LAYOUT:
+                if re.search(pat, name):
+                    break
+            else:
+                raise ValueError(f"no tensor-parallel layout for parameter {name!r}")
+            if not isinstance(t, DTensor):
+                spec = spec_for(name, tuple(t.shape), rules, mesh)
+                t = distribute_tensor(t.detach(), mesh, spec_to_placements(spec, mesh))
+            elif t.device_mesh != mesh:
+                raise ValueError(f"{name} lies on {t.device_mesh}, not on the serve mesh")
+            self.w[name] = _gathered(t, tp_dim, torch.float32 if f32 else cfg.dtype, "fsdp",
+                                     tp_axis, T).detach()
+
+    @torch.no_grad()
+    def __call__(self, tokens, decode: bool = True, positions=None, block_tables=None,
+                 cache=None):
+        from ..dtensor import DTensor
+        from ..parallel import tensor_parallel as tp
+
+        if not decode or positions is None or block_tables is None or cache is None:
+            raise ValueError("the tensor-parallel decoder runs the paged decode path: "
+                             "decode=True with positions, block_tables and the pool")
+        cfg, T, axis, w = self.cfg, self.T, self.axis, self.w
+        B, L = tokens.shape
+        N = B * L
+        H_l, KV_l, Dh, D = cfg.n_heads // T, cfg.kv_heads // T, cfg.head_dim, cfg.d_model
+        M, dt, dev = cfg.max_seq_len, cfg.dtype, tokens.device
+
+        def column(x, weight):  # x (N, in) replica, weight (T, out_l, in) -> (T, N, out_l)
+            return tp.column_parallel(x, weight.transpose(-1, -2), axis)
+
+        def row(x, weight):  # x (T, N, in_l), weight (T, out, in_l) -> (N, out) replica
+            return tp.row_parallel(x, weight.transpose(-1, -2), axis)
+
+        x = nnf.all_gather(w["tok_embed.weight"][:, tokens], axis, -1, replica=True).to(dt)
+        cos, sin = rope_freqs(Dh, M, cfg.rope_theta, device=dev)
+        pos = positions.long()[:, None] + torch.arange(L, device=dev)  # (B, L)
+        safe = pos.clamp(0, M - 1)
+        c, s = cos[safe], sin[safe]
+        # the table math of `_decode_paged`, once for every layer and rank
+        bt = torch.as_tensor(block_tables, device=dev).long()
+        nb = bt.shape[1]
+        k0 = cache["layers_0"]["attn"]["k"]
+        nblk, bs = k0.shape[0] - 1, k0.shape[1]
+        lb, off = pos // bs, pos % bs
+        phys = torch.gather(bt, 1, lb.clamp(0, nb - 1))
+        flat = torch.where((lb < nb) & (phys < nblk), phys * bs + off,
+                           nblk * bs + off).reshape(N)
+        # the gather's clamp (the sink is in range), then each rank's
+        # blocks addressed in the pool viewed (T * (nblk + 1), ...): a
+        # gather on the leading dim, as the single-card path's
+        idx = (bt.clamp(0, nblk).reshape(1, -1)
+               + (nblk + 1) * torch.arange(T, device=dev)[:, None])  # (T, B*nb)
+        mask = (torch.arange(nb * bs, device=dev)[None, None, :] <= pos[:, :, None])
+        mask = mask.repeat(T, 1, 1)[:, None, None]  # (T*B, 1, 1, L, nb*bs)
+        scale = 1.0 / (Dh ** 0.5)
+
+        def local(a):
+            return a._local if isinstance(a, DTensor) else a
+
+        def scatter(pool, upd):  # pool (T, nblk+1, bs, ...), upd (T, B, L, ...)
+            pool.view(T, -1, *pool.shape[3:]).index_copy_(1, flat,
+                                                          upd.reshape(T, N, *pool.shape[3:]))
+
+        def gather(pool, scl):  # -> (T*B, nb*bs, KV_l, Dh)
+            g = pool.flatten(0, 1)[idx]  # (T, B*nb, bs, KV_l, Dh)
+            if scl is not None:
+                g = (g.float() * scl.flatten(0, 1)[idx][..., None]).to(dt)
+            return g.reshape(T * B, nb * bs, KV_l, Dh)
+
+        for i in range(cfg.n_layers):
+            pre = f"layers.{i}."
+            node = cache[f"layers_{i}"]["attn"]
+            ck, cv = local(node["k"]), local(node["v"])
+            h = _rms(x, w[pre + "attn_norm.weight"], cfg.norm_eps).reshape(N, D)
+            q = column(h, w[pre + "attn.q_proj.weight"]).reshape(T, B, L, H_l, Dh)
+            k = column(h, w[pre + "attn.k_proj.weight"]).reshape(T, B, L, KV_l, Dh)
+            v = column(h, w[pre + "attn.v_proj.weight"]).reshape(T, B, L, KV_l, Dh)
+            q, k = _rope_ranked(q, c, s), _rope_ranked(k, c, s)
+            if "k_scale" in node:
+                ks, vs = local(node["k_scale"]), local(node["v_scale"])
+                qk, sk = quantize_kv(k)
+                qv, sv = quantize_kv(v)
+                scatter(ck, qk)
+                scatter(cv, qv)
+                scatter(ks, sk)
+                scatter(vs, sv)
+                kf, vf = gather(ck, ks), gather(cv, vs)
+            else:
+                scatter(ck, k.to(ck.dtype))
+                scatter(cv, v.to(cv.dtype))
+                kf, vf = gather(ck, None), gather(cv, None)
+            qg = q.reshape(T * B, L, KV_l, H_l // KV_l, Dh)
+            sc = torch.einsum("blkrd,bmkd->bkrlm", qg, kf) * scale
+            sc = torch.where(mask, sc.float(), NEG_INF)
+            p = torch.softmax(sc, dim=-1).to(vf.dtype)
+            o = torch.einsum("bkrlm,bmkd->blkrd", p, vf).reshape(T, N, H_l * Dh)
+            x = x + row(o, w[pre + "attn.o_proj.weight"]).reshape(B, L, D)
+            h = _rms(x, w[pre + "mlp_norm.weight"], cfg.norm_eps).reshape(N, D)
+            a = F.silu(column(h, w[pre + "mlp.gate_proj.weight"])) * column(
+                h, w[pre + "mlp.up_proj.weight"])
+            x = x + row(a, w[pre + "mlp.down_proj.weight"]).reshape(B, L, D)
+        h = _rms(x, w["final_norm.weight"], cfg.norm_eps).reshape(N, D)
+        logits = column(h, w["lm_head.weight"]).float()  # (T, N, V/T)
+        return nnf.all_gather(logits, axis, -1, replica=True).reshape(B, L, -1)

@@ -16,7 +16,8 @@ backward copy). The reference routes its reductions through the traced
 planner seam (`plan/traced.py`); the port's use the fold of
 `nn.functional` until the planner is ported (ROADMAP).
 
-`shard_kv_pool`, `kv_pool_spec` and `replicate_tree` wait for serving.
+`shard_kv_pool`, `kv_pool_spec` and `replicate_tree` place the serve
+engine's paged KV pool and slot lanes over a driver-mode ``tp`` mesh.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..dtensor import Replicate, distribute_tensor, spec_to_placements
 from ..mesh import DeviceMesh
 from ..nn import functional as nnf
 from ..types import ReduceOp
@@ -251,3 +253,49 @@ def vocab_parallel_cross_entropy(local_logits, targets, axis: str = "tp",
 # torch.distributed.tensor.parallel.loss_parallel-shaped alias
 loss_parallel = vocab_parallel_cross_entropy
 
+
+
+# ---------------------------------------------------------------------------
+# serve-engine decode placement (paged KV pool + replicated slot state)
+# ---------------------------------------------------------------------------
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def kv_pool_spec(x, mesh: DeviceMesh, axis: str = "tp"):
+    """The pool layout rule for ONE leaf (reference :246-265): 4-d
+    (nblk, bs, KV, Dh) K/V pools and 3-d (nblk, bs, KV) scale planes (the
+    int8 pool's per-token scales) shard on their KV-head axis (dim 2);
+    anything else, and a leaf whose KV-head dim does not divide the axis,
+    replicates. The block count includes the port's sink block, which
+    every rank's shard carries. Returns a spec (one mesh-axis name or
+    None per dim, as `parallel.sharding.spec_for`)."""
+    if x.dim() in (3, 4) and x.shape[2] % mesh.axis_size(axis) == 0:
+        return (None, None, axis)
+    return ()
+
+
+def shard_kv_pool(tree, mesh: DeviceMesh, axis: str = "tp"):
+    """Place a paged KV pool tree (per layer (num_blocks + 1, block_size,
+    kv_heads, head_dim) K/V, `serve/cache.py`) onto `mesh` by
+    `kv_pool_spec`: each leaf a `DTensor`, KV-head sharded leaves stored
+    rank-leading as (T, num_blocks + 1, block_size, kv_heads / T, ...),
+    so tp rank t holds heads [t·KV/T, (t+1)·KV/T) of every block, the
+    sink included."""
+    return _tree_map(lambda x: distribute_tensor(
+        x, mesh, spec_to_placements(kv_pool_spec(x, mesh, axis), mesh)), tree)
+
+
+def replicate_tree(tree, mesh: DeviceMesh):
+    """Replicate every leaf of `tree` across `mesh` (the serve engine's
+    slot lanes: lengths, tokens and keys are (S,)-shaped, and sharding
+    them would cost a gather per readback). In driver mode a replicated
+    `DTensor` holds its value once."""
+    return _tree_map(lambda x: distribute_tensor(x, mesh, [Replicate()] * len(mesh.shape)),
+                     tree)

@@ -28,6 +28,14 @@ sync and no out-of-range index.
 
 The pool tensors are updated in place (the reference donates them through
 its programs); the tables, refcounts and free lists live on the host.
+
+Under a tensor-parallel engine the pool's leaves are `DTensor`s over the
+``tp`` mesh (`parallel.tensor_parallel.shard_kv_pool`): rank-leading
+(T, num_blocks + 1, block_size, kv_heads / T, ...) stacks, their block
+axis dim 1. The bookkeeping is the same; copy-on-write copies a block in
+every rank's shard, and `export_blocks` / `import_blocks` give and take
+the global (kv_heads-wide) layout, the same bytes whatever T is, so a
+migration may land on a pool of another TP degree.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..dtensor import DTensor, distribute_tensor
 from ..models.generate import init_cache, model_device
 
 __all__ = ["SlotKVCache", "PagedKVCache", "init_paged_cache", "land_slot"]
@@ -47,6 +56,35 @@ __all__ = ["SlotKVCache", "PagedKVCache", "init_paged_cache", "land_slot"]
 def _leaves(tree):
     for node in tree.values():
         yield from node["attn"].values()
+
+
+def _blocks(buf):
+    """A pool leaf indexable by block id along dim 0: the tensor itself,
+    or a `DTensor`'s stacked locals with the rank dim behind the block
+    axis (a view, so writes land in every rank's shard)."""
+    return buf._local.transpose(0, 1) if isinstance(buf, DTensor) else buf
+
+
+def _export_leaf(buf, idx):
+    """Blocks `idx` of one pool leaf in the global layout, on the host."""
+    if isinstance(buf, DTensor):
+        part = DTensor(buf._local.index_select(1, idx), buf.device_mesh, buf.placements)
+        return part.full_tensor().cpu()
+    return buf.index_select(0, idx).cpu()
+
+
+def _import_leaf(buf, idx, part):
+    """Write `part` (blocks in the global layout) onto blocks `idx` of one
+    pool leaf, verbatim: a dtype that is not the pool's raises."""
+    part = torch.as_tensor(part)
+    if part.dtype != buf.dtype:
+        raise TypeError(f"migration payload of {part.dtype} for a pool of {buf.dtype}")
+    part = part.to(idx.device)
+    if isinstance(buf, DTensor):
+        buf._local.index_copy_(1, idx, distribute_tensor(part, buf.device_mesh,
+                                                         buf.placements)._local)
+    else:
+        buf.index_copy_(0, idx, part)
 
 
 def land_slot(tree, pre, slot: int):
@@ -358,7 +396,8 @@ class PagedKVCache:
         new = self._take_block()
         self._refcount[new] = 1
         for buf in _leaves(self.tree):  # K, V and the scale planes
-            buf[new].copy_(buf[b])
+            blocks = _blocks(buf)
+            blocks[new].copy_(blocks[b])
         self._slot_blocks[slot][lb] = new
         self.block_tables[slot, lb] = new
         self._decref(b)
@@ -452,24 +491,25 @@ class PagedKVCache:
     # -- migration payloads ------------------------------------------------
     def export_blocks(self, block_ids: Sequence[int]):
         """Host snapshot of the given blocks across every pool leaf, in
-        table order, raw (int8 payloads and their scales bit for bit):
-        a tree shaped like the pool with the block axis cut to
-        `len(block_ids)`, numpy leaves."""
+        table order, raw (bf16 words, int8 payloads and their scales bit
+        for bit), the migration payload: a tree shaped like the pool with
+        the block axis cut to `len(block_ids)`, CPU tensors in the pool's
+        dtypes, in the global layout whatever the pool's TP degree."""
         idx = torch.as_tensor(list(block_ids), dtype=torch.long,
                               device=model_device(self.model))
-        return {layer: {"attn": {name: buf[idx].cpu().numpy() if buf.dtype != torch.bfloat16
-                                 else buf[idx].float().cpu().numpy()
+        return {layer: {"attn": {name: _export_leaf(buf, idx)
                                  for name, buf in node["attn"].items()}}
                 for layer, node in self.tree.items()}
 
     def import_blocks(self, dst_ids: Sequence[int], payload) -> None:
         """Land an `export_blocks` payload onto blocks `dst_ids` (same
-        order and count), in place."""
-        dev = model_device(self.model)
-        idx = torch.as_tensor(list(dst_ids), dtype=torch.long, device=dev)
+        order and count), in place, onto this pool's layout. Bytes land
+        verbatim: a leaf of another dtype raises."""
+        idx = torch.as_tensor(list(dst_ids), dtype=torch.long,
+                              device=model_device(self.model))
         for layer, node in self.tree.items():
             for name, buf in node["attn"].items():
-                buf[idx] = torch.as_tensor(payload[layer]["attn"][name], device=dev).to(buf.dtype)
+                _import_leaf(buf, idx, payload[layer]["attn"][name])
 
     def __repr__(self) -> str:
         return (f"PagedKVCache(slots={self.slots}, blocks={self.live_blocks}/{self.num_blocks}, "

@@ -10,8 +10,10 @@ carries its weights, so the programs take no `params`.
 
 * `slot_programs(model, temperature, top_k)` -> (prefill, write_slot,
   step) over the dense slot cache.
-* `paged_programs(model, temperature, top_k)` -> (prefill_chunk,
-  first_token, attach, step) over the paged pool (`serve/cache.py`).
+* `paged_programs(model, temperature, top_k, forward=None)` ->
+  (prefill_chunk, first_token, attach, step) over the paged pool
+  (`serve/cache.py`); `forward` stands in for the model's own decode
+  path (the engine's tensor-parallel decoder over a sharded pool).
 
 Each request's stream is built from its seed as the reference's: key =
 PRNGKey(seed); key, sub = split(key); the first token samples with sub
@@ -64,13 +66,13 @@ def _first(logits_row, seed: int, temperature, top_k):
     return first, key
 
 
-def _step_rows(model, tokens, lengths, rngs, temperature, top_k, **kw):
+def _step_rows(model, tokens, lengths, rngs, temperature, top_k, forward=None, **kw):
     """Advance every lane one token: per-lane key split, the decode path at
-    per-row positions, per-row sampling; lengths clamp at M - 1, where a
-    parked lane stays."""
+    per-row positions (`forward`, else the model's own), per-row
+    sampling; lengths clamp at M - 1, where a parked lane stays."""
     split = prng.split(rngs)  # (S, 2, 2)
     subs, new_rngs = split[:, 0], split[:, 1]
-    logits = model(tokens[:, None].long(), decode=True, positions=lengths, **kw)
+    logits = (forward or model)(tokens[:, None].long(), decode=True, positions=lengths, **kw)
     nxt = sample_logits(logits[:, -1], subs, temperature, top_k)
     lengths = torch.clamp(lengths + 1, max=model.cfg.max_seq_len - 1)
     return lengths, nxt, new_rngs
@@ -112,8 +114,10 @@ def slot_programs(model, temperature: float, top_k: Optional[int]):
     return prefill, write_slot, step
 
 
-def paged_programs(model, temperature: float, top_k: Optional[int]):
-    """(prefill_chunk, first_token, attach, step) for the paged pool.
+def paged_programs(model, temperature: float, top_k: Optional[int], forward=None):
+    """(prefill_chunk, first_token, attach, step) for the paged pool; the
+    decode path is `forward` when given (same call as the model's), else
+    the model.
 
     * ``prefill_chunk(tree, chunk (1, C), bt_row (1, nb), start)`` -> (tree,
       logits (C, V)): one prompt chunk at absolute offset `start` (nonzero
@@ -126,11 +130,12 @@ def paged_programs(model, temperature: float, top_k: Optional[int]):
       next_tokens (S,), rngs'): every lane one token; parked lanes have
       all-invalid table rows, so their writes land in the sink."""
     dev = model_device(model)
+    fwd = forward or model
 
     @torch.no_grad()
     def prefill_chunk(tree, chunk, bt_row, start):
         chunk = torch.as_tensor(chunk, device=dev)
-        logits = model(chunk.long(), decode=True,
+        logits = fwd(chunk.long(), decode=True,
                        positions=torch.tensor([start], dtype=torch.int32, device=dev),
                        block_tables=torch.as_tensor(bt_row, device=dev), cache=tree)
         return tree, logits[0]
@@ -150,6 +155,7 @@ def paged_programs(model, temperature: float, top_k: Optional[int]):
     @torch.no_grad()
     def step(tree, lengths, tokens, rngs, bt):
         lengths, nxt, rngs = _step_rows(model, tokens, lengths, rngs, temperature, top_k,
+                                        forward=forward,
                                         block_tables=torch.as_tensor(bt, device=dev),
                                         cache=tree)
         return tree, lengths, nxt, rngs

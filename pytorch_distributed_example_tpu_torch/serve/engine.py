@@ -1,6 +1,5 @@
 """ServeEngine — continuous-batching scheduler over the paged KV cache,
-the port of the reference's `serve/engine.py` for ``role="both"`` on one
-device.
+the port of the reference's `serve/engine.py`.
 
 Requests enter a bounded queue (`serve/queue.py`), are admitted into cache
 slots whose memory is paged from a shared block pool (`serve/cache.py`:
@@ -31,11 +30,28 @@ tokens, and a prefill's end reads back its first token, as the
 reference's. Prefill runs the same dense decode-path attention as the
 reference's programs (no flash kernel on this path).
 
-Not ported (each raises `NotImplementedError`; ROADMAP.md, Queue 1, what
-is left of serving): ``mesh=`` (tensor-parallel serving),
-``precompiled=`` (the pre-warmed program set), and ``role="prefill"`` /
-``role="decode"`` (disaggregated serving, with its handoff and
-migration-landing methods).
+Tensor-parallel decode: ``mesh=`` (a driver-mode `DeviceMesh` with a
+``tp_axis`` axis of T ranks, all on the model's device) lays the weights
+out once, at construction, by `models.transformer.sharding_rules(tp_axis,
+fsdp_axis=None)` (`TensorParallelDecoder`), shards the block pool on its
+KV heads (`parallel.tensor_parallel.shard_kv_pool`) and holds the slot
+lanes once (the driver-mode form of replicated). The programs are the
+single-card ones over that decoder. ``params=`` (name -> `DTensor` over
+`mesh`, as `dtensor.redistribute_for_serving` gives) serves those weights
+in place of the model's own.
+
+Disaggregated serving (`serve/disagg/`): ``role="prefill"`` freezes each
+finished prefill as a `Handoff` (slot, blocks and first token kept, no
+decoding) for the migration plane, which exports its blocks and calls
+`release_handoff`; ``role="decode"`` admits work only through
+`attach_migrated` (its queue holds preempted migrants for the router to
+replay through prefill); ``role="both"`` is the colocated engine.
+
+Not ported: ``precompiled=`` (the pre-warmed program set of the
+reference's `serve/prewarm.py`) raises `NotImplementedError`; it belongs
+with the serve worker under the elastic agent (ROADMAP.md, Queue 1 item
+5). Tensor-parallel serving over a mesh of distinct devices (multiproc
+mode) raises too (item 2).
 
 Synchronous single-owner design: one thread calls `submit()`/`step()`/
 `run()`; `ServeMetrics` is internally locked.
@@ -67,7 +83,7 @@ from .queue import (
     RequestQueue,
 )
 
-__all__ = ["ServeEngine"]
+__all__ = ["Handoff", "ServeEngine"]
 
 # Faults the engine absorbs by requeueing work (the retry layer's
 # transient taxonomy): injected connection resets and dropped requests.
@@ -86,6 +102,23 @@ class _Prefill:
     pos: int = 0
 
 
+@dataclass
+class Handoff:
+    """A finished prefill frozen for migration (``role="prefill"``
+    engines, `serve/disagg/`): the slot keeps its blocks and request
+    binding (nothing decodes, nothing frees) until the migration plane
+    exports the KV payload and `release_handoff` returns the slot to the
+    pool. `first` is the token the prefill engine already sampled (its
+    one key split off `req.seed`), so the decode pool starts from it
+    with the carry key rebuilt from the seed alone
+    (`serve/decode.py::carry_key`): no device RNG state crosses."""
+
+    req: Request
+    slot: int
+    length: int
+    first: int
+
+
 class ServeEngine:
     def __init__(
         self,
@@ -102,6 +135,7 @@ class ServeEngine:
         prefill_chunk_tokens: Optional[int] = None,
         max_queue_depth: Optional[int] = None,
         mesh=None,
+        tp_axis: str = "tp",
         kv_quant: bool = False,
         conservative_admission: bool = False,
         classes: Optional[Dict[str, ClassSpec]] = None,
@@ -109,22 +143,36 @@ class ServeEngine:
         prefix_cache: bool = False,
         precompiled=None,
         role: str = "both",
+        params=None,
     ):
         """`model` is a `TransformerLM` carrying its weights (the
         reference's `(model, params, ...)`); the engine runs on its
-        device. The other arguments are the reference's, less `tp_axis`,
-        which only `mesh=` reads."""
+        device. The other arguments are the reference's; `params`
+        (name -> `DTensor` over `mesh`) applies with `mesh=` only."""
+        # disaggregated serving (serve/disagg/): "prefill" freezes
+        # finished prefills as Handoffs for the migration plane instead
+        # of decoding them; "decode" admits work only via
+        # attach_migrated (its queue holds preempted migrants awaiting
+        # router pickup); "both" is the colocated engine.
         if role not in ("both", "prefill", "decode"):
             raise ValueError(
                 f"role must be 'both', 'prefill', or 'decode', got {role!r}"
             )
-        for given, what in ((role != "both", f"role={role!r} (disaggregated serving)"),
-                            (mesh is not None, "mesh= (tensor-parallel serving)"),
-                            (bool(precompiled), "precompiled= (pre-warmed programs)")):
-            if given:
-                raise NotImplementedError(
-                    f"{what} is not ported yet: ROADMAP.md, Queue 1, what is left of "
-                    f"serving")
+        if mesh is not None and len(set(mesh.device_list())) != 1:
+            raise NotImplementedError(
+                "tensor-parallel serving over distinct devices (multiproc mode) is not "
+                "ported yet: ROADMAP.md, Queue 1 item 2; a driver-mode mesh holds the "
+                "model's device once a rank")
+        if precompiled:
+            raise NotImplementedError(
+                "precompiled= (pre-warmed programs, serve/prewarm.py) is not ported yet: "
+                "ROADMAP.md, Queue 1 item 5, with the serve worker")
+        if params is not None and mesh is None:
+            raise ValueError("params= gives the weights' tensor-parallel layout; it needs "
+                             "mesh=")
+        self.role = role
+        self._handoff: List[Handoff] = []
+        self.mesh = mesh
         self.model = model
         self.cfg = model.cfg
         self.temperature = temperature
@@ -174,19 +222,30 @@ class ServeEngine:
         # never fires; `_reserved` tracks the active set's total
         self.conservative_admission = conservative_admission
         self._reserved = 0
+        self.decoder = None
+        if mesh is not None:
+            from ..models.transformer import TensorParallelDecoder
+            from ..parallel.tensor_parallel import shard_kv_pool
+
+            # the weights go to the tp layout once, here; every program
+            # call reads them as they are
+            self.decoder = TensorParallelDecoder(model, mesh, params=params,
+                                                 tp_axis=tp_axis)
+            self.cache.tree = shard_kv_pool(self.cache.tree, mesh, axis=tp_axis)
         (
             self._prefill_chunk,
             self._first_token,
             self._attach,
             self._step,
-        ) = paged_programs(model, temperature, top_k)
+        ) = paged_programs(model, temperature, top_k, forward=self.decoder)
         S = slots
         self._slot_req: List[Optional[Request]] = [None] * S
         self._slot_tokens: List[List[int]] = [[] for _ in range(S)]
         self._prefilling: Dict[int, _Prefill] = {}
         self._decoding: set = set()
         # per-slot state on the model's device, updated in place by every
-        # step; block tables stay host-side numpy and ride into each call
+        # step; block tables stay host-side numpy and ride into each call.
+        # Under a driver-mode mesh they are replicated: held once.
         dev = model_device(model)
         self._dev_lengths = torch.zeros((S,), dtype=torch.int32, device=dev)
         self._dev_tokens = torch.zeros((S,), dtype=torch.int32, device=dev)
@@ -270,6 +329,15 @@ class ServeEngine:
         return bucket_for(L, self.buckets)
 
     def _admit(self) -> int:
+        if self.role == "decode":
+            # decode-pool engines admit ONLY via attach_migrated;
+            # anything queued here is a preempted migrant waiting for
+            # the disagg router to route it back through a prefill
+            # engine (replay-from-seed)
+            return 0
+        return self._admit_queue()
+
+    def _admit_queue(self) -> int:
         """Backfill free slots from the queue (continuous batching:
         called at the top of every step, so retirement and admission
         interleave mid-stream). The queue's weighted round-robin picks
@@ -583,10 +651,26 @@ class ServeEngine:
                 if req.max_new_tokens == 1
                 else None
             )
-            self._decoding.add(slot)
             if done is not None:
-                # a single-token completion finishes here
+                # single-token completions finish here regardless of
+                # role: there is nothing left to decode, so migrating
+                # would move blocks only to free them
+                self._decoding.add(slot)
                 self._retire(slot, now, done)
+            elif self.role == "prefill":
+                # freeze for migration: the slot keeps its request and
+                # blocks (the migration plane exports them), the lane
+                # stays parked. TTFT is done (the first token exists),
+                # so it lands in this pool's window now; completion and
+                # TPOT land in the decode pool's.
+                self._handoff.append(
+                    Handoff(req=req, slot=slot, length=L, first=first)
+                )
+                self.metrics.record_first_token(
+                    now, now - req.arrival_time, klass=req.klass
+                )
+            else:
+                self._decoding.add(slot)
             if budget is not None and spent >= budget:
                 return  # budget spent: yield to decode
 
@@ -653,6 +737,10 @@ class ServeEngine:
         self._slot_tokens[slot] = []
         self._prefilling.pop(slot, None)
         self._decoding.discard(slot)
+        # an evicted FROZEN handoff replays through prefill again: its
+        # record must go, or the migration plane would export a freed
+        # (possibly reallocated) slot's blocks
+        self._handoff = [h for h in self._handoff if h.slot != slot]
         self.queue.requeue_front(req)
         self.cache.free(slot)
         self._reserved -= self._worst_blocks(req)
@@ -728,10 +816,12 @@ class ServeEngine:
         # a mid-prefill slot's lane is parked but its table row already
         # holds real blocks (chunks land as they arrive): hand the step a
         # copy with those rows invalidated, so the parked lane's write
-        # goes to the sink instead of the request's own block 0. Retired
-        # rows are already all-invalid via free().
+        # goes to the sink instead of the request's own block 0. Frozen
+        # handoff slots are the same hazard with higher stakes: their
+        # blocks are the migration payload. Retired rows are already
+        # all-invalid via free().
         bt = self.cache.block_tables
-        frozen = sorted(self._prefilling)
+        frozen = sorted(self._prefilling) + sorted(h.slot for h in self._handoff)
         if frozen:
             bt = bt.copy()
             bt[frozen] = self.cache.invalid_block
@@ -913,8 +1003,89 @@ class ServeEngine:
             self.queue.requeue_front(req)
             self.cache.free(s)
             self._reserved -= self._worst_blocks(req)
+        # frozen handoffs were in flight too (their slots held requests),
+        # requeued above; drop the stale migration records
+        self._handoff = []
         self.metrics.record_requeue(len(inflight))
         return len(inflight)
+
+    # -- disaggregated handoff / landing (serve/disagg/) -------------------
+    def pop_handoffs(self) -> List[Handoff]:
+        """Drain the frozen-handoff list (``role="prefill"``). The slots
+        stay frozen (blocks pinned, lanes parked) until the caller
+        exports each payload and calls `release_handoff`; a step between
+        pop and release is safe (frozen rows are invalidated in `step`),
+        but an eviction in that window makes the record stale, which
+        `release_handoff` detects by request identity."""
+        out, self._handoff = self._handoff, []
+        return out
+
+    def release_handoff(self, h: Handoff) -> None:
+        """Return a migrated handoff's slot and blocks to the pool, after
+        the payload is durably published (a crash between publish and
+        release just re-sends identical bytes). A no-op when the slot no
+        longer holds `h.req` (evicted since the pop: the request is
+        replaying anyway)."""
+        if self._slot_req[h.slot] is not h.req:
+            return
+        self._slot_req[h.slot] = None
+        self._slot_tokens[h.slot] = []
+        self.cache.free(h.slot)
+        self._reserved -= self._worst_blocks(h.req)
+
+    def attach_migrated(self, req: Request, length: int, first: int,
+                        payload) -> Optional[int]:
+        """Land a migrated prefill on this (decode-pool) engine: claim a
+        slot, import the KV block payload (`PagedKVCache.import_blocks`:
+        raw, int8 and scale planes included, so the landed blocks are bit
+        for bit the prefill pool's), and seed the slot's lanes with the
+        already-sampled first token and the carry key rebuilt from
+        `req.seed` (`serve/decode.py::carry_key`). Decode then proceeds
+        as if this engine had prefilled locally. Returns the slot, or
+        None when this engine cannot hold the request now (nothing was
+        mutated; the caller retries or picks another replica)."""
+        from .decode import carry_key
+
+        if self.role == "prefill":
+            raise DistError("prefill-pool engines cannot land migrations")
+        worst = self._worst_blocks(req)
+        if self.conservative_admission and (
+            self._reserved + worst > self.cache.num_blocks
+        ):
+            return None
+        slot = self.cache.allocate()
+        if slot is None:
+            return None
+        if not self.cache.ensure_blocks(slot, length - 1):
+            self.cache.free(slot)
+            return None
+        self.cache.import_blocks(self.cache.slot_blocks(slot), payload)
+        dev = model_device(self.model)
+        (
+            self._dev_lengths,
+            self._dev_tokens,
+            self._dev_rngs,
+        ) = self._attach(
+            self._dev_lengths,
+            self._dev_tokens,
+            self._dev_rngs,
+            slot,
+            length,
+            torch.tensor(first, dtype=torch.int32, device=dev),
+            carry_key(req.seed, dev),
+        )
+        self.cache.lengths[slot] = length
+        self._slot_req[slot] = req
+        self._slot_tokens[slot] = [first]
+        self._decoding.add(slot)
+        self._reserved += worst
+        self.metrics.record_admit()
+        if req.first_token_time is None:
+            # the migration's manifest normally carries the prefill-side
+            # stamp; fall back to now so TPOT stays finite either way
+            req.first_token_time = self.clock()
+        self._note_recovery(self.clock())
+        return slot
 
     # -- introspection -----------------------------------------------------
     @property

@@ -608,3 +608,78 @@ def test_engine_preemption_is_token_exact_on_the_card():
     assert preempted[0] == 0 and preempted[1] > 0
     assert outs[0] == outs[1]
     assert sum(tfa.LAUNCHES.values()) == 0
+
+
+# -- serving across ranks and pools: TP decode and KV migration on the card ---
+
+
+def _tp_mesh(device, T=2):
+    from pytorch_distributed_example_tpu_torch.mesh import DeviceMesh
+
+    return DeviceMesh([device] * T, (T,), ("tp",))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_tp2_engine_on_the_card_matches_the_cpu(kv_quant):
+    """float32, TF32 off: the tp 2 engine (driver mode on cuda:0, the pool
+    sharded on its 2 KV heads) gives the CPU's single engine's greedy
+    tokens, through preemptions and chunked prefill."""
+    _need_card()
+    from pytorch_distributed_example_tpu_torch.serve import ServeEngine
+
+    cpu, card = _serve_models()
+    outs = []
+    for model, mesh in ((cpu, None), (card, _tp_mesh("cuda"))):
+        eng = ServeEngine(model, slots=4, block_size=8, pool_blocks=12, prefill_chunk_tokens=16,
+                          min_bucket=8, kv_quant=kv_quant, mesh=mesh)
+        for prompt, budget, seed in _serve_trace(10, 3):
+            eng.submit(prompt, budget, rid=f"r{seed}", seed=seed)
+        outs.append({rid: c.tokens for rid, c in eng.run(max_steps=5000).items()})
+    assert eng.cache.tree["layers_0"]["attn"]["k"]._local.is_cuda
+    assert eng.metrics.preempted > 0
+    assert outs[1] == outs[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+def test_migration_lands_bit_for_bit_on_the_card(pool):
+    """bf16 weights, a bf16 or int8 pool: a prefill engine's handoff goes
+    through the store (raw bf16 words, int8 payloads and scales) onto a
+    decode engine at tp 1 and at tp 2, lands bit for bit, and decodes the
+    colocated engine's tokens."""
+    _need_card()
+    from pytorch_distributed_example_tpu_torch.serve import ServeEngine
+    from pytorch_distributed_example_tpu_torch.serve.disagg import recv_migration, send_handoff
+    from pytorch_distributed_example_tpu_torch.store import HashStore
+
+    _, card = _serve_models(torch.bfloat16)
+    kw = dict(slots=2, block_size=8, prefill_chunk_tokens=16, min_bucket=8,
+              kv_quant=pool == "int8")
+    prompt, budget, seed = _serve_trace(1, 4)[0]
+    colo = ServeEngine(card, **kw)
+    colo.submit(prompt, budget, rid="m0", seed=seed)
+    want = colo.run(max_steps=500)["m0"].tokens
+    for mesh in (None, _tp_mesh("cuda")):
+        src = ServeEngine(card, role="prefill", **kw)
+        src.submit(prompt, budget, rid="m0", seed=seed)
+        handoffs = []
+        while not handoffs:
+            src.step()
+            handoffs = src.pop_handoffs()
+        h = handoffs[0]
+        store = HashStore()
+        send_handoff(store, src, h, chunk_blocks=1)
+        dst = ServeEngine(card, role="decode", mesh=mesh, **kw)
+        slot = recv_migration(store, "m0", dst)
+        sent = src.cache.export_blocks(src.cache.slot_blocks(h.slot))
+        got = dst.cache.export_blocks(dst.cache.slot_blocks(slot))
+        for layer, node in sent.items():
+            for name, t in node["attn"].items():
+                assert t.dtype == got[layer]["attn"][name].dtype
+                assert torch.equal(got[layer]["attn"][name].view(torch.uint8),
+                                   t.view(torch.uint8)), (layer, name)
+        out = dst.run(max_steps=500)["m0"].tokens
+        # tp 2 sums the bf16 products in another order: its tokens may part
+        # from tp 1's after a near-tie, so only tp 1 is held to them
+        assert out == want if mesh is None else len(out) == budget

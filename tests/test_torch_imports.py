@@ -62,8 +62,9 @@ def test_port_imports_nothing_of_jax():
     word, count = last.split()
     assert word == "clean", out.stdout
     # ops, models, examples, parallel, the c10d core, data, DDP, sharded
-    # training, generation and serving, and their modules
-    assert int(count) >= 68
+    # training, generation, serving on one card and across ranks and
+    # pools, the planner's schedules, and their modules
+    assert int(count) >= 78
     for name in ("ops.flash_attention", "parallel", "parallel.context_parallel",
                  "distributed", "store", "backends.stacked", "backends.process",
                  "examples.toy", "data.sampler", "data.loader", "models.convnet",
@@ -72,7 +73,10 @@ def test_port_imports_nothing_of_jax():
                  "parallel.tensor_parallel", "parallel.expert_parallel", "parallel.fsdp",
                  "utils.memstats", "prng", "ops.quant", "models.generate", "serve",
                  "serve.bucketing", "serve.queue", "serve.metrics", "serve.prefix",
-                 "serve.cache", "serve.decode", "serve.engine", "examples.generate"):
+                 "serve.cache", "serve.decode", "serve.engine", "examples.generate",
+                 "plan", "plan.topology", "plan.schedules", "plan.transfer", "serve.router",
+                 "serve.autoscale", "serve.elastic", "serve.disagg", "serve.disagg.migrate",
+                 "serve.disagg.router"):
         assert f"pytorch_distributed_example_tpu_torch.{name}" in modules.split(), name
 
 

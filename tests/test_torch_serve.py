@@ -25,6 +25,7 @@ from pytorch_distributed_example_tpu.models import transformer as jtr
 from pytorch_distributed_example_tpu.serve import decode as jdecode
 from pytorch_distributed_example_tpu.serve import metrics as jmetrics
 from pytorch_distributed_example_tpu_torch import prng
+from pytorch_distributed_example_tpu_torch.mesh import DeviceMesh
 from pytorch_distributed_example_tpu_torch import serve as tserve
 from pytorch_distributed_example_tpu_torch.models import convert
 from pytorch_distributed_example_tpu_torch.models import transformer as ttr
@@ -370,11 +371,15 @@ def test_parked_lane_writes_land_in_the_sink():
         assert torch.equal(v[:-1], before[k][:-1])
 
 
+# a mesh over distinct devices: tensor-parallel serving in multiproc mode
+_SPREAD = DeviceMesh(["cpu", "meta"], (2,), ("tp",))
+
+
 @pytest.mark.parametrize("kw,err", [
-    (dict(mesh=object()), NotImplementedError),
+    (dict(mesh=_SPREAD), NotImplementedError),
     (dict(precompiled={"step": object()}), NotImplementedError),
-    (dict(role="prefill"), NotImplementedError),
-    (dict(role="decode"), NotImplementedError),
+    (dict(role="prefill", mesh=_SPREAD), NotImplementedError),
+    (dict(role="decode", precompiled={"step": object()}), NotImplementedError),
     (dict(role="bogus"), ValueError),
 ])
 def test_unported_engine_options_raise(kw, err):
