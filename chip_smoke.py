@@ -144,10 +144,36 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    HashStore, whose greedy tokens must equal one unscaled engine's (the
    colocated run of the disagg construct). No flash kernel launches in
    the phase.
-14. report: one JSON line of kernels (each Hopper kernel once per Pallas
+14. cifar: the BASELINE's ResNet-18/CIFAR-10 workload, after
+   `[serve_fleet]`, TF32 still off: ResNet-18 at full width (11.2M params)
+   with SyncBatchNorm through `examples/cifar.py`'s train step, driver
+   mode at world 8 on cuda:0. Its first step (4 images a rank, float32)
+   against the same step on the CPU: the loss, every leaf's SGD update and
+   the running statistics; the synced statistics against BN over the
+   global batch in one forward. Then `bench.bench_resnet_ddp` at 128 a
+   rank (1024 images a step) in float32 and bf16 (samples/s per card, the
+   median window after the first; step ms by CUDA events; one profiled
+   step's busy share, launches and top kernels; peak memory), and the
+   example for an epoch. No flash kernel may launch (ResNet has no
+   attention).
+15. bert: the BASELINE's BERT-base fine-tune workload, after `[cifar]`.
+   float32 checks, dropout off, at full width with the depth cut to 2
+   layers, 2 x 32 tokens a rank: the DDP step's first step card vs CPU;
+   `grad_accum_steps=2` against one step of the same batch; remat against
+   no remat with dropout on (the same masks); 3 adamw steps of each hook
+   (bf16, fp16, block-quantized int8 with error feedback, PowerSGD rank 2)
+   against `allreduce_hook`'s losses, and the int8 payload's wire dtype
+   from the flight recorder. Then `bench.bench_bert_finetune` at the
+   "base" preset, 16 x 128 a rank, adamw(2e-5), dropout 0.1: float32 and
+   bf16 with the stock hook, and each compressing hook in bf16 (samples/s
+   and tokens/s per card, step ms by CUDA events, a profiled step, peak
+   memory, the hook alone on BERT-base's gradient by CUDA events beside
+   its wire bytes a rank). No flash kernel may launch (BERT's attention is
+   dense, as the reference's).
+16. report: one JSON line of kernels (each Hopper kernel once per Pallas
    lowering it replaces, with its design, "wgmma" or "simt", and its
-   launches per phase, `serve_fleet` among them), the card's name and
-   power limit, then the `ok` line.
+   launches per phase, `serve_fleet`, `cifar` and `bert` among them), the
+   card's name and power limit, then the `ok` line.
 """
 
 import contextlib
@@ -168,9 +194,19 @@ import torch
 import pytorch_distributed_example_tpu_torch as tdx
 from pytorch_distributed_example_tpu_torch import bench, optim
 from pytorch_distributed_example_tpu_torch.data import DataLoader, DistributedSampler, SyntheticMNIST
-from pytorch_distributed_example_tpu_torch.examples import lm, mnist, toy
-from pytorch_distributed_example_tpu_torch.models import ConvNet, TransformerConfig, TransformerLM
-from pytorch_distributed_example_tpu_torch.ops import _build, dense_attention
+from pytorch_distributed_example_tpu_torch.examples import cifar, lm, mnist, toy
+from pytorch_distributed_example_tpu_torch.models import (
+    BertConfig,
+    BertForSequenceClassification,
+    ConvNet,
+    TransformerConfig,
+    TransformerLM,
+    convert_sync_batchnorm,
+)
+from pytorch_distributed_example_tpu_torch.ops import _build, dense_attention, quant
+from pytorch_distributed_example_tpu_torch.parallel import comm_hooks
+from pytorch_distributed_example_tpu_torch.tensor import DistTensor
+from pytorch_distributed_example_tpu_torch.utils.flight_recorder import global_recorder
 from pytorch_distributed_example_tpu_torch.dtensor import DTensor
 from pytorch_distributed_example_tpu_torch.parallel import context_parallel as cp
 from pytorch_distributed_example_tpu_torch.parallel import expert_parallel as ep
@@ -2179,6 +2215,399 @@ def serve_fleet_phase(card):
     return routes
 
 
+# ---------------------------------------------------------------------------
+# [cifar] and [bert]: the BASELINE's ResNet-18/CIFAR-10 and BERT-base
+# fine-tune workloads under driver-mode DDP at world 8 on cuda:0
+# ---------------------------------------------------------------------------
+
+DDP8 = 8
+CIFAR_BATCH = 128  # a rank, as the reference's benchmarks/resnet_ddp.py
+CIFAR_CHECK_BATCH = 4  # a rank, for the card-vs-CPU step
+CIFAR_BENCH = dict(warmup=3, steps=5, windows=3)
+BERT_BATCH, BERT_SEQ = 16, 128  # a rank, as the reference's benchmarks/bert_finetune.py
+BERT_BENCH = dict(warmup=2, steps=3, windows=3)
+# the card-vs-CPU checks: BERT at full width, its depth cut to 2 layers,
+# 1 sequence of 32 tokens a rank (the CPU side runs the same step)
+BERT_CHECK = dict(n_layers=2)
+BERT_CHECK_BATCH, BERT_CHECK_SEQ, BERT_CHECK_LR = 2, 32, 1e-2
+# float32 card against CPU (TF32 off on both): the loss within rtol 1e-5;
+# each leaf's update (SGD, so linear in its gradient) within 1e-3 of the
+# larger of its own rms and 1e-3 of the whole update's rms: the attention
+# key biases take a zero gradient in exact arithmetic, rounding noise on
+# both sides; the running statistics within rms ratio 1e-4
+CARD_LOSS_RTOL, CARD_UPDATE_RMS, CARD_STATS_RMS = 1e-5, 1e-3, 1e-4
+# within the card: microbatching changes the order of the sums as the CPU
+# does (LayerNorm scales' gradients, sums of many products that cancel,
+# moved 1.6e-4 on the card, where the CPU was 1.8e-4 away); remat repeats
+# the same ops
+ACCUM_UPDATE_RMS, REMAT_UPDATE_RMS = CARD_UPDATE_RMS, 1e-6
+# a compressing hook's loss over 3 adamw steps against the stock hook's;
+# PowerSGD at rank 2 sends a rank-2 approximation of each matrix and
+# carries the rest in its error feedback, so its first steps move less:
+# its 3-step loss drop must be at least half the stock hook's (on the H100
+# it made 0.76 of it; the other hooks stay within 1%)
+HOOK_LOSS_RTOL, POWERSGD_PROGRESS = 1e-2, 0.5
+HOOKS = ("bf16_compress_hook", "fp16_compress_hook", "blockwise_quant_hook", "powerSGD_hook")
+
+
+def make_hook(name):
+    if name == "blockwise_quant_hook":
+        return comm_hooks.blockwise_quant_hook(bits=8, error_feedback=True)
+    if name == "powerSGD_hook":
+        return comm_hooks.powerSGD_hook(rank=2)
+    return getattr(comm_hooks, name)
+
+
+def update_errors(new_a, new_b, old):
+    """Each leaf's rms(update_a - update_b) over max(rms(update_b), 1e-3 *
+    the whole update's rms): the worst (value, name). BERT's attention key
+    biases are left out: their gradient is zero in exact arithmetic (q . b
+    adds one constant to every key's score, which the softmax cancels), so
+    both sides step on rounding noise."""
+    upd = {n: new_b[n].float() - old[n].float() for n in old if "attn.key.bias" not in n}
+    total = math.sqrt(sum(float(u.pow(2).sum()) for u in upd.values())
+                      / sum(u.numel() for u in upd.values()))
+    worst = (-1.0, "")
+    for n, u in upd.items():
+        diff = (new_a[n].float() - old[n].float()) - u
+        scale = max(float(u.pow(2).mean().sqrt()), 1e-3 * total, 1e-30)
+        worst = max(worst, (float(diff.pow(2).mean().sqrt()) / scale, n))
+    return worst
+
+
+def timed_events(fn, iters):
+    """Mean ms of fn() by CUDA events over `iters` calls (warm already)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_profile(fn, step_ms, card, label, top=5):
+    """One call of fn() under torch.profiler: the device's busy ms, its
+    share of the profiled call and of `step_ms`, the launches, the top
+    kernels. Returns (busy ms, launches), or (None, None) when the
+    profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        pwall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation and e.self_device_time_total > 0),
+                  reverse=True)
+    total = sum(ms for ms, _, _ in rows)
+    if not total:
+        print(f"  {label}: profiler saw no device time: busy share not measured")
+        return None, None
+    # busy: the union of the kernels' intervals (a sum would count kernels
+    # that overlap on other streams twice)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation and e.time_range.end > e.time_range.start)
+    busy, cur = 0.0, None
+    for s, t in spans:
+        if cur is None or s > cur[1]:
+            busy += (cur[1] - cur[0]) if cur else 0.0
+            cur = [s, t]
+        else:
+            cur[1] = max(cur[1], t)
+    busy = (busy + (cur[1] - cur[0])) / 1e3 if cur else total
+    launches = sum(n for _, n, _ in rows)
+    print(f"  {label}: profiled step {pwall:.2f} ms, device busy {busy:.2f} ms ({busy / pwall:.1%}"
+          f"; {busy / step_ms:.1%} of the {step_ms:.2f} ms event-timed step; kernel time "
+          f"summed {total:.2f} ms), {launches} kernel launches  [{card}]")
+    for ms, n, key in rows[:top]:
+        print(f"    {ms:9.3f} ms {ms / total:6.1%} x{n:<5d} {key[:90]}")
+    return busy, launches
+
+
+def cifar_batch(batch, device):
+    x, y = cifar.synthetic_cifar(batch * DDP8, 0)
+    return torch.from_numpy(x).to(device), torch.from_numpy(y).to(device).long()
+
+
+def cifar_first_step(device):
+    """One step of the CIFAR example's train step at world 8 (SyncBN, SGD
+    0.1 momentum 0.9, float32) on `device`: (params before, after, stats
+    after, loss), on the host."""
+    tdx.init_process_group(world_size=DDP8, device=None if device == "cuda" else device)
+    try:
+        model = cifar.build(device)
+        params, stats = model.params_and_stats()
+        opt = optim.sgd(0.1, momentum=0.9)
+        step = cifar.make_train_step(model, opt)
+        x, y = cifar_batch(CIFAR_CHECK_BATCH, device)
+        p, s, _, loss = step(params, stats, opt.init(params), x, y)
+        host = lambda d: {n: t.detach().cpu() for n, t in d.items()}  # noqa: E731
+        return host(params), host(p), host(s), float(loss)
+    finally:
+        tdx.destroy_process_group()
+
+
+def cifar_checks():
+    old, gp, gs, gloss = cifar_first_step("cuda")
+    _, cp, cs, closs = cifar_first_step("cpu")
+    lerr = abs(gloss - closs) / abs(closs)
+    uerr, uname = update_errors(gp, cp, old)
+    serr, sname = max((rel_rms(gs[n], cs[n]), n) for n in cs)
+    print(f"  first step, ResNet-18 (SyncBN) at world {DDP8} x {CIFAR_CHECK_BATCH}, float32, card "
+          f"vs CPU: loss {gloss:.6f} vs {closs:.6f} (rel err {lerr:.2e}, limit "
+          f"{CARD_LOSS_RTOL:g}); worst update error {uerr:.2e} ({uname}, limit "
+          f"{CARD_UPDATE_RMS:g}); worst running-statistics rms ratio {serr:.2e} ({sname}, limit "
+          f"{CARD_STATS_RMS:g})")
+    check(lerr <= CARD_LOSS_RTOL and uerr <= CARD_UPDATE_RMS and serr <= CARD_STATS_RMS,
+          "the CIFAR step on the card disagrees with the CPU")
+
+    # the synced statistics are BN's over the global batch, in one forward
+    tdx.init_process_group(world_size=DDP8)
+    try:
+        model = cifar.build("cuda")
+        params, stats = model.params_and_stats()
+        x, y = cifar_batch(CIFAR_CHECK_BATCH, "cuda")
+        _, synced, _, _ = cifar.make_train_step(model, optim.sgd(0.0))(params, stats, {}, x, y)
+        whole = cifar.build("cuda")
+        convert_sync_batchnorm(whole, None)
+        with torch.no_grad():
+            _, want = whole(x, train=True)
+        err, name = max((rel_rms(synced[n], want[n]), n) for n in want)
+    finally:
+        tdx.destroy_process_group()
+    print(f"  synced running statistics at world {DDP8} vs BN over the {DDP8 * CIFAR_CHECK_BATCH}-"
+          f"image global batch in one forward: worst rms ratio {err:.2e} ({name}, limit "
+          f"{CARD_STATS_RMS:g})")
+    check(err <= CARD_STATS_RMS, "the synced statistics are not the global batch's")
+
+
+def cifar_phase(card):
+    """ResNet-18/CIFAR-10 with SyncBN under driver-mode DDP at world 8:
+    card-vs-CPU checks, then batch 128 a rank in float32 and bf16. Returns
+    the phase's flash launches by route (none may launch)."""
+    t0 = time.perf_counter()
+    cifar_checks()
+    print(f"  checks in {time.perf_counter() - t0:.1f} s")
+    fa.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        tdx.init_process_group(world_size=DDP8)
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            # the bench's set-up and windows (`bench.bench_resnet_ddp`), then
+            # the same step by CUDA events and under the profiler
+            call, samples = bench.resnet_ddp_call(CIFAR_BATCH, dtype)
+            rates, _, loss = bench.timed_windows(call, torch.device("cuda"), samples=samples,
+                                            **CIFAR_BENCH)
+            ms = timed_events(call, 3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            name = str(dtype).replace("torch.", "")
+            print(f"  ResNet-18 world {DDP8} x {CIFAR_BATCH} ({DDP8 * CIFAR_BATCH} images a step), "
+                  f"{name}: {bench.steady_rate(rates):.1f} samples/s per card (median of "
+                  f"windows 2-{CIFAR_BENCH['windows']}: {[round(v, 1) for v in rates]}), step "
+                  f"{ms:.2f} ms by CUDA events, final loss {float(loss):.4f}, peak memory "
+                  f"{peak:.2f} GiB  [{card}]")
+            check(math.isfinite(float(loss)), "non-finite ResNet loss")
+            device_profile(call, ms, card, f"ResNet-18 {name}")
+        finally:
+            tdx.destroy_process_group()
+    routes = dict(fa.ROUTE_LAUNCHES)
+    print(f"  flash launches on the cifar path: {dict(fa.LAUNCHES)} (ResNet runs no attention)")
+    check(sum(fa.LAUNCHES.values()) == 0, "a flash kernel launched on the cifar path")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = cifar.main(["--epochs", "1", "--train-size", "2048", "--test-size", "1024"])
+    text = buf.getvalue()
+    print("  example: " + "\n  example: ".join(text.strip().splitlines()))
+    check(f"world_size={DDP8}" in text and "Epoch: 1/1" in text
+          and all(math.isfinite(v) for v in out["losses"]), "the CIFAR example failed on the card")
+    torch.cuda.empty_cache()
+    return routes
+
+
+def bert_check_run(device, steps=1, comm_hook=None, opt=None, has_rng=False, **kw):
+    """`steps` steps of BERT (full width, BERT_CHECK depth, float32) under
+    DDP at world 8 on `device`: (params before, after, losses), on the host."""
+    tdx.init_process_group(world_size=DDP8, device=None if device == "cuda" else device)
+    try:
+        cfg = BertConfig(max_seq_len=BERT_CHECK_SEQ, **{**bench.BERT_PRESETS["base"],
+                                                        **BERT_CHECK})
+        model = BertForSequenceClassification(cfg, device="cpu",
+                                              generator=torch.Generator().manual_seed(0))
+        ddp = tdx.DistributedDataParallel(model.to(device))
+        if comm_hook is not None:
+            ddp.register_comm_hook(None, comm_hook)
+        opt = opt or optim.sgd(BERT_CHECK_LR)
+        step = ddp.make_train_step(opt, torch.nn.functional.cross_entropy, has_rng=has_rng, **kw)
+        gen = np.random.default_rng(0)
+        x = torch.from_numpy(gen.integers(0, cfg.vocab_size, (DDP8 * BERT_CHECK_BATCH,
+                                                               BERT_CHECK_SEQ))).to(device)
+        y = torch.from_numpy(gen.integers(0, 2, DDP8 * BERT_CHECK_BATCH)).to(device)
+        p, s = ddp.params, opt.init(ddp.params)
+        hs = step.init_hook_state(p) if hasattr(step, "init_hook_state") else None
+        losses = []
+        for i in range(steps):
+            args = (x, y, i) if has_rng else (x, y)
+            if hs is not None:
+                p, s, hs, loss = step(p, s, hs, *args)
+            else:
+                p, s, loss = step(p, s, *args)
+            losses.append(float(loss))
+        host = lambda d: {n: t.detach().cpu() for n, t in d.items()}  # noqa: E731
+        return host(ddp.params), host(p), losses
+    finally:
+        tdx.destroy_process_group()
+
+
+def bert_checks():
+    old, gp, (gloss,) = bert_check_run("cuda")
+    _, cp, (closs,) = bert_check_run("cpu")
+    lerr = abs(gloss - closs) / abs(closs)
+    uerr, uname = update_errors(gp, cp, old)
+    print(f"  first step, BERT at d 768 / 2 layers, world {DDP8} x {BERT_CHECK_BATCH} x "
+          f"{BERT_CHECK_SEQ}, float32, dropout off, SGD {BERT_CHECK_LR:g}, card vs CPU: loss "
+          f"{gloss:.6f} vs {closs:.6f} (rel err {lerr:.2e}, limit {CARD_LOSS_RTOL:g}); worst "
+          f"update error {uerr:.2e} ({uname}, limit {CARD_UPDATE_RMS:g})")
+    check(lerr <= CARD_LOSS_RTOL and uerr <= CARD_UPDATE_RMS,
+          "the BERT step on the card disagrees with the CPU")
+
+    _, ap, (aloss,) = bert_check_run("cuda", grad_accum_steps=2)
+    aerr, aname = update_errors(ap, gp, old)
+    print(f"  grad_accum_steps=2 vs one step of the same global batch (card): loss {aloss:.6f} "
+          f"vs {gloss:.6f}; worst update error {aerr:.2e} ({aname}, limit {ACCUM_UPDATE_RMS:g})")
+    check(abs(aloss - gloss) <= CARD_LOSS_RTOL * abs(gloss) and aerr <= ACCUM_UPDATE_RMS,
+          "gradient accumulation disagrees with the single step")
+
+    _, rp, rl = bert_check_run("cuda", steps=2, has_rng=True, remat=True)
+    _, np_, nl = bert_check_run("cuda", steps=2, has_rng=True)
+    rerr, rname = update_errors(rp, np_, old)
+    bitwise = rl == nl and all(torch.equal(rp[n], np_[n]) for n in rp)
+    print(f"  remat vs no remat, dropout on (the same masks), 2 steps (card): losses {rl} vs {nl}; "
+          f"worst update error {rerr:.2e} ({rname}, limit {REMAT_UPDATE_RMS:g}); bitwise equal: "
+          f"{bitwise}")
+    check(rerr <= REMAT_UPDATE_RMS and rl == nl, "remat changes the step")
+
+    _, _, stock = bert_check_run("cuda", steps=3, opt=optim.adamw(2e-5))
+    rec = global_recorder()
+    for name in HOOKS:
+        _, _, losses = bert_check_run("cuda", steps=3, opt=optim.adamw(2e-5),
+                                      comm_hook=make_hook(name))
+        worst = max(abs(a - b) / abs(b) for a, b in zip(losses, stock))
+        progress = (losses[0] - losses[-1]) / (stock[0] - stock[-1])
+        wire = sorted({e.dtype for e in rec.entries()[-20:] if e.op in ("all_to_all", "all_gather")})
+        limit = (f"its loss drop {progress:.3f} of the stock hook's, limit >= {POWERSGD_PROGRESS}"
+                 if name == "powerSGD_hook" else f"limit {HOOK_LOSS_RTOL:g}")
+        print(f"  {name}: 3 adamw steps (card) losses {[round(v, 6) for v in losses]} vs "
+              f"allreduce_hook's {[round(v, 6) for v in stock]}: worst rel diff {worst:.2e} "
+              f"({limit})" + (f"; wire dtypes of its all_to_all / all_gather: {wire}"
+                              if name == "blockwise_quant_hook" else ""))
+        check(losses[0] == stock[0], f"{name} changed the first forward")
+        if name == "powerSGD_hook":
+            check(progress >= POWERSGD_PROGRESS, "PowerSGD does not train")
+        else:
+            check(worst <= HOOK_LOSS_RTOL, f"{name} moves the loss beyond {HOOK_LOSS_RTOL}")
+        if name == "blockwise_quant_hook":
+            check("int8" in wire, "the quantized hook's payload is not int8 on the wire")
+
+
+def hook_wire(name, hook, shapes, world):
+    """A rank's wire bytes for one reduction of the BERT gradient (the ring
+    model of `ops.quant.allreduce_wire_bytes`)."""
+    n = sum(int(np.prod(s)) for s in shapes.values())
+    if name == "allreduce_hook":
+        return quant.allreduce_wire_bytes(n, world, None)
+    if name in ("bf16_compress_hook", "fp16_compress_hook"):
+        return quant.allreduce_wire_bytes(n, world, "bf16")
+    if name == "blockwise_quant_hook":
+        return quant.allreduce_wire_bytes(n, world, "int8")
+    ratio = hook.compression_ratio({k: torch.empty(s, device="meta") for k, s in shapes.items()})
+    return int(quant.allreduce_wire_bytes(n, world, None) / ratio)
+
+
+def hook_collective_ms(name, hook, model, world):
+    """CUDA-event ms of the hook alone on random rank-stacked gradients of
+    `model`'s shapes, as the train step hands them over (flat, or per leaf
+    in the reference's layout), and its wire bytes."""
+    pg = tdx.distributed._get_default_group()
+    views = model.hook_views()
+    shapes = {}
+    for n, p in model.named_parameters():
+        perm = views[n]
+        shapes[n] = tuple(p.shape[i] for i in perm) if perm else tuple(p.shape)
+    shapes = {n: shapes[n] for n in views}
+    gen = torch.Generator("cuda").manual_seed(0)
+    if not getattr(hook, "per_leaf", False) and not hasattr(hook, "apply"):
+        N = sum(int(np.prod(s)) for s in shapes.values())
+        flat = torch.randn((world, N), device="cuda", generator=gen)
+        fn = lambda: hook(DistTensor.wrap(flat.clone(), pg), pg)  # noqa: E731
+    else:
+        leaves = [torch.randn((world,) + s, device="cuda", generator=gen) for s in shapes.values()]
+        wrap = lambda: [DistTensor.wrap(l, pg) for l in leaves]  # noqa: E731
+        if hasattr(hook, "apply"):
+            local = hook.init({n: torch.empty(s, device="cuda") for n, s in shapes.items()})
+            state = torch.utils._pytree.tree_map(
+                lambda l: l.unsqueeze(0).expand((world,) + tuple(l.shape)).clone(), local)
+            fn = lambda: hook.apply(state, wrap(), pg)  # noqa: E731
+        else:
+            fn = lambda: hook(wrap(), pg)  # noqa: E731
+    fn()
+    return timed_events(fn, 5), hook_wire(name, hook, shapes, world)
+
+
+def bert_phase(card):
+    """BERT-base fine-tune under driver-mode DDP at world 8: small float32
+    card-vs-CPU checks (first step, grad accumulation, remat, each hook),
+    then batch 16 x seq 128 a rank, adamw(2e-5), dropout 0.1, in float32
+    and bf16, and each compressing hook in bf16. Returns the phase's flash
+    launches by route (none may launch)."""
+    t0 = time.perf_counter()
+    bert_checks()
+    print(f"  checks in {time.perf_counter() - t0:.1f} s")
+    fa.reset_launch_counts()
+    runs = [(torch.float32, "allreduce_hook"), (torch.bfloat16, "allreduce_hook")]
+    runs += [(torch.bfloat16, name) for name in HOOKS]
+    for dtype, name in runs:
+        tdx.init_process_group(world_size=DDP8)
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            hook = None if name == "allreduce_hook" else make_hook(name)
+            # the bench's set-up and windows (`bench.bench_bert_finetune`),
+            # then the same step by CUDA events and under the profiler
+            call, samples, _ = bench.bert_finetune_call(batch_per_rank=BERT_BATCH, seq=BERT_SEQ,
+                                                        dtype=dtype, comm_hook=hook)
+            rates, _, loss = bench.timed_windows(call, torch.device("cuda"), samples=samples,
+                                            **BERT_BENCH)
+            rate = bench.steady_rate(rates)
+            ms = timed_events(call, 2)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            model = BertForSequenceClassification(
+                BertConfig(max_seq_len=BERT_SEQ, **bench.BERT_PRESETS["base"]), device="meta")
+            cms, wire = hook_collective_ms(name, hook or comm_hooks.allreduce_hook, model, DDP8)
+            dname = str(dtype).replace("torch.", "")
+            print(f"  BERT-base world {DDP8} x {BERT_BATCH} x {BERT_SEQ}, {dname}, {name}: "
+                  f"{rate:.1f} samples/s, {rate * BERT_SEQ:.0f} tokens/s per card (windows "
+                  f"{[round(v, 1) for v in rates]}), step {ms:.2f} ms by CUDA events, final loss "
+                  f"{float(loss):.4f}, peak memory {peak:.2f} GiB; the hook alone {cms:.3f} ms "
+                  f"for {wire / 2 ** 20:.2f} MiB a rank on the wire  [{card}]")
+            check(math.isfinite(float(loss)), f"non-finite BERT loss ({name})")
+            device_profile(call, ms, card, f"BERT-base {dname} {name}")
+        finally:
+            tdx.destroy_process_group()
+    routes = dict(fa.ROUTE_LAUNCHES)
+    print(f"  flash launches on the bert path: {dict(fa.LAUNCHES)} (BERT's attention is dense)")
+    check(sum(fa.LAUNCHES.values()) == 0, "a flash kernel launched on the bert path")
+    torch.cuda.empty_cache()
+    return routes
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2285,13 +2714,25 @@ def main():
     torch.cuda.empty_cache()
     print(f"  serve_fleet in {time.perf_counter() - t0:.1f} s")
 
-    # 14. report
+    # 14. ResNet-18 / CIFAR-10 under DDP with SyncBN (BASELINE config #3)
+    t0 = time.perf_counter()
+    print("[cifar]")
+    phase_launches["cifar"] = cifar_phase(card)
+    print(f"  cifar in {time.perf_counter() - t0:.1f} s")
+
+    # 15. BERT-base fine-tune under DDP (BASELINE config #4)
+    t0 = time.perf_counter()
+    print("[bert]")
+    phase_launches["bert"] = bert_phase(card)
+    print(f"  bert in {time.perf_counter() - t0:.1f} s")
+
+    # 16. report
     kernels = []
     for name, lowerings in REPLACES.items():
         for regime, replaces in lowerings.items():
             design = results[regime][name]["design"]
             by_phase = {ph: phase_launches[ph].get(f"{name}:{design}", 0)
-                        for ph in PHASES[regime] + ("serve_fleet",)}
+                        for ph in PHASES[regime] + ("serve_fleet", "cifar", "bert")}
             kernels.append({"name": name, "route": "cuda",
                             "source": WGMMA_SOURCE if design == "wgmma" else SOURCE,
                             "replaces": replaces, "regime": regime,

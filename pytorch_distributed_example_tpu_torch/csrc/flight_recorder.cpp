@@ -13,7 +13,6 @@
 #include <cstring>
 #include <deque>
 #include <mutex>
-#include <sstream>
 #include <string>
 
 namespace {
@@ -38,20 +37,36 @@ struct Recorder {
   explicit Recorder(int64_t cap) : capacity(cap) {}
 };
 
-void json_escape(std::ostringstream& os, const std::string& s) {
+void json_escape(std::string& os, const std::string& s) {
   for (unsigned char c : s) {
     if (c == '"' || c == '\\') {
-      os << '\\' << c;
+      os += '\\';
+      os += static_cast<char>(c);
     } else if (c == '\n') {
-      os << "\\n";
+      os += "\\n";
     } else if (c < 0x20) {  // all control chars must be escaped in JSON
       char buf[8];
       std::snprintf(buf, sizeof(buf), "\\u%04x", c);
-      os << buf;
+      os += buf;
     } else {
-      os << c;
+      os += static_cast<char>(c);
     }
   }
+}
+
+// Numbers by snprintf: the dump builds its text without iostreams, whose
+// locale machinery crashed the dump where the process's C++ runtime and
+// the one the library was compiled against differ.
+void append_int(std::string& os, int64_t v) {
+  char buf[32];
+  std::snprintf(buf, sizeof(buf), "%lld", static_cast<long long>(v));
+  os += buf;
+}
+
+void append_double(std::string& os, double v) {
+  char buf[40];
+  std::snprintf(buf, sizeof(buf), "%.17g", v);  // full epoch-second resolution
+  os += buf;
 }
 
 }  // namespace
@@ -101,30 +116,36 @@ char* tdx_fr_dump_json(void* h) {
   auto* r = static_cast<Recorder*>(h);
   std::lock_guard<std::mutex> g(r->mu);
   static const char* kState[] = {"enqueued", "completed", "failed"};
-  std::ostringstream os;
-  os.precision(17);  // keep full epoch-second resolution for timestamps
-  os << "[";
+  std::string os = "[";
   bool first = true;
   for (const auto& e : r->ring) {
-    if (!first) os << ",";
+    if (!first) os += ",";
     first = false;
-    os << "{\"seq\":" << e.seq << ",\"op\":\"";
+    os += "{\"seq\":";
+    append_int(os, e.seq);
+    os += ",\"op\":\"";
     json_escape(os, e.op);
-    os << "\",\"group\":\"";
+    os += "\",\"group\":\"";
     json_escape(os, e.group);
-    os << "\",\"shape\":\"";
+    os += "\",\"shape\":\"";
     json_escape(os, e.shape);
-    os << "\",\"dtype\":\"";
+    os += "\",\"dtype\":\"";
     json_escape(os, e.dtype);
-    os << "\",\"numel\":" << e.numel << ",\"state\":\"" << kState[e.state]
-       << "\",\"time_created\":" << e.t_created;
-    if (e.t_completed >= 0) os << ",\"time_completed\":" << e.t_completed;
-    os << "}";
+    os += "\",\"numel\":";
+    append_int(os, e.numel);
+    os += ",\"state\":\"";
+    os += kState[e.state];
+    os += "\",\"time_created\":";
+    append_double(os, e.t_created);
+    if (e.t_completed >= 0) {
+      os += ",\"time_completed\":";
+      append_double(os, e.t_completed);
+    }
+    os += "}";
   }
-  os << "]";
-  const std::string s = os.str();
-  char* out = static_cast<char*>(std::malloc(s.size() + 1));
-  std::memcpy(out, s.c_str(), s.size() + 1);
+  os += "]";
+  char* out = static_cast<char*>(std::malloc(os.size() + 1));
+  std::memcpy(out, os.c_str(), os.size() + 1);
   return out;
 }
 

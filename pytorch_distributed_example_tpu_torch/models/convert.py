@@ -28,6 +28,19 @@ with `full_tensor`) back to the flax-shaped tree of numpy arrays.
 The tests pass JAX gradients through the same functions, to compare them
 with the port's `.grad`s.
 
+`resnet_from_flax` / `resnet_to_flax` carry the ResNet's variables
+(`params` and `batch_stats`): conv kernels HWIO <-> OIHW, the Dense kernel
+transposed, BatchNorm `scale` <-> `weight` and `mean`/`var` <->
+`running_mean`/`running_var`, `{Block}_{i}/Conv_{j}` <->
+`blocks.{i}.conv{j}`. `bert_from_flax` / `bert_to_flax` carry BERT's:
+Dense kernels transposed, `embedding` and LayerNorm `scale` <-> `weight`,
+`layer_{i}` <-> `layers.{i}`. Their dicts come out in the flax tree's
+flattened order (sorted key paths), the order in which the reference's
+PowerSGD hook draws its initial Q; `*_hook_views(model)` give the port's
+params in that order with the permutation of each to the reference's
+layout, so that per-leaf comm hooks reduce the reference's matrices and
+blocks.
+
 `cache_from_flax` and `cache_to_flax` carry a KV cache tree (the
 reference's "cache" collection, numpy leaves) to the port's layout and
 back: `layers_{i}/attn/{k, v, index}` for the dense cache, `{k, v}` and
@@ -173,3 +186,181 @@ def cache_to_flax(tree) -> dict:
         out[layer] = {"attn": {name: _numpy(t[:-1] if paged else t)
                                for name, t in attn.items()}}
     return out
+
+
+# ---------------------------------------------------------------------------
+# ResNet and BERT: the flax trees <-> the port's dicts, in the flax tree's
+# flattened order (jax flattens a dict's keys sorted, level by level, so the
+# order is that of the sorted key paths)
+# ---------------------------------------------------------------------------
+
+_CONV_TO_FLAX = (2, 3, 1, 0)  # OIHW -> HWIO
+_CONV_FROM_FLAX = (3, 2, 0, 1)  # HWIO -> OIHW
+_DENSE = (1, 0)
+
+
+def _flatten_sorted(tree):
+    return sorted(_flatten(tree), key=lambda kv: kv[0])
+
+
+def _permute(arr: np.ndarray, perm) -> np.ndarray:
+    return arr if perm is None else np.ascontiguousarray(arr.transpose(perm))
+
+
+def _resnet_block_kind(tree) -> str:
+    kinds = {k.rsplit("_", 1)[0] for k in tree if k.startswith(("BasicBlock_", "Bottleneck_"))}
+    if len(kinds) != 1:
+        raise KeyError(f"expected BasicBlock_* or Bottleneck_* blocks, found {sorted(kinds)}")
+    return kinds.pop()
+
+
+def _resnet_port_name(path) -> tuple:
+    """A flax ResNet path -> (port name, permutation to the port's layout
+    or None). Works for `params` (scale/bias/kernel) and `batch_stats`
+    (mean/var) leaves."""
+    leaf = {"scale": "weight", "bias": "bias", "kernel": "weight", "mean": "running_mean",
+            "var": "running_var"}
+    *mods, name = path
+    if name not in leaf:
+        raise KeyError(f"no port counterpart for flax leaf {'/'.join(path)}")
+    if mods == ["Dense_0"]:
+        return f"fc.{name if name == 'bias' else 'weight'}", (_DENSE if name == "kernel" else None)
+    perm = _CONV_FROM_FLAX if name == "kernel" else None
+    if mods in (["conv_init"], ["bn_init"]):
+        return f"{mods[0]}.{leaf[name]}", perm
+    if len(mods) == 2 and re.match(r"^(BasicBlock|Bottleneck)_\d+$", mods[0]):
+        i = int(mods[0].rsplit("_", 1)[1])
+        sub = mods[1]
+        m = re.match(r"^(Conv|BatchNorm)_(\d+)$", sub)
+        if m:
+            sub = ("conv" if m.group(1) == "Conv" else "bn") + m.group(2)
+        elif sub not in ("conv_proj", "norm_proj"):
+            raise KeyError(f"no port counterpart for flax leaf {'/'.join(path)}")
+        return f"blocks.{i}.{sub}.{leaf[name]}", perm
+    raise KeyError(f"no port counterpart for flax leaf {'/'.join(path)}")
+
+
+def resnet_from_flax(variables, device=None):
+    """The reference ResNet's variables ({"params", "batch_stats"}, numpy
+    leaves) -> (params, stats): the port's `ResNet` state-dict entries,
+    parameters and running buffers, each dict in the flax tree's
+    flattened order. Conv kernels HWIO -> OIHW, the Dense kernel
+    transposed, BatchNorm scale -> weight, mean/var -> running_mean/var."""
+    out = []
+    for col in ("params", "batch_stats"):
+        d = {}
+        for path, leaf in _flatten_sorted(variables[col]):
+            name, perm = _resnet_port_name(path)
+            d[name] = _tensor(_permute(np.asarray(leaf), perm), device)
+        out.append(d)
+    return tuple(out)
+
+
+def _resnet_flax_path(name: str, block: str) -> tuple:
+    """Inverse of `_resnet_port_name`: (flax path, permutation to flax)."""
+    parts = name.split(".")
+    leaf = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
+    if parts[0] == "fc":
+        return ("Dense_0", "kernel" if parts[1] == "weight" else "bias"), \
+            (_DENSE if parts[1] == "weight" else None)
+    if parts[0] in ("conv_init", "bn_init"):
+        mod, rest = [parts[0]], parts[1]
+    elif parts[0] == "blocks":
+        sub = parts[2]
+        m = re.match(r"^(conv|bn)(\d+)$", sub)
+        if m:
+            sub = ("Conv_" if m.group(1) == "conv" else "BatchNorm_") + m.group(2)
+        mod, rest = [f"{block}_{parts[1]}", sub], parts[3]
+    else:
+        raise KeyError(f"no flax counterpart for {name}")
+    conv = mod[-1].startswith(("conv", "Conv"))
+    return tuple(mod) + ("kernel" if conv else leaf[rest],), (_CONV_TO_FLAX if conv else None)
+
+
+def resnet_to_flax(params, stats, block: str = "BasicBlock") -> dict:
+    """Inverse of `resnet_from_flax`: {"params", "batch_stats"} of numpy
+    arrays. `block` names the blocks' flax class."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for col, tree in (("params", params), ("batch_stats", stats)):
+        for name, t in tree.items():
+            path, perm = _resnet_flax_path(name, block)
+            node = out[col]
+            for m in path[:-1]:
+                node = node.setdefault(m, {})
+            node[path[-1]] = _permute(_numpy(t), perm)
+    return out
+
+
+def resnet_hook_views(model) -> dict:
+    """{param name: permutation to the reference's layout}, in the order
+    the reference's flax tree flattens them (`parallel/ddp.py`'s
+    `hook_views`)."""
+    block = "Bottleneck" if model.block_cls.__name__ == "Bottleneck" else "BasicBlock"
+    paths = {n: _resnet_flax_path(n, block) for n, _ in model.named_parameters()}
+    return {n: paths[n][1] for n in sorted(paths, key=lambda n: paths[n][0])}
+
+
+def _bert_port_name(path) -> tuple:
+    """A flax BertForSequenceClassification path -> (port name,
+    permutation to the port's layout or None)."""
+    *mods, name = path
+    mods = [re.sub(r"^layer_(\d+)$", r"layers.\1", m) for m in mods]
+    if name == "pos_emb":
+        return ".".join(mods + ["pos_emb"]), None
+    if name == "embedding":
+        return ".".join(mods + ["weight"]), None
+    if name == "kernel":
+        return ".".join(mods + ["weight"]), _DENSE
+    if name == "scale":
+        return ".".join(mods + ["weight"]), None
+    if name == "bias":
+        return ".".join(mods + ["bias"]), None
+    raise KeyError(f"no port counterpart for flax leaf {'/'.join(path)}")
+
+
+def bert_from_flax(params, device=None) -> dict:
+    """The reference BERT's params (numpy leaves; the "params" wrapper is
+    optional) -> the port's state dict, in the flax tree's flattened order:
+    Dense kernels transposed to (out, in), `embedding` and LayerNorm
+    `scale` -> `weight`, `layer_{i}` -> `layers.{i}`."""
+    if "params" in params:
+        params = params["params"]
+    out = {}
+    for path, leaf in _flatten_sorted(params):
+        name, perm = _bert_port_name(path)
+        out[name] = _tensor(_permute(np.asarray(leaf), perm), device)
+    return out
+
+
+def _bert_flax_path(name: str) -> tuple:
+    parts = re.sub(r"layers\.(\d+)", r"layer_\1", name).split(".")
+    *mods, leaf = parts
+    if leaf == "pos_emb":
+        return tuple(mods + ["pos_emb"]), None
+    if leaf == "bias":
+        return tuple(mods + ["bias"]), None
+    if mods[-1] in ("tok_emb", "type_emb"):
+        return tuple(mods + ["embedding"]), None
+    if mods[-1].startswith("ln_"):
+        return tuple(mods + ["scale"]), None
+    return tuple(mods + ["kernel"]), _DENSE
+
+
+def bert_to_flax(state) -> dict:
+    """Inverse of `bert_from_flax`: the reference's param tree of numpy
+    arrays (without the "params" wrapper)."""
+    out: dict = {}
+    for name, t in state.items():
+        path, perm = _bert_flax_path(name)
+        node = out
+        for m in path[:-1]:
+            node = node.setdefault(m, {})
+        node[path[-1]] = _permute(_numpy(t), perm)
+    return out
+
+
+def bert_hook_views(model) -> dict:
+    """{param name: permutation to the reference's layout}, in the
+    reference's flattened order."""
+    paths = {n: _bert_flax_path(n) for n, _ in model.named_parameters()}
+    return {n: paths[n][1] for n in sorted(paths, key=lambda n: paths[n][0])}

@@ -1,11 +1,23 @@
 """Parallelism of the port: data parallelism (DDP with ZeRO weight-update
-sharding, its Reducer and comm hooks) over the c10d core, in driver and
+sharding, its Reducer and comm hooks: compression, block-quantized and
+PowerSGD) over the c10d core, in driver and
 multiproc mode; and, in driver mode (the ranks' shards stacked on one
 device), context parallelism (ring attention and Ulysses), sharding rules,
 FSDP (ZeRO-3) with ZeRO-2 and ZeRO-1, tensor parallelism and expert
 parallelism."""
 
-from .comm_hooks import allreduce_hook, noop_hook  # noqa: F401
+from . import comm_hooks  # noqa: F401
+from .comm_hooks import (  # noqa: F401
+    BlockwiseQuantHook,
+    PowerSGDHook,
+    allreduce_hook,
+    bf16_compress_hook,
+    blockwise_quant_hook,
+    fp16_compress_hook,
+    noop_hook,
+    powerSGD_hook,
+    quantize_hook,
+)
 from .context_parallel import (  # noqa: F401
     auto_block_kernel,
     make_cp_attention,
@@ -15,6 +27,7 @@ from .context_parallel import (  # noqa: F401
 from .ddp import DistributedDataParallel, make_ddp_train_step, make_eval_step  # noqa: F401
 from .reducer import Reducer  # noqa: F401
 from . import sharding  # noqa: F401
+from . import zero  # noqa: F401
 from .fsdp import (  # noqa: F401
     FSDPModule,
     fully_shard,

@@ -32,9 +32,11 @@ across ranks that names the offending param
 rank-0 broadcast of every param in coalesced buckets (`_sync_module_states`,
 `:1066`), `no_sync()` over the eager Reducer (`:1659`).
 
-Not ported, each raising NotImplementedError (ROADMAP): gradient
-accumulation (`grad_accum_steps > 1`), `remat`, `find_unused_parameters`,
-`with_aux`, stateful comm hooks, and the planner's hook.
+The step's options are the reference's `local_step` (`parallel/ddp.py:478-
+575`): gradient accumulation, `remat`, `with_aux`, unused-parameter
+detection (`find_unused_parameters`, `on_unused`) and every hook of
+`comm_hooks.py`, stateful ones with their state carried per rank. The
+planner's hook is still to port (ROADMAP).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from ..numerics import numerics_contract
 from ..optim import apply_updates
 from ..tensor import DistTensor
 from ..types import ReduceOp
+from ..utils import remat as remat_lib
 from . import comm_hooks, zero
 
 _SEED_MIX = 1_000_003  # the step's seed times this, plus the rank: one stream each
@@ -160,6 +163,36 @@ def _shapes(tree):
     return [tuple(l.shape) for l in pytree.tree_leaves(tree)]
 
 
+def _permuted(t: torch.Tensor, perm) -> torch.Tensor:
+    """A rank-stacked (n, *shape) leaf with its own dims permuted by `perm`."""
+    return t if perm is None else t.permute((0,) + tuple(p + 1 for p in perm))
+
+
+def _unpermuted(t: torch.Tensor, perm) -> torch.Tensor:
+    """Inverse of `_permuted`."""
+    if perm is None:
+        return t
+    inv = [0] * len(perm)
+    for i, p in enumerate(perm):
+        inv[p] = i
+    return t.permute((0,) + tuple(p + 1 for p in inv))
+
+
+def _unused_params(apply_fn, params, x, masks) -> List[str]:
+    """The params that take no gradient from one forward (autograd
+    reachability): the eager counterpart of the reference's jaxpr walk
+    (`_live_param_names`) and of torch's `search_unused_parameters`
+    (`reducer.hpp:534`)."""
+    live = {n: p.detach().requires_grad_(p.is_floating_point()) for n, p in params.items()}
+    with torch.enable_grad():
+        out = apply_fn(live, x, masks) if masks is not None else apply_fn(live, x)
+        total = sum(o.float().sum() for o in pytree.tree_leaves(out)
+                    if isinstance(o, torch.Tensor) and o.is_floating_point())
+        names = [n for n, p in live.items() if p.requires_grad]
+        grads = torch.autograd.grad(total, [live[n] for n in names], allow_unused=True)
+    return [n for n, gr in zip(names, grads) if gr is None]
+
+
 @numerics_contract(
     "bitwise",
     note="ZeRO sharded weight update is bit-identical to the unsharded update "
@@ -181,27 +214,50 @@ def make_ddp_train_step(
     steps_per_call: int = 1,
     unroll_steps: bool = False,
     find_unused_parameters: bool = False,
+    on_unused: Optional[Callable] = None,
     logger=None,
     shard_weight_update: str = "auto",
+    hook_views: Optional[Dict[str, Optional[Tuple[int, ...]]]] = None,
 ):
     """A data-parallel train step over the group.
 
     `apply_fn(params, x) -> logits`, or `apply_fn(params, x, masks)` with
     `has_rng`, where `masks = rng_fn(generator, batch)` are one rank's random
     inputs (its dropout masks) for a local batch of `batch`;
-    `loss_fn(logits, y) -> scalar`; `optimizer` is optax-shaped (`optim.py`).
-    Returns `step(params, opt_state, x, y[, seed]) -> (params, opt_state,
-    loss)`: params a dict of tensors on the group's device, replicated; x
-    and y this process's ranks' batches, rank-major (the global batch in
-    driver mode); `seed` an int from which rank r draws its masks, one
-    stream per (rank, seed); `loss` the mean over ranks, a 0-d tensor on
-    the device.
+    `loss_fn(logits, y) -> scalar`, or `(scalar, aux)` with `with_aux`;
+    `optimizer` is optax-shaped (`optim.py`; a `ZeroRedundancyOptimizer` is
+    unwrapped). Returns `step(params, opt_state, x, y[, seed]) -> (params,
+    opt_state, loss[, aux])`: params a dict of tensors on the group's device,
+    replicated; x and y this process's ranks' batches, rank-major (the
+    global batch in driver mode); `seed` an int from which rank r draws its
+    masks, one stream per (rank, seed); `loss` the mean over ranks, a 0-d
+    tensor on the device; `aux` every local rank's, stacked (n, ...).
+
+    `grad_accum_steps` A > 1 splits each rank's batch into A microbatches
+    (rows [a*B/A, (a+1)*B/A)), sums their gradients locally and reduces
+    once, then divides the loss and the gradients by A, as the reference's
+    scan; aux comes back (n, A, ...). `remat` reruns the forward in the
+    backward (`utils/remat.py`); the masks are inputs, so the rerun sees
+    the same ones. On its first call the step finds the params that take
+    no gradient: with `find_unused_parameters` it hands their names to
+    `on_unused`, without it it raises, as torch's DDP and the reference do.
+
+    A comm hook replaces the gradient reduction (`comm_hooks.py`). A
+    per-leaf hook sees the leaves in `hook_views`' order, each leaf's dims
+    permuted as its view says (None: as it is), so that it reduces the
+    matrices and blocks the reference's layout gives (`models/convert.py`'s
+    `*_hook_views`); without views, in the params' order and shapes. A
+    stateful hook (`init`/`apply`) makes the step `step(params, opt_state,
+    hook_state, x, y[, seed]) -> (params, opt_state, hook_state, loss[,
+    aux])`, its state per rank with a leading dim of this process's ranks
+    (`step.init_hook_state(params)`).
 
     `steps_per_call > 1` takes K stacked batches, `xs.shape == (K,
     batch, ...)`, and K seeds, runs K full steps (each with its own
     reductions and update) and returns the K losses: the same values as K
     sequential calls. `unroll_steps` is accepted for the reference's
-    signature; the eager step has no loop to unroll.
+    signature; the eager step has no loop to unroll. As in the reference,
+    it does not carry `with_aux`.
 
     `shard_weight_update` ("auto", the default, "off", "force") is ZeRO
     weight-update sharding (`parallel/zero.py`): under "auto" at world > 1
@@ -212,23 +268,29 @@ def make_ddp_train_step(
     params. The step accepts a plain `optimizer.init(params)` state and
     converts it; `step.init_opt_state(params)` builds the sharded state,
     `step.unshard_opt_state(params, state)` the full one. EXACT for
-    elementwise optimizers (`optim.sgd`)."""
+    elementwise optimizers (`optim.sgd`, `adam`, `adamw`); scalar state
+    leaves (adam's `count`) stay whole."""
+    from ..optim import ZeroRedundancyOptimizer
+
     if shard_weight_update not in ("auto", "off", "force"):
         raise ValueError(
             f"shard_weight_update={shard_weight_update!r}; expected 'auto', 'off', or 'force'"
         )
-    for asked, what in ((with_aux, "with_aux"), (remat, "remat"),
-                        (grad_accum_steps != 1, "grad_accum_steps > 1"),
-                        (find_unused_parameters, "find_unused_parameters=True")):
-        if asked:
-            raise NotImplementedError(f"make_ddp_train_step: {what} is not ported yet (ROADMAP)")
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+    if grad_accum_steps < 1:
+        raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
+    if steps_per_call > 1 and with_aux:
+        raise NotImplementedError(
+            "steps_per_call > 1 does not carry per-step aux; use with_aux=False or "
+            "steps_per_call=1 (as the reference)")
     if has_rng and rng_fn is None:
         raise ValueError("has_rng=True needs rng_fn(generator, batch) for the random inputs")
+    if isinstance(optimizer, ZeroRedundancyOptimizer):
+        optimizer = optimizer.optimizer
     hook = comm_hook if comm_hook is not None else comm_hooks.allreduce_hook
-    if hasattr(hook, "init") and hasattr(hook, "apply"):
-        raise NotImplementedError("stateful comm hooks are not ported yet (ROADMAP)")
+    stateful = hasattr(hook, "init") and hasattr(hook, "apply")
+    per_leaf = stateful or getattr(hook, "per_leaf", False)
 
     g = dist._resolve(group)
     W = g.size()
@@ -237,12 +299,16 @@ def make_ddp_train_step(
     local_ranks = dist._local_rows(g)
     n_local = len(local_ranks)
     rows = zero.local_rows(g)
+    A = grad_accum_steps
 
     def objective(params, x, y, masks):
         logits = apply_fn(params, x, masks) if has_rng else apply_fn(params, x)
-        return loss_fn(logits, y)
+        out = loss_fn(logits, y)
+        return out if with_aux else (out, ())
 
-    per_rank = vmap(grad_and_value(objective), in_dims=(None, 0, 0, 0 if has_rng else None))
+    obj = remat_lib.checkpoint_wrapper(objective) if remat else objective
+    per_rank = vmap(grad_and_value(obj, has_aux=True),
+                    in_dims=(None, 0, 0, 0 if has_rng else None))
     generators: Dict[int, torch.Generator] = {}
     layouts: Dict[tuple, zero.ShardLayout] = {}
 
@@ -253,63 +319,107 @@ def make_ddp_train_step(
         return layouts[key]
 
     def masks_for(seed: int, batch: int):
-        out = []
+        """A list of A mask trees, one a microbatch of `batch`, each
+        stacked over this process's ranks: rank r's stream is seeded once
+        a step and drawn microbatch by microbatch."""
+        per = []
         for r in local_ranks:
             gen = generators.get(r)
             if gen is None:
                 gen = generators[r] = torch.Generator(device=g.device)
             gen.manual_seed(int(seed) * _SEED_MIX + r)
-            out.append(rng_fn(gen, batch))
-        return _stack_trees(out)
+            per.append([rng_fn(gen, batch) for _ in range(A)])
+        return [_stack_trees([p[a] for p in per]) for a in range(A)]
 
-    def shard_view(params):
-        """Each param's rows of this process's ranks' shards, (n, k)."""
-        return {n: zero.padded_flat(p, W).view(W, -1)[rows] for n, p in params.items()}
+    def views_for(params):
+        order = list(hook_views) if hook_views is not None else list(params)
+        if sorted(order) != sorted(params):
+            raise ValueError("hook_views must name every param once: "
+                             f"{sorted(set(order) ^ set(params))[:5]} differ")
+        return order, (hook_views or {})
 
-    def single(params, opt_state, x, y, seed):
+    def local_grads(params, x, y, seed):
+        """Each local rank's gradients (n, *shape), losses (n,) and aux."""
         xs = x.reshape((n_local, -1) + tuple(x.shape[1:]))
         ys = y.reshape((n_local, -1) + tuple(y.shape[1:]))
-        masks = masks_for(seed, xs.shape[1]) if has_rng else None
-        grads, losses = per_rank(params, xs, ys, masks)  # (n, *shape) each, (n,)
+        B = xs.shape[1]
+        if B % A:
+            raise ValueError(f"a rank's batch of {B} does not split into {A} microbatches")
+        masks = masks_for(seed, B // A) if has_rng else [None] * A
+        if A == 1:
+            grads, (losses, aux) = per_rank(params, xs, ys, masks[0])
+            return grads, losses, aux
+        xa = xs.reshape((n_local, A, B // A) + tuple(xs.shape[2:]))
+        ya = ys.reshape((n_local, A, B // A) + tuple(ys.shape[2:]))
+        gsum = lsum = None
+        auxs = []
+        for a in range(A):
+            gr, (l, aux) = per_rank(params, xa[:, a], ya[:, a], masks[a])
+            gsum = gr if gsum is None else {n: gsum[n] + gr[n] for n in gsum}
+            lsum = l if lsum is None else lsum + l
+            auxs.append(aux)
+        aux = pytree.tree_map(lambda *ls: torch.stack(ls, 1), *auxs) if with_aux else ()
+        return {n: v / A for n, v in gsum.items()}, lsum / A, aux
+
+    def reduce_leaves(grads, hook_state):
+        """A per-leaf hook's reduction: {name: (n, *shape)} and the state."""
+        order, perms = views_for(grads)
+        leaves = [DistTensor.wrap(_permuted(grads[n], perms.get(n)), g) for n in order]
+        if stateful:
+            out, hook_state = hook.apply(hook_state, leaves, g)
+        else:
+            out = hook(leaves, g)
+        return {n: _unpermuted(o.tensor, perms.get(n)) for n, o in zip(order, out)}, hook_state
+
+    def own_chunks(packed):
+        """Each local rank's own chunk of (n, W, K) buffers: (n, K)."""
+        return packed[torch.arange(n_local, device=packed.device),
+                      torch.tensor(local_ranks, device=packed.device)]
+
+    def single(params, opt_state, hook_state, x, y, seed):
+        grads, losses, aux = local_grads(params, x, y, seed)
         loss = DistTensor.wrap(losses, g)
         dist.all_reduce(loss, ReduceOp.AVG, g)
 
         names = list(params)
         layout = layout_for(params)
-        packed = layout.pack([grads[n] for n in names], lead=1)  # (n, W, K)
-        if fused_rs:
-            reduced = zero.reduce_scatter_mean(packed, g)  # (n, K): the owned shards
+        if per_leaf:
+            red, hook_state = reduce_leaves(grads, hook_state)
+            reduced = (own_chunks(layout.pack([red[n] for n in names], lead=1))
+                       if zero_update else None)
         else:
-            reduced = hook(DistTensor.wrap(packed.reshape(n_local, -1), g), g).tensor
-            if zero_update:  # each rank's own chunk of the hook's output
-                reduced = reduced.reshape(n_local, W, -1)[
-                    torch.arange(n_local, device=reduced.device),
-                    torch.tensor(local_ranks, device=reduced.device)]
+            packed = layout.pack([grads[n] for n in names], lead=1)  # (n, W, K)
+            if fused_rs:
+                reduced = zero.reduce_scatter_mean(packed, g)  # (n, K): the owned shards
+            else:
+                reduced = hook(DistTensor.wrap(packed.reshape(n_local, -1), g), g).tensor
+                if zero_update:
+                    reduced = own_chunks(reduced.reshape(n_local, W, -1))
+                else:
+                    red = dict(zip(names, layout.unpack(reduced[0].reshape(W, -1))))
         if zero_update:
             gshards = {n: layout.columns(reduced, i) for i, n in enumerate(names)}
-            pshards = shard_view(params)
+            pshards = zero.shard_rows(params, g)
             updates, opt_state = optimizer.update(gshards, opt_state, pshards)
             new = apply_updates(pshards, updates)
             full = zero.unshard(torch.cat([new[n] for n in names], dim=1), g)  # (W, K)
             params = dict(zip(names, layout.unpack(full)))
         else:
-            full = reduced[0].reshape(W, -1)
-            updates, opt_state = optimizer.update(
-                dict(zip(names, layout.unpack(full))), opt_state, params)
+            one = {n: (red[n][0] if per_leaf else red[n]) for n in names}
+            updates, opt_state = optimizer.update(one, opt_state, params)
             params = apply_updates(params, updates)
-        return params, opt_state, loss.tensor[0]
+        return params, opt_state, hook_state, loss.tensor[0], (aux if with_aux else None)
 
     def templates(params):
         """(unsharded, sharded) optimizer states built on the meta device:
         their shapes tell the layouts apart."""
         meta = {n: p.to("meta") for n, p in params.items()}
-        return optimizer.init(meta), optimizer.init(
-            {n: zero.padded_flat(p, W).view(W, -1)[rows] for n, p in meta.items()})
+        return optimizer.init(meta), optimizer.init(zero.shard_rows(meta, g))
 
     def init_opt_state(params):
         """The optimizer state in the step's layout (under ZeRO each leaf
         is this process's ranks' (n, k) shard rows)."""
-        return optimizer.init(shard_view(params) if zero_update else params)
+        return optimizer.init(zero.shard_rows(params, g) if zero_update else params)
 
     def shard_opt_state(params, opt_state):
         """An unsharded state (`optimizer.init(params)`, a restored one)
@@ -343,39 +453,86 @@ def make_ddp_train_step(
             [zero.from_shard_layout(zero.unshard(l, g), ref) if ref.dim() else l
              for l, ref in zip(leaves, refs)], spec)
 
-    last_state = [None]
+    def init_hook_state(params):
+        """The hook's state for every local rank: one rank's `hook.init`
+        (of the params as the hook sees them) stacked n times, so that
+        every rank starts alike and then carries its own."""
+        order, perms = views_for(params)
+        local = hook.init({n: _permuted(params[n][None], perms.get(n))[0] for n in order})
+        return pytree.tree_map(
+            lambda l: l.unsqueeze(0).expand((n_local,) + tuple(l.shape)).clone(), local)
 
-    def run(params, opt_state, x, y, seeds):
+    last_state = [None]
+    unused_checked = [False]
+
+    def check_unused(params, x, seeds):
+        if unused_checked[0]:
+            return
+        unused_checked[0] = True
+        if steps_per_call > 1:
+            x, seeds = x[0], seeds[0] if seeds is not None else None
+        xs = x.reshape((n_local, -1) + tuple(x.shape[1:]))[0]
+        masks = None
+        if has_rng:
+            gen = torch.Generator(device=g.device)
+            gen.manual_seed(int(seeds) * _SEED_MIX + local_ranks[0])
+            masks = rng_fn(gen, xs.shape[0])
+        unused = _unused_params(apply_fn, params, xs, masks)
+        if not unused:
+            return
+        if not find_unused_parameters:
+            raise RuntimeError(
+                f"DDP: {len(unused)} parameter(s) never used by the forward pass: "
+                f"{unused[:5]}{'...' if len(unused) > 5 else ''}. Pass "
+                "find_unused_parameters=True to accept this (their gradients stay zero "
+                "and are still reduced), matching torch DDP's contract.")
+        if on_unused is not None:
+            on_unused(unused)
+
+    def run(params, opt_state, hook_state, x, y, seeds):
+        check_unused(params, x, seeds)
         if zero_update and opt_state is not last_state[0]:
             opt_state = shard_opt_state(params, opt_state)
         if steps_per_call == 1:
-            out = single(params, opt_state, x, y, seeds)
+            out = single(params, opt_state, hook_state, x, y, seeds)
         else:
             losses = []
             for i in range(steps_per_call):
-                params, opt_state, loss = single(params, opt_state, x[i], y[i],
-                                                 None if seeds is None else seeds[i])
+                params, opt_state, hook_state, loss, _ = single(
+                    params, opt_state, hook_state, x[i], y[i],
+                    None if seeds is None else seeds[i])
                 losses.append(loss)
-            out = params, opt_state, torch.stack(losses)
+            out = params, opt_state, hook_state, torch.stack(losses), None
         last_state[0] = out[1]
         return out
 
-    def timed(params, opt_state, x, y, seeds):
-        if logger is None or not logger.timing_enabled:
-            return run(params, opt_state, x, y, seeds)
-        logger.step_begin()
-        out = run(params, opt_state, x, y, seeds)
-        if g.device.type == "cuda":
-            torch.cuda.synchronize(g.device)  # true wall time, not enqueue time
-        logger.step_end()
-        return out
+    def timed(params, opt_state, hook_state, x, y, seeds):
+        if logger is not None and logger.timing_enabled:
+            logger.step_begin()
+            out = run(params, opt_state, hook_state, x, y, seeds)
+            if g.device.type == "cuda":
+                torch.cuda.synchronize(g.device)  # true wall time, not enqueue time
+            logger.step_end()
+        else:
+            out = run(params, opt_state, hook_state, x, y, seeds)
+        p, o, hs, loss, aux = out
+        head = (p, o, hs) if stateful else (p, o)
+        return head + ((loss, aux) if with_aux else (loss,))
 
-    if has_rng:
+    if stateful:
+        if has_rng:
+            def step(params, opt_state, hook_state, x, y, seed):
+                return timed(params, opt_state, hook_state, x, y, seed)
+        else:
+            def step(params, opt_state, hook_state, x, y):
+                return timed(params, opt_state, hook_state, x, y, None)
+        step.init_hook_state = init_hook_state
+    elif has_rng:
         def step(params, opt_state, x, y, seed):
-            return timed(params, opt_state, x, y, seed)
+            return timed(params, opt_state, None, x, y, seed)
     else:
         def step(params, opt_state, x, y):
-            return timed(params, opt_state, x, y, None)
+            return timed(params, opt_state, None, x, y, None)
 
     def memory_report(params, opt_state, grads=None):
         """Bytes of params / optimizer state (/ grads) for the whole world
@@ -447,14 +604,13 @@ class DistributedDataParallel:
         find_unused_parameters: bool = False,
         bucket_cap_mb: float = 25.0,
     ):
-        if find_unused_parameters:
-            raise NotImplementedError("DDP: find_unused_parameters=True is not ported yet (ROADMAP)")
         from ..utils.logger import DDPLogger
         from .reducer import Reducer
 
         self.module = module
         self.process_group = g = dist._resolve(process_group)
         self.find_unused_parameters = find_unused_parameters
+        self.unused_parameter_names: List[str] = []  # filled on a step's first call
         self.bucket_cap_mb = bucket_cap_mb
         self._comm_hook: Optional[Callable] = None
         self._require_grad_sync = True
@@ -482,10 +638,16 @@ class DistributedDataParallel:
     def register_comm_hook(self, state, hook: Callable) -> None:
         """torch `register_comm_hook` (`distributed.py:2178`): a stateless
         `hook(grads, group) -> grads` (`comm_hooks.py`), with `state`, if
-        given, bound in front."""
+        given, bound in front; or a stateful hook object (`init`/`apply`),
+        whose state the train step carries."""
         if hasattr(hook, "init") and hasattr(hook, "apply"):
-            raise NotImplementedError("stateful comm hooks are not ported yet (ROADMAP)")
-        self._comm_hook = hook if state is None else functools.partial(hook, state)
+            self._comm_hook = hook
+            return
+        if state is not None:
+            per_leaf = getattr(hook, "per_leaf", False)
+            hook = functools.partial(hook, state)
+            hook.per_leaf = per_leaf
+        self._comm_hook = hook
 
     @contextlib.contextmanager
     def no_sync(self):
@@ -511,7 +673,9 @@ class DistributedDataParallel:
     def make_train_step(self, optimizer, loss_fn, has_rng: bool = False, **kw):
         """`make_ddp_train_step` over the module. With `has_rng` the module
         takes its dropout masks as `masks` and draws them with
-        `dropout_masks(batch, generator)`."""
+        `dropout_masks(batch, generator)`. A module with `hook_views()`
+        (the reference's layout of its params, `models/convert.py`) hands
+        them to per-leaf hooks."""
         module = self.module
         if has_rng:
             def apply(p, x, masks):
@@ -522,6 +686,10 @@ class DistributedDataParallel:
             def apply(p, x):
                 return functional_call(module, p, (x,))
         kw.setdefault("logger", self.logger)
+        kw.setdefault("find_unused_parameters", self.find_unused_parameters)
+        kw.setdefault("on_unused", self.unused_parameter_names.extend)
+        if hasattr(module, "hook_views"):
+            kw.setdefault("hook_views", module.hook_views())
         return make_ddp_train_step(apply, loss_fn, optimizer, group=self.process_group,
                                    comm_hook=self._comm_hook, has_rng=has_rng, **kw)
 

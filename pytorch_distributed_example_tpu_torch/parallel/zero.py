@@ -47,6 +47,7 @@ __all__ = [
     "to_shard_layout",
     "from_shard_layout",
     "ShardLayout",
+    "shard_rows",
     "reduce_scatter_mean",
     "unshard",
 ]
@@ -135,6 +136,13 @@ def local_rows(group) -> slice:
     all of them in driver mode, its own rank's in multiproc mode."""
     ranks = dist._local_rows(group)
     return slice(ranks[0], ranks[-1] + 1)
+
+
+def shard_rows(params, group) -> dict:
+    """Each param's rows of this process's ranks' shards, (n, k): the
+    layout of a sharded optimizer state."""
+    W, rows = group.size(), local_rows(group)
+    return {n: padded_flat(p, W).view(W, -1)[rows] for n, p in params.items()}
 
 
 def reduce_scatter_mean(packed: torch.Tensor, group) -> torch.Tensor:

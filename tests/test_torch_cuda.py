@@ -683,3 +683,156 @@ def test_migration_lands_bit_for_bit_on_the_card(pool):
         # tp 2 sums the bf16 products in another order: its tokens may part
         # from tp 1's after a near-tie, so only tp 1 is held to them
         assert out == want if mesh is None else len(out) == budget
+
+
+def _resnet_step(device):
+    """One CIFAR-example step of a narrow ResNet with SyncBN at world 4 on
+    `device` (float32): (loss, params, running statistics) on the host."""
+    import pytorch_distributed_example_tpu_torch as tdx
+    from pytorch_distributed_example_tpu_torch import optim
+    from pytorch_distributed_example_tpu_torch.examples import cifar
+    from pytorch_distributed_example_tpu_torch.models import ResNet, convert_sync_batchnorm
+
+    tdx.init_process_group(world_size=4, device=device)
+    try:
+        model = convert_sync_batchnorm(ResNet(
+            stage_sizes=[1, 1], num_filters=16, device="cpu",
+            generator=torch.Generator().manual_seed(0)).to(device or "cuda"))
+        params, stats = model.params_and_stats()
+        opt = optim.sgd(0.1, momentum=0.9)
+        x, y = cifar.synthetic_cifar(16, 0)
+        dev = device or "cuda"
+        p, s, _, loss = cifar.make_train_step(model, opt)(
+            params, stats, opt.init(params), torch.from_numpy(x).to(dev),
+            torch.from_numpy(y).to(dev).long())
+        return float(loss), {n: t.cpu() for n, t in p.items()}, {n: t.cpu() for n, t in s.items()}
+    finally:
+        tdx.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_resnet_syncbn_step_on_the_card_matches_the_cpu():
+    """float32, TF32 off: cuDNN against oneDNN sums in other orders; the
+    loss within rtol 1e-5, params and statistics within rtol 1e-4, atol
+    1e-5."""
+    _need_card()
+    card, cpu = _resnet_step(None), _resnet_step("cpu")
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5)
+    for a, b in ((card[1], cpu[1]), (card[2], cpu[2])):
+        for n in b:
+            np.testing.assert_allclose(a[n].numpy(), b[n].numpy(), rtol=1e-4, atol=1e-5,
+                                       err_msg=n)
+
+
+def _bert_steps(device, hook=None, sgd=False, **kw):
+    """3 adamw (or SGD 0.1) steps of a 2-layer BERT (d 64) under DDP at
+    world 4 on `device`, float32, dropout off: (losses, params) on the
+    host."""
+    import torch.nn.functional as F
+
+    import pytorch_distributed_example_tpu_torch as tdx
+    from pytorch_distributed_example_tpu_torch import optim
+    from pytorch_distributed_example_tpu_torch.models import (
+        BertConfig,
+        BertForSequenceClassification,
+    )
+
+    tdx.init_process_group(world_size=4, device=device)
+    try:
+        dev = device or "cuda"
+        cfg = BertConfig(vocab_size=100, d_model=64, n_layers=2, n_heads=4, d_ff=128,
+                         max_seq_len=16)
+        model = BertForSequenceClassification(cfg, device="cpu",
+                                              generator=torch.Generator().manual_seed(0))
+        ddp = tdx.DistributedDataParallel(model.to(dev))
+        if hook is not None:
+            ddp.register_comm_hook(None, hook)
+        opt = optim.sgd(0.1) if sgd else optim.adamw(1e-3)
+        step = ddp.make_train_step(opt, F.cross_entropy, **kw)
+        gen = np.random.default_rng(0)
+        x = torch.from_numpy(gen.integers(0, 100, (8, 16))).to(dev)
+        y = torch.from_numpy(gen.integers(0, 2, 8)).to(dev)
+        p, s = ddp.params, opt.init(ddp.params)
+        hs = step.init_hook_state(p) if hasattr(step, "init_hook_state") else None
+        losses = []
+        for _ in range(3):
+            if hs is None:
+                p, s, loss = step(p, s, x, y)
+            else:
+                p, s, hs, loss = step(p, s, hs, x, y)
+            losses.append(float(loss))
+        return losses, {n: t.cpu() for n, t in p.items()}
+    finally:
+        tdx.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hook", [None, "bf16_compress_hook", "fp16_compress_hook",
+                                  "blockwise_quant_hook", "powerSGD_hook"])
+def test_bert_ddp_steps_and_hooks_on_the_card_match_the_cpu(hook):
+    """The DDP step with each hook on the card against the CPU (float32,
+    TF32 off, 3 steps of SGD 0.1, so that the params move with their
+    reduced gradients): losses within rtol 1e-4, params within atol 1e-5.
+    Where a value sits on a rounding boundary of the wire on one side, it
+    moves by one step of the wire's grid times the learning rate: one ulp
+    of the gradient (2^-8 of it in bf16, 2^-11 in fp16; gradients below
+    1), so atol 4e-4 and 5e-5; the quantized hook's quantum (1/127 of a
+    block's amax), atol 1e-3."""
+    _need_card()
+    from pytorch_distributed_example_tpu_torch.parallel import comm_hooks
+
+    def make():
+        if hook is None:
+            return None
+        if hook == "blockwise_quant_hook":
+            return comm_hooks.blockwise_quant_hook(error_feedback=True)
+        if hook == "powerSGD_hook":
+            return comm_hooks.powerSGD_hook(rank=2)
+        return getattr(comm_hooks, hook)
+
+    card, cpu = _bert_steps(None, make(), sgd=True), _bert_steps("cpu", make(), sgd=True)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
+    atol = {"blockwise_quant_hook": 1e-3, "bf16_compress_hook": 4e-4,
+            "fp16_compress_hook": 5e-5}.get(hook, 1e-5)
+    for n, p in cpu[1].items():
+        np.testing.assert_allclose(card[1][n].numpy(), p.numpy(), rtol=0, atol=atol, err_msg=n)
+
+
+@pytest.mark.cuda
+def test_bert_grad_accum_and_remat_on_the_card():
+    """Within the card: 2 microbatches against one step of the same batch
+    (float32 sums in another order: params within atol 1e-6 of adam's
+    1e-3 steps), and remat against no remat bit for bit."""
+    _need_card()
+    one = _bert_steps(None)
+    acc = _bert_steps(None, grad_accum_steps=2)
+    remat = _bert_steps(None, remat=True)
+    np.testing.assert_allclose(acc[0], one[0], rtol=1e-5)
+    for n, p in one[1].items():
+        if "attn.key.bias" not in n:
+            np.testing.assert_allclose(acc[1][n].numpy(), p.numpy(), rtol=0, atol=1e-6, err_msg=n)
+        assert torch.equal(remat[1][n], p), n
+    assert remat[0] == one[0]
+
+
+@pytest.mark.cuda
+def test_native_flight_recorder_dumps_on_the_card_machine():
+    """The native ring's JSON dump on the card's machine, whose C++ runtime
+    differs from the one the library is compiled against (the dump once
+    crashed there inside iostreams): a wrapped ring of 2048, escapes and
+    full-resolution timestamps."""
+    _need_card()
+    from pytorch_distributed_example_tpu_torch import _native
+
+    rec = _native.NativeFlightRecorder(2048)
+    for i in range(3000):
+        rec.record(i, 'all"re\\duce', "default_pg", (8, 3, 5), "float32", 120,
+                   1760000000.123456789)
+        if i % 2:
+            rec.complete(i, "default_pg", i % 3 == 0, 1760000001.5)
+    entries = rec.dump_entries()
+    rec.close()
+    assert len(entries) == 2048 and entries[0]["seq"] == 952 and entries[-1]["seq"] == 2999
+    assert entries[0]["op"] == 'all"re\\duce'
+    assert [e["state"] for e in entries[-3:]] == ["failed", "enqueued", "completed"]
+    assert entries[0]["time_created"] == 1760000000.123456789

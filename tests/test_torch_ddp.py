@@ -33,6 +33,7 @@ import optax
 import pytest
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
 
 import pytorch_distributed_example_tpu as jtdx
 import pytorch_distributed_example_tpu_torch as tdx
@@ -344,31 +345,126 @@ def test_eval_step_matches_reference(port8, world, flax_params):
     assert got[2] == len(y) - 5
 
 
-@pytest.mark.parametrize("option", [
-    dict(grad_accum_steps=2), dict(remat=True), dict(find_unused_parameters=True),
-    dict(with_aux=True),
-])
-def test_options_not_ported_raise(port8, option):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_ddp_train_step(lambda p, x: x, F.cross_entropy, optim.sgd(0.1), **option)
+OPTIONS = [dict(grad_accum_steps=2), dict(remat=True), dict(find_unused_parameters=True),
+           dict(with_aux=True)]
+
+
+def _jax_option_run(flax_params, option, x, y, steps=3):
+    """The reference's `make_ddp_train_step` with `option` at world 2:
+    (losses, auxes, unused names, params of the ConvNet)."""
+    from pytorch_distributed_example_tpu.parallel.ddp import make_ddp_train_step as jstep
+
+    g = jtdx.new_group(ranks=[0, 1])
+    net = JConvNet()
+    params = {"params": jax.tree_util.tree_map(jnp.array, flax_params["params"]),  # donated
+              "extra": jnp.zeros((3,), jnp.float32)}
+
+    def apply(p, xx):
+        return net.apply({"params": p["params"]}, xx)
+
+    def loss_fn(logits, yy):
+        loss = optax.softmax_cross_entropy_with_integer_labels(logits, yy).mean()
+        return (loss, logits.mean()) if option.get("with_aux") else loss
+
+    unused = []
+    opt = optax.sgd(0.01, momentum=0.5)
+    step = jstep(apply, loss_fn, opt, group=g, on_unused=unused.extend,
+                 **{**option, "find_unused_parameters": True})
+    p, s, losses, auxes = params, opt.init(params), [], []
+    for _ in range(steps):
+        out = step(p, s, jnp.asarray(x), jnp.asarray(y))
+        p, s, loss = out[:3]
+        losses.append(float(loss))
+        if option.get("with_aux"):
+            auxes.append(float(out[3]))
+    return losses, auxes, unused, convnet_from_flax(jax.device_get(p["params"]))
+
+
+@pytest.mark.parametrize("option", OPTIONS)
+def test_options_not_ported_raise(world, flax_params, option):
+    """(These options raised NotImplementedError before the port took them;
+    the name is kept.) Each option of the DDP step against the reference's
+    at world 2, dropout off, 3 steps of SGD with momentum 0.5 on ZeRO
+    "auto": gradient accumulation over 2 microbatches, remat, unused
+    parameters reported through `on_unused` (the params carry an unused
+    "extra" leaf), and `with_aux` (the mean logit; the reference returns
+    rank 0's, the port every rank's). Losses and aux within rtol 1e-5,
+    params within rtol 1e-4, atol 1e-6 (float32 in both)."""
+    x, y = cases.global_batch(2)
+    want_losses, want_aux, want_unused, want = _jax_option_run(flax_params, option, x, y)
+    pg = tdx.init_process_group(world_size=2, device="cpu")
+    try:
+        model = ConvNet(device="cpu")
+        params = {**_converted(flax_params), "extra": torch.zeros(3)}
+
+        def apply(p, xx):
+            return torch.func.functional_call(
+                model, {n: t for n, t in p.items() if n != "extra"}, (xx,))
+
+        def loss_fn(logits, yy):
+            loss = F.cross_entropy(logits, yy)
+            return (loss, logits.mean()) if option.get("with_aux") else loss
+
+        unused = []
+        opt = optim.sgd(0.01, momentum=0.5)
+        step = make_ddp_train_step(apply, loss_fn, opt, on_unused=unused.extend, **option)
+        p, s, losses, auxes = params, opt.init(params), [], []
+        xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy())
+        yt = torch.from_numpy(y).long()
+        if not option.get("find_unused_parameters"):
+            with pytest.raises(RuntimeError, match="never used"):
+                step(p, s, xt, yt)
+            option = {**option, "find_unused_parameters": True}
+            step = make_ddp_train_step(apply, loss_fn, opt, on_unused=unused.extend, **option)
+        for _ in range(3):
+            out = step(p, s, xt, yt)
+            p, s, loss = out[:3]
+            losses.append(float(loss))
+            if option.get("with_aux"):
+                assert out[3].shape == (2,)  # every local rank's
+                auxes.append(float(out[3][0]))
+    finally:
+        tdx.destroy_process_group()
+    np.testing.assert_allclose(losses, want_losses, **LOSS_TOL)
+    np.testing.assert_allclose(auxes, want_aux, **LOSS_TOL)
+    assert unused == ["extra"] and want_unused == ["['extra']"]
+    assert torch.equal(p["extra"], torch.zeros(3))
+    for n, w in want.items():
+        np.testing.assert_allclose(p[n].numpy(), w.numpy(), **PARAM_TOL, err_msg=n)
 
 
 def test_stateful_hooks_and_bad_flags_raise(port8):
-    class Stateful:
-        def init(self, params):
-            return {}
+    """A stateful hook's state is per rank: `init_hook_state` stacks one
+    rank's state W times, and each rank's error feedback then grows from
+    its own gradients; `steps_per_call` carries it bit for bit as
+    sequential calls do. The flags the reference refuses still raise."""
+    hook = comm_hooks.blockwise_quant_hook(error_feedback=True)
+    ddp, opt, _, x, y = _setup(port8)
+    ddp.register_comm_hook(None, hook)
+    step = ddp.make_train_step(opt, F.cross_entropy, has_rng=True)
+    hs = step.init_hook_state(ddp.params)
+    assert [tuple(e.shape) for e in hs["error"]] == [(W,) + tuple(p.shape)
+                                                     for p in ddp.params.values()]
+    p, s, hs1, loss = step(ddp.params, opt.init(ddp.params), hs, x, y, 0)
+    big = max(hs1["error"], key=lambda e: e[0].numel())
+    assert big.abs().sum() > 0 and not torch.equal(big[0], big[1])
+    p2, s2, hs2, _ = step(p, s, hs1, x, y, 1)
+    stepk = ddp.make_train_step(opt, F.cross_entropy, has_rng=True, steps_per_call=2,
+                                unroll_steps=True)
+    pk, sk, hsk, losses = stepk(ddp.params, opt.init(ddp.params), hs, torch.stack([x, x]),
+                                torch.stack([y, y]), [0, 1])
+    assert torch.equal(losses[0], loss)
+    for a, b in zip(pytree.tree_leaves((p2, hs2)), pytree.tree_leaves((pk, hsk))):
+        assert torch.equal(a, b)
 
-        def apply(self, state, grads, group):
-            return grads, state
-
-    ddp, _, _, _, _ = _setup(port8)
-    with pytest.raises(NotImplementedError, match="stateful"):
-        ddp.register_comm_hook(None, Stateful())
-    with pytest.raises(NotImplementedError, match="find_unused"):
-        tdx.DistributedDataParallel(ddp.module, find_unused_parameters=True)
     with pytest.raises(ValueError, match="shard_weight_update"):
         make_ddp_train_step(lambda p, x: x, F.cross_entropy, optim.sgd(0.1),
                             shard_weight_update="on")
+    with pytest.raises(ValueError, match="grad_accum_steps"):
+        make_ddp_train_step(lambda p, x: x, F.cross_entropy, optim.sgd(0.1), grad_accum_steps=0)
+    with pytest.raises(NotImplementedError, match="aux"):
+        make_ddp_train_step(lambda p, x: x, F.cross_entropy, optim.sgd(0.1), with_aux=True,
+                            steps_per_call=2)
 
 
 def test_memory_report_and_logging_data(port8):

@@ -63,8 +63,9 @@ def test_port_imports_nothing_of_jax():
     assert word == "clean", out.stdout
     # ops, models, examples, parallel, the c10d core, data, DDP, sharded
     # training, generation, serving on one card and across ranks and
-    # pools, the planner's schedules, and their modules
-    assert int(count) >= 78
+    # pools, the planner's schedules, the ResNet and BERT workloads, and
+    # their modules
+    assert int(count) >= 82
     for name in ("ops.flash_attention", "parallel", "parallel.context_parallel",
                  "distributed", "store", "backends.stacked", "backends.process",
                  "examples.toy", "data.sampler", "data.loader", "models.convnet",
@@ -76,7 +77,8 @@ def test_port_imports_nothing_of_jax():
                  "serve.cache", "serve.decode", "serve.engine", "examples.generate",
                  "plan", "plan.topology", "plan.schedules", "plan.transfer", "serve.router",
                  "serve.autoscale", "serve.elastic", "serve.disagg", "serve.disagg.migrate",
-                 "serve.disagg.router"):
+                 "serve.disagg.router", "optim", "utils.remat", "models.resnet", "models.bert",
+                 "examples.cifar", "parallel.comm_hooks"):
         assert f"pytorch_distributed_example_tpu_torch.{name}" in modules.split(), name
 
 
