@@ -40,7 +40,7 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    memory); then one
    step under torch.profiler: device time by kernel group and the
    device's busy share of the step.
-7. ring: `make_cp_attention(4, "ring", causal=True)` (driver mode) over
+7. ring: `make_cp_attention(4, mode="ring", causal=True)` (driver mode) over
    4 shards of 16384 tokens (B 1, H 16, D 128, bf16), forward and
    backward: one untimed warm-up call, then two timed calls (their mean
    printed), each of which must launch exactly 4 each of F (float32
@@ -170,10 +170,29 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    memory, the hook alone on BERT-base's gradient by CUDA events beside
    its wire bytes a rank). No flash kernel may launch (BERT's attention is
    dense, as the reference's).
-16. report: one JSON line of kernels (each Hopper kernel once per Pallas
+16. dryrun: the reference's multichip dry run (`dryrun.py`), after
+   `[bert]`. (a) `dryrun_multichip(8)` on the card and on the CPU on the
+   same weights (float32, TF32 off): every part finite, the all_reduce
+   28, the card's values within rtol 1e-5 (atol 1e-5 of the largest) of
+   the CPU's, part 5's DDP loss compared with dropout off (each device
+   draws its own masks); the flash Function under `torch.func.vjp` of
+   `vmap` over 4 stages at CFG_1B's attention: one launch each of F, KV
+   and Q, bitwise the per-stage loop. (b) CFG_1B over dp 2 x fsdp 2 x tp
+   2 (8 driver-mode ranks): the `[fsdp_tp]` checks, times, memory and
+   launch counts on the 3-D mesh. (c) CFG_1B's 16 blocks as a pp 4
+   pipeline (4 a stage, bf16, flash), M 8 microbatches of 1 x 1024
+   tokens from the embedding, the loss the final norm, LM head and
+   cross-entropy: 1F1B's loss and stage gradients against the
+   unpipelined blocks and GPipe's against 1F1B (|dloss| <= 1e-2, rms
+   ratio <= 3e-2), the timed 1F1B step (launches: 8 F, 4 KV, 4 Q a
+   tick) and its profile, 1F1B's peak memory at M 8 and 16 within 10%,
+   GPipe's at M 4 and 8 growing by more than 10%, and the interleaved
+   schedule (V 2: 8 stages of 2 blocks over pp 4) against the sequential
+   forward (rms ratio <= 3e-2).
+17. report: one JSON line of kernels (each Hopper kernel once per Pallas
    lowering it replaces, with its design, "wgmma" or "simt", and its
-   launches per phase, `serve_fleet`, `cifar` and `bert` among them), the
-   card's name and power limit, then the `ok` line.
+   launches per phase, `serve_fleet`, `cifar`, `bert` and `dryrun` among
+   them), the card's name and power limit, then the `ok` line.
 """
 
 import contextlib
@@ -192,7 +211,7 @@ import numpy as np
 import torch
 
 import pytorch_distributed_example_tpu_torch as tdx
-from pytorch_distributed_example_tpu_torch import bench, optim
+from pytorch_distributed_example_tpu_torch import bench, dryrun, optim
 from pytorch_distributed_example_tpu_torch.data import DataLoader, DistributedSampler, SyntheticMNIST
 from pytorch_distributed_example_tpu_torch.examples import cifar, lm, mnist, toy
 from pytorch_distributed_example_tpu_torch.models import (
@@ -202,9 +221,12 @@ from pytorch_distributed_example_tpu_torch.models import (
     TransformerConfig,
     TransformerLM,
     convert_sync_batchnorm,
+    transformer_sharding_rules,
 )
+from pytorch_distributed_example_tpu_torch.models.transformer import Block, rope_freqs
 from pytorch_distributed_example_tpu_torch.ops import _build, dense_attention, quant
-from pytorch_distributed_example_tpu_torch.parallel import comm_hooks
+from pytorch_distributed_example_tpu_torch.parallel import comm_hooks, fully_shard
+from pytorch_distributed_example_tpu_torch.parallel import pipeline as pp
 from pytorch_distributed_example_tpu_torch.tensor import DistTensor
 from pytorch_distributed_example_tpu_torch.utils.flight_recorder import global_recorder
 from pytorch_distributed_example_tpu_torch.dtensor import DTensor
@@ -255,7 +277,7 @@ REPLACES = {
 }
 # the phases that drive the port's main paths, by the regime they put the
 # kernels in
-PHASES = {"resident": ("slice", "fsdp_tp"), "streamed": ("ring", "long")}
+PHASES = {"resident": ("slice", "fsdp_tp", "dryrun"), "streamed": ("ring", "long")}
 
 
 class SmokeFailure(RuntimeError):
@@ -526,22 +548,23 @@ KERNEL_GROUPS = (  # device kernels by what they serve, first match wins
     ("flash kernels (F, KV, Q)", ("flash_fwd", "flash_dkdv", "flash_dq")),
     ("matmuls (cuBLAS)", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
     ("AdamW (foreach)", ("multi_tensor_apply",)),
+    ("copies and casts", ("CatArrayBatchedCopy", "copy_kernel")),
 )
 
 
-def profile_step(model, opt, tokens, step_ms):
-    """One train step under torch.profiler: device time by kernel group
-    and the top kernels, and the device's busy share of the profiled
-    step and of an unprofiled one (`step_ms`). Only device kernels are
-    summed: an operator's row and a `record_function` range on the device
-    (the optimizer's step) repeat their kernels' time. One stream, so the
-    kernels do not overlap."""
+def profile_step(step, step_ms):
+    """One train step, `step()`, under torch.profiler: device time by
+    kernel group and the top kernels, and the device's busy share of the
+    profiled step and of an unprofiled one (`step_ms`). Only device
+    kernels are summed: an operator's row and a `record_function` range on
+    the device (the optimizer's step) repeat their kernels' time. One
+    stream, so the kernels do not overlap."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        lm.train_step(model, opt, tokens)
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
@@ -559,7 +582,7 @@ def profile_step(model, opt, tokens, step_ms):
     groups = {}
     for ms, _, key in rows:
         group = next((g for g, words in KERNEL_GROUPS if any(w in key for w in words)),
-                     "other (elementwise, norms, softmax, embedding)")
+                     "other (elementwise, reductions, norms, softmax, embedding)")
         groups[group] = groups.get(group, 0.0) + ms
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"    {ms:9.3f} ms {ms / busy:6.1%}  {group}")
@@ -685,7 +708,8 @@ def train_phase(argv, warmup_steps, timed_steps, card, check_layers=None):
     check(routes == want_routes(want),
           f"F, KV and Q should have launched {want} times each on the wgmma route: {routes}")
     print("[profile] one more step under torch.profiler")
-    profile_step(model, opt, next_tokens(), mean_s * 1e3)
+    tokens = next_tokens()
+    profile_step(lambda: lm.train_step(model, opt, tokens), mean_s * 1e3)
     del model, opt
     torch.cuda.empty_cache()
     return routes
@@ -733,7 +757,7 @@ def ring_phase():
     gen = torch.Generator(device="cuda").manual_seed(L)
     q, k, v, do = (torch.randn((B, L, H, D), device="cuda", generator=gen,
                                dtype=torch.bfloat16) for _ in range(4))
-    attention = cp.make_cp_attention(W, "ring", causal=True)
+    attention = cp.make_cp_attention(W, mode="ring", causal=True)
     fwd_want = {name: 0 for name in fa.ROUTE_LAUNCHES}
     fwd_want["flash_fwd:wgmma"] = W
     ring_call(attention, q, k, v, do)  # warm-up
@@ -1248,12 +1272,27 @@ def rel_rms(got, want):
                  / want.float().pow(2).mean().sqrt().clamp_min(1e-30))
 
 
-def sharded_first_step(argv, grads=True):
-    """The trainer (`examples/lm.py`) over fsdp 2 x tp 2 in driver mode on
-    cuda:0, from the weights of a single-card model: its first step's loss
-    and every gathered gradient against that model's, held to the bf16
-    tolerance (the gradients only with `grads`). Returns (the FSDPModule, its optimizer,
-    next_tokens, args, param count, the first loss)."""
+def shard_3d(model, lr, dims):
+    """`model` fully sharded over a ("dp", "fsdp", "tp") mesh of `dims` on
+    its device, as the reference's dry run shards it (the batch over dp and
+    fsdp), with the trainer's AdamW step as `.step`; as `lm.shard`, the
+    model's own weights move to the meta device."""
+    device = next(model.parameters()).device
+    mesh = tdx.DeviceMesh([device] * math.prod(dims), dims, ("dp", "fsdp", "tp"))
+    mod = fully_shard(model, None, mesh, axis="fsdp",
+                      rules=transformer_sharding_rules("tp", "fsdp"), data_axes=("dp", "fsdp"))
+    model.to("meta")
+    mod.step = mod.make_train_step(lm.adamw(lr), lm.loss_fn)
+    return mod
+
+
+def sharded_first_step(argv, grads=True, dims=None):
+    """The trainer (`examples/lm.py`) over fsdp 2 x tp 2 (or the ("dp",
+    "fsdp", "tp") mesh of `dims`) in driver mode on cuda:0, from the
+    weights of a single-card model: its first step's loss and every
+    gathered gradient against that model's, held to the bf16 tolerance
+    (the gradients only with `grads`). Returns (the FSDPModule, its
+    optimizer, next_tokens, args, param count, the first loss)."""
     args = lm.parse_args(argv)
     # the single-card model and token stream: the weights the sharded
     # trainer's own build would make (init seed 0)
@@ -1267,12 +1306,14 @@ def sharded_first_step(argv, grads=True):
     loss1 = float(loss1.detach())
     for p in model.parameters():
         p.grad = None
-    mod = lm.shard(model, args.lr, FSDP_TP_WORLD, FSDP_TP_TP)
+    mod = (lm.shard(model, args.lr, FSDP_TP_WORLD, FSDP_TP_TP) if dims is None
+           else shard_3d(model, args.lr, dims))
     opt = mod.step.init_opt_state(mod.params)
+    mesh = " x ".join(f"{a} {n}" for a, n in zip(mod.mesh.axis_names, mod.mesh.shape))
     print(f"  config: vocab {cfg.vocab_size}, d {cfg.d_model}, layers {cfg.n_layers}, heads "
           f"{cfg.n_heads}, d_ff {cfg.ffn_dim}, experts {cfg.n_experts}, seq {args.seq}, global "
-          f"batch {args.batch_size}, {cfg.dtype}; {n_params / 1e6:.1f}M params; mesh fsdp "
-          f"{mod.mesh.shape[0]} x tp {mod.mesh.shape[1]} (driver mode on {mod.mesh.device})")
+          f"batch {args.batch_size}, {cfg.dtype}; {n_params / 1e6:.1f}M params; mesh {mesh} "
+          f"(driver mode on {mod.mesh.device})")
     loss = float(lm.train_step(mod, opt, tokens))
     worst, worst_name = 0.0, None
     for name, dt in mod.params.items():
@@ -1290,12 +1331,12 @@ def sharded_first_step(argv, grads=True):
     return mod, opt, next_tokens, args, n_params, loss
 
 
-def sharded_train(argv, card, timed_steps, grads=True):
+def sharded_train(argv, card, timed_steps, grads=True, dims=None):
     """`sharded_first_step`, then three steps with a finite, falling loss,
     `timed_steps` timed steps, and one profiled step whose launches are
     counted. Returns (routes of the profiled step, aux of the MoE layers or
     None)."""
-    mod, opt, next_tokens, args, n_params, first = sharded_first_step(argv, grads)
+    mod, opt, next_tokens, args, n_params, first = sharded_first_step(argv, grads, dims)
     cfg = mod.module.cfg
     losses = [first]
     for _ in range(FSDP_TP_STEPS - 1):
@@ -1335,11 +1376,12 @@ def sharded_train(argv, card, timed_steps, grads=True):
         check(len(aux) == cfg.n_layers and all(math.isfinite(a) for a in aux), "bad MoE aux")
     print("[profile] one more step under torch.profiler; its launches counted")
     fa.reset_launch_counts()
-    profile_step(mod, opt, next_tokens(), mean_s * 1e3)
+    tokens = next_tokens()
+    profile_step(lambda: lm.train_step(mod, opt, tokens), mean_s * 1e3)
     launches, routes = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
     print(f"  launches in the profiled step: {launches}; by route: {routes}")
     check(all(launches[n] == cfg.n_layers for n in REPLACES),
-          f"F, KV and Q should launch once a layer for all {FSDP_TP_WORLD} ranks: {launches}")
+          f"F, KV and Q should launch once a layer for all {mod.mesh.size} ranks: {launches}")
     check(routes == want_routes(cfg.n_layers),
           f"F, KV and Q should all take the wgmma route: {routes}")
     del mod, opt
@@ -2608,6 +2650,276 @@ def bert_phase(card):
     return routes
 
 
+# the reference's multichip dry run (`__graft_entry__.py:88-217`) in driver
+# mode: its five parts at its shapes, card against CPU (float32, TF32 off);
+# the 3-D mesh step at CFG_1B; the pipeline at CFG_1B width
+DRYRUN_N = 8
+DRYRUN_DIMS = dryrun._factor_mesh(DRYRUN_N)  # (dp, fsdp, tp) = (2, 2, 2)
+DRYRUN_TOL = dict(rtol=1e-5, atol_frac=1e-5)
+PIPE_ARGV = SLICE_ARGV  # CFG_1B: its 16 blocks, 4 a stage over pp 4
+PIPE_STAGES, PIPE_VIRTUAL = 4, 2
+PIPE_MICRO, PIPE_MICRO_BIG = 8, 16  # microbatches of 1 x seq tokens
+# GPipe's peak memory is read at M 4 and 8: each tick keeps ~3.2 GB for the
+# backward (the stages' bf16 weight casts and activations), so M 16 (19
+# ticks) would come near the card's 80 GB
+PIPE_GPIPE_MEM = (4, 8)
+PIPE_MEM_FLAT = 0.10  # 1F1B's peak memory at M 16 within 10% of M 8's
+
+
+def dryrun_check():
+    """(a) `dryrun_multichip(8)` on the card and on the CPU on the same
+    weights (built on the CPU from seed 0): every part finite, the
+    all_reduce 28, the card's float32 values within DRYRUN_TOL of the
+    CPU's. Part 5's dropout masks come from each device's own generator,
+    so its loss is compared with dropout off."""
+    lm_params = TransformerLM(TransformerConfig(**dryrun.LM_KW), device="cpu",
+                              generator=torch.Generator().manual_seed(0)).state_dict()
+    cparams = ConvNet(device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    out, devices = {}, (("card", "cuda"), ("cpu", "cpu"))
+    for key, dev in devices:
+        t0 = time.perf_counter()
+        out[key] = dryrun.dryrun_multichip(DRYRUN_N, device=dev, lm_params=lm_params,
+                                           convnet_params=cparams)
+        print(f"  dryrun_multichip({DRYRUN_N}) on the {key}: {time.perf_counter() - t0:.2f} s")
+    for key in ("loss", "ring", "moe_y", "moe_aux", "pipe"):
+        got = torch.as_tensor(out["card"][key]).detach().cpu()
+        want = torch.as_tensor(out["cpu"][key]).detach()
+        err, rel, ok = compare(got, want, **DRYRUN_TOL)
+        print(f"  part {key} {tuple(want.shape)}: card vs CPU max_abs_err={err:.3e} "
+              f"(/max {rel:.3e}); within rtol 1e-5, atol 1e-5*max: {ok}")
+        check(ok, f"the dry run's {key} on the card disagrees with the CPU's")
+    check(out["card"]["all_reduce"] == out["cpu"]["all_reduce"] == 28.0,
+          "the dry run's all_reduce is not 28")
+    check(math.isfinite(float(out["card"]["ddp_loss"])), "non-finite DDP loss (has_rng)")
+    d, losses = dryrun.draw_inputs(DRYRUN_N), {}
+    for key, dev in devices:
+        tdx.init_process_group(world_size=DRYRUN_N, device=dev)
+        try:
+            losses[key] = float(dryrun.ddp_step(DRYRUN_N, d["cx"], d["cy"], dev, cparams,
+                                                has_rng=False))
+        finally:
+            tdx.destroy_process_group()
+    print(f"  part 5 with dropout off: DDP loss {losses['card']:.7f} (card) vs "
+          f"{losses['cpu']:.7f} (CPU); with has_rng on the card {float(out['card']['ddp_loss']):.7f}")
+    check(abs(losses["card"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"]),
+          "the dry run's DDP step on the card disagrees with the CPU's (rtol 1e-5)")
+
+
+def vmap_flash_check():
+    """The flash Function under `torch.func` on the card: `vmap` over the
+    pipeline's 4 stages folds into B*H, one launch of each kernel for all
+    of them, bit for bit the per-stage loop; `vjp` of the vmap gives the
+    loop's autograd gradients bit for bit (CFG_1B's attention: 1 x 1024
+    tokens, 16 heads of 128, bf16, causal)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn((PIPE_STAGES, 1, 1024, 16, 128), device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for _ in range(4))
+    flash = lambda a, b, c: fa.flash_attention(a, b, c, causal=True)  # noqa: E731
+    fa.reset_launch_counts()
+    (got, vjp_fn) = torch.func.vjp(torch.func.vmap(flash), q, k, v)
+    grads = vjp_fn(do)
+    launches = dict(fa.LAUNCHES)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.stack([flash(*(x[i] for x in leaves)) for i in range(PIPE_STAGES)])
+    want.backward(do)
+    same = [torch.equal(got, want)] + [torch.equal(g, x.grad) for g, x in zip(grads, leaves)]
+    print(f"  vmap(flash) over {PIPE_STAGES} stages: launches {launches}; output, dQ, dK, dV "
+          f"bitwise the per-stage loop: {same}")
+    check(launches == {"flash_fwd": 1, "flash_dkdv": 1, "flash_dq": 1},
+          f"vmap(flash) should launch each kernel once for all stages: {launches}")
+    check(all(same), "vmap(flash) and its vjp are not bitwise the per-stage loop")
+
+
+def block_stage_fn(cfg, per_stage, L):
+    """stage_fn(params, x) running `per_stage` of the port's `Block`s on
+    x (mb, L, d): params {"j.<name>": tensor} for block j of the stage."""
+    template = Block(cfg, device="meta")
+    names = [n for n, _ in template.named_parameters()]
+    cos, sin = rope_freqs(cfg.head_dim, L, cfg.rope_theta, device="cuda")
+
+    def stage(p, x):
+        for j in range(per_stage):
+            x = torch.func.functional_call(template, {n: p[f"{j}.{n}"] for n in names},
+                                           (x, cos, sin))
+        return x
+
+    return stage
+
+
+def stacked_blocks(model, per_stage):
+    """The model's blocks as stage params stacked in stage order."""
+    layers = model.layers
+    return pp.stack_stage_params([
+        {f"{j}.{n}": t.detach() for j in range(per_stage)
+         for n, t in layers[s * per_stage + j].named_parameters()}
+        for s in range(len(layers) // per_stage)])
+
+
+def pipeline_run(fn, *args):
+    """(result, seconds, peak bytes) of fn(*args) from a fresh peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def pipeline_check(card):
+    """(c) CFG_1B's 16 blocks over pp 4 (4 a stage), bf16, flash on; M
+    microbatches of 1 x seq tokens from the embedding; the loss the final
+    norm, LM head and cross-entropy on the same weights. 1F1B's loss and
+    stage gradients against the unpipelined blocks; GPipe against 1F1B;
+    interleaved (8 stages of 2 over 4) against the sequential forward; the
+    peak memory of 1F1B flat in M, GPipe's growing. Returns the flash
+    routes of the timed 1F1B step."""
+    args = lm.parse_args(PIPE_ARGV)
+    cfg = lm.config_for(args)
+    L, S, per = args.seq, PIPE_STAGES, cfg.n_layers // PIPE_STAGES
+    model = TransformerLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    gen = np.random.default_rng(0)
+    data = np.cumsum(gen.integers(1, 7, 200_000)) % cfg.vocab_size
+    starts = gen.integers(0, len(data) - L, PIPE_MICRO_BIG)
+    tokens = torch.from_numpy(np.stack([data[s_:s_ + L] for s_ in starts])).to(
+        "cuda", torch.int64).view(PIPE_MICRO_BIG, 1, L)
+    with torch.no_grad():
+        hidden = model.tok_embed(tokens).to(cfg.dtype)  # (M, 1, L, d)
+    norm_w, head_w = model.final_norm.weight.detach(), model.lm_head.weight.detach()
+
+    def head_loss(y, t):
+        h = torch.func.functional_call(model.final_norm, {"weight": norm_w}, (y,))
+        return lm.loss_fn(torch.nn.functional.linear(h, head_w.to(cfg.dtype)).float(), t)
+
+    mesh = tdx.DeviceMesh(["cuda"] * S, (S,), ("pp",))
+    stage = block_stage_fn(cfg, per, L)
+    params = stacked_blocks(model, per)
+    M = PIPE_MICRO
+    print(f"  config: CFG_1B blocks (d {cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.ffn_dim}, "
+          f"{cfg.dtype}, flash), {cfg.n_layers} blocks as pp {S} x {per}; M {M} microbatches "
+          f"of 1 x {L} tokens (and M {PIPE_MICRO_BIG} for the memory check); no cuts")
+    # the unpipelined blocks on the same weights and tokens, a microbatch at a time
+    cos, sin = rope_freqs(cfg.head_dim, L, cfg.rope_theta, device="cuda")
+    want_loss = 0.0
+    for m in range(M):
+        x = hidden[m]
+        for layer in model.layers:
+            x = layer(x, cos, sin)
+        loss_m = head_loss(x, tokens[m]) / M
+        loss_m.backward()
+        want_loss += float(loss_m.detach())
+    want = {n: p.grad for n, p in model.named_parameters() if n.startswith("layers.")}
+    for p in model.parameters():
+        p.grad = None
+
+    def stage_grads(grads):  # stacked (S, ...) -> {layers.i.name: grad}
+        return {f"layers.{s * per + int(k.split('.', 1)[0])}.{k.split('.', 1)[1]}": g[s]
+                for k, g in grads.items() for s in range(S)}
+
+    def worst(grads, ref):
+        return max((rel_rms(g, ref[n]), n) for n, g in stage_grads(grads).items())
+
+    f1b = pp.make_pipeline_train_fn(stage, head_loss, mesh, schedule="1f1b")
+    gpipe = pp.make_pipeline_train_fn(stage, head_loss, mesh, schedule="gpipe")
+    (loss1, g1), s1, peak1 = pipeline_run(f1b, params, hidden[:M], tokens[:M])
+    w1 = worst(g1, want)
+    print(f"  1F1B M {M}: loss {float(loss1):.5f} vs {want_loss:.5f} unpipelined; largest "
+          f"rms(grad diff)/rms(grad) {w1[0]:.3e} ({w1[1]}); {s1 * 1e3:.1f} ms with warm-up")
+    check(abs(float(loss1) - want_loss) <= SHARDED_LOSS_TOL and w1[0] <= SHARDED_GRAD_RMS,
+          f"1F1B disagrees with the unpipelined blocks (|dloss| <= {SHARDED_LOSS_TOL}, rms "
+          f"ratio <= {SHARDED_GRAD_RMS})")
+    del want
+    (loss2, g2), s2, _ = pipeline_run(gpipe, params, hidden[:M], tokens[:M])
+    w2 = worst(g2, stage_grads(g1))
+    print(f"  GPipe M {M}: loss {float(loss2):.5f} vs 1F1B {float(loss1):.5f}; largest rms "
+          f"ratio against 1F1B {w2[0]:.3e} ({w2[1]}); {s2 * 1e3:.1f} ms")
+    check(abs(float(loss2) - float(loss1)) <= SHARDED_LOSS_TOL and w2[0] <= SHARDED_GRAD_RMS,
+          "GPipe disagrees with 1F1B")
+    del g1, g2
+    # the timed 1F1B step (after one that warms the emptied allocator), its
+    # launches counted; then each schedule's peak memory at M and at M2,
+    # from a fresh peak with nothing else held
+    torch.cuda.empty_cache()
+    pipeline_run(f1b, params, hidden[:M], tokens[:M])
+    fa.reset_launch_counts()
+    peak = {}
+    (loss_t, g_t), s_t, peak[("1f1b", M)] = pipeline_run(f1b, params, hidden[:M], tokens[:M])
+    launches, routes = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
+    del g_t
+    ticks = M + 2 * S - 2
+    print(f"  1F1B step, M {M}: {s_t * 1e3:.2f} ms, {M * L / s_t:.0f} tokens/s, peak memory "
+          f"{peak[('1f1b', M)] / 2 ** 30:.2f} GiB  [{card}]; {ticks} ticks, launches "
+          f"{launches} ({launches['flash_fwd'] / ticks:g} F, {launches['flash_dkdv'] / ticks:g} "
+          f"KV, {launches['flash_dq'] / ticks:g} Q a tick)")
+    check(math.isfinite(float(loss_t)), "non-finite 1F1B loss")
+    # F: the forward half and the recompute; KV, Q: the backward; each once
+    # a block of the stage a tick, for all S stages (the vmap fold)
+    want_l = {"flash_fwd": 2 * per * ticks, "flash_dkdv": per * ticks, "flash_dq": per * ticks}
+    check(launches == want_l, f"1F1B's launches should be {want_l}: {launches}")
+    check(routes == {**{k: 0 for k in fa.ROUTE_LAUNCHES},
+                     **{f"{k}:wgmma": n for k, n in want_l.items()}},
+          f"1F1B's flash launches should all take the wgmma route: {routes}")
+    print("[profile] one more 1F1B step under torch.profiler")
+    profile_step(lambda: f1b(params, hidden[:M], tokens[:M]), s_t * 1e3)
+    M2, secs = PIPE_MICRO_BIG, {}
+    G1, G2 = PIPE_GPIPE_MEM
+    for name, fn, ms in (("1f1b", f1b, (M2,)), ("gpipe", gpipe, PIPE_GPIPE_MEM)):
+        for m in ms:
+            torch.cuda.empty_cache()
+            _, secs[(name, m)], peak[(name, m)] = pipeline_run(fn, params, hidden[:m],
+                                                              tokens[:m])
+    gib = {k: v / 2 ** 30 for k, v in peak.items()}
+    print(f"  peak memory: 1F1B {gib[('1f1b', M)]:.2f} GiB at M {M}, {gib[('1f1b', M2)]:.2f} "
+          f"at M {M2} ({peak[('1f1b', M2)] / peak[('1f1b', M)] - 1:+.1%}); GPipe "
+          f"{gib[('gpipe', G1)]:.2f} at M {G1}, {gib[('gpipe', G2)]:.2f} at M {G2} "
+          f"({peak[('gpipe', G2)] / peak[('gpipe', G1)] - 1:+.1%}, "
+          f"{(gib[('gpipe', G2)] - gib[('gpipe', G1)]) / (G2 - G1):.2f} GiB a microbatch); "
+          f"steps: 1F1B {secs[('1f1b', M2)] * 1e3:.1f} ms at M {M2}, GPipe "
+          f"{secs[('gpipe', G1)] * 1e3:.1f} / {secs[('gpipe', G2)] * 1e3:.1f} ms at M {G1} / "
+          f"{G2}  [{card}]")
+    check(abs(peak[("1f1b", M2)] - peak[("1f1b", M)]) <= PIPE_MEM_FLAT * peak[("1f1b", M)],
+          f"1F1B's peak memory should be flat in M (within {PIPE_MEM_FLAT:.0%})")
+    check(peak[("gpipe", G2)] > peak[("gpipe", G1)] * (1 + PIPE_MEM_FLAT),
+          "GPipe's peak memory should grow with M")
+    torch.cuda.empty_cache()
+    # interleaved: 8 stages of 2 blocks over the 4 pp ranks, forward
+    V = PIPE_VIRTUAL
+    per_v = cfg.n_layers // (V * S)
+    with torch.no_grad():
+        x = hidden[:M].clone()
+        for layer in model.layers:
+            x = layer(x.flatten(0, 1), cos, sin).view_as(x)
+        fa.reset_launch_counts()
+        (got, s_i, peak_i) = pipeline_run(
+            pp.make_pipeline_fn(block_stage_fn(cfg, per_v, L), mesh, virtual_stages=V),
+            stacked_blocks(model, per_v), hidden[:M])
+        launches_i = dict(fa.LAUNCHES)
+    r = rel_rms(got, x)
+    print(f"  interleaved V {V} ({V * S} stages of {per_v} over pp {S}), M {M}: rms(diff)/rms "
+          f"{r:.3e} against the sequential forward; {s_i * 1e3:.1f} ms, {M + V * S - 1} "
+          f"ticks, F launches {launches_i['flash_fwd']}")
+    check(r <= SHARDED_GRAD_RMS and got.shape == x.shape,
+          "the interleaved pipeline disagrees with the sequential forward (rms ratio <= 3e-2)")
+    del model, params, hidden
+    torch.cuda.empty_cache()
+    return routes
+
+
+def dryrun_phase(card):
+    """(a) the reference's dry run card vs CPU, the vmap fold on the card;
+    (b) the ("dp", "fsdp", "tp") step at CFG_1B; (c) the pipeline at CFG_1B
+    width. Returns the flash routes of (b)'s profiled step and (c)'s timed
+    1F1B step, summed."""
+    print("  (a) the reference's dry run, card vs CPU:")
+    dryrun_check()
+    vmap_flash_check()
+    print(f"  (b) the mesh step over dp {DRYRUN_DIMS[0]} x fsdp {DRYRUN_DIMS[1]} x tp "
+          f"{DRYRUN_DIMS[2]} at CFG_1B:")
+    routes, _ = sharded_train(SLICE_ARGV, card, TIMED_STEPS, dims=DRYRUN_DIMS)
+    print("  (c) the pipeline at CFG_1B width:")
+    pipe_routes = pipeline_check(card)
+    return {k: routes[k] + pipe_routes[k] for k in routes}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2726,7 +3038,13 @@ def main():
     phase_launches["bert"] = bert_phase(card)
     print(f"  bert in {time.perf_counter() - t0:.1f} s")
 
-    # 16. report
+    # 16. the reference's multichip dry run: the 3-D mesh step, the pipeline
+    t0 = time.perf_counter()
+    print("[dryrun]")
+    phase_launches["dryrun"] = dryrun_phase(card)
+    print(f"  dryrun in {time.perf_counter() - t0:.1f} s")
+
+    # 17. report
     kernels = []
     for name, lowerings in REPLACES.items():
         for regime, replaces in lowerings.items():

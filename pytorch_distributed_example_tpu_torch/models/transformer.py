@@ -491,6 +491,12 @@ def _gathered(p, tp_dim: Optional[int], dtype, fsdp_axis: str, tp_axis: str, T: 
     if len(p.placements) == 1:  # a ("tp",) mesh: nothing to gather over fsdp
         pf, pt = Replicate(), p.placements[0]
         a = p._local.to(dtype).unsqueeze(0)
+    elif len(p.placements) == 3:  # ("dp", "fsdp", "tp"): one replica over dp
+        if not isinstance(p.placements[0], Replicate):
+            raise ValueError(f"a parameter placed {p.placements[0]} over dp; the data-parallel "
+                             "axis replicates")
+        pf, pt = p.placements[1:]
+        a = p._local.to(dtype).squeeze(0)  # (F or 1, T or 1, *local)
     else:
         pf, pt = p.placements
         a = p._local.to(dtype)  # (F or 1, T or 1, *local)
@@ -516,32 +522,37 @@ def _gathered(p, tp_dim: Optional[int], dtype, fsdp_axis: str, tp_axis: str, T: 
 
 def stacked_forward(cfg: TransformerConfig, params, tokens, mesh, fsdp_axis: str = "fsdp",
                     tp_axis: str = "tp"):
-    """The model over a (``fsdp``, ``tp``) mesh in driver mode: every rank's
-    work in one autograd graph on the mesh's device.
+    """The model over a (``fsdp``, ``tp``) mesh, or one with a leading
+    data axis (``dp``; `FSDPModule` decides that it is one), in driver
+    mode: every rank's work in one autograd graph on the mesh's device.
 
     `params` maps the port's parameter names to `DTensor`s (any layout;
-    `sharding_rules` is the reference's), `tokens` is (F, B, L): fsdp rank
-    f's rows of the global batch. Each layer gathers its weights over
-    ``fsdp`` (`_gathered`) and computes with the tp ranks as a leading
+    `sharding_rules` is the reference's; over dp they replicate, one copy
+    held, so the one graph sums their gradients over the dp ranks, as
+    GSPMD's all-reduce), `tokens` is (n, B, L): data rank d's rows of the
+    global batch, the n = dp * fsdp data ranks dp-major. Each layer
+    gathers its weights over ``fsdp`` (`_gathered`) and computes with the
+    tp ranks as a leading
     dim: column-parallel projections (q/k/v, gate/up, the LM head, the
     experts' up) give every tp rank the replicated activation (f), the
     row-parallel ones (o, down, the experts' down) sum the tp ranks'
     float32 partial products into one replica (g), by the seams of
-    `parallel/tensor_parallel.py` over `nn.functional`'s folds. The fsdp ranks fold into the rows of
-    every matmul, and into B*H of attention, so F, KV and Q launch once a
-    layer for all ranks. The MoE routes the global batch's tokens in
+    `parallel/tensor_parallel.py` over `nn.functional`'s folds. The data ranks (dp and fsdp) fold into
+    the rows of every matmul, and into B*H of attention, so F, KV and Q
+    launch once a layer for all ranks. The MoE routes the global batch's tokens in
     order (the reference's trainer routes them all under GSPMD), its
     experts' hidden dim split over ``tp``. Returns (logits (F, B, L, V)
     float32, the MoE layers' aux losses)."""
     from ..parallel import tensor_parallel as tp
     from ..parallel.expert_parallel import (_topk_routing, capacity_for, combine, dispatch)
 
-    if tuple(mesh.axis_names) != (fsdp_axis, tp_axis):
-        raise ValueError(f"stacked_forward wants a ({fsdp_axis!r}, {tp_axis!r}) mesh, got "
-                         f"{mesh.axis_names}")
-    if tokens.dim() != 3 or tokens.shape[0] != mesh.shape[0]:
-        raise ValueError(f"tokens {tuple(tokens.shape)} should be (fsdp ranks, batch, seq)")
-    T = mesh.shape[1]
+    names = tuple(mesh.axis_names)
+    if len(names) not in (2, 3) or names[-2:] != (fsdp_axis, tp_axis):
+        raise ValueError(f"stacked_forward wants a ([dp,] {fsdp_axis!r}, {tp_axis!r}) mesh, "
+                         f"got {mesh.axis_names}")
+    if tokens.dim() != 3 or tokens.shape[0] != math.prod(mesh.shape[:-1]):
+        raise ValueError(f"tokens {tuple(tokens.shape)} should be (data ranks, batch, seq)")
+    T = mesh.shape[-1]
     H, KV, Dh, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_model
     if H % T or KV % T:
         raise ValueError(f"{H} heads and {KV} kv heads must split over {T} tp ranks")

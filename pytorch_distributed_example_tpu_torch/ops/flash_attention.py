@@ -43,6 +43,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -411,30 +412,72 @@ def _bwd(q, k, v, o, lse, do, scale, causal, block_q, block_k, dlse=None):
 # ---------------------------------------------------------------------------
 
 
+def _unwrap_grad(t):
+    """`t` without the wrapper of the innermost `torch.func` grad
+    transform: under `vjp` the backward sees its tensors wrapped at the
+    transform's level, which hold no storage a kernel can read. A tensor
+    still wrapped after that is under a second grad transform, which
+    would differentiate the backward: it is first-order only, so that
+    raises."""
+    from torch._C._functorch import get_unwrapped, is_gradtrackingtensor
+
+    if t is not None and is_gradtrackingtensor(t):
+        t = get_unwrapped(t)
+        if is_gradtrackingtensor(t):
+            raise NotImplementedError("flash attention's backward is first-order: it does "
+                                      "not run under nested grad transforms")
+    return t
+
+
 class _FlashWithLse(torch.autograd.Function):
+    """(o, lse) of contiguous (BH, L, D) operands, in the `forward` +
+    `setup_context` form that `torch.func` transforms take: `vjp` and
+    `grad` run the backward below (on the unwrapped tensors: it is
+    first-order), and `vmap` folds its batched dim into B·H (the rows are
+    independent), so the kernels still launch once for every batched row,
+    and the result is the per-row loop's bit for bit."""
+
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, block_q, block_k):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = _fwd(q, k, v, scale, causal, block_q, block_k)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(q, k, v, scale, causal, block_q, block_k):
+        return _fwd(q, k, v, scale, causal, block_q, block_k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, scale, causal, block_q, block_k = inputs
+        ctx.save_for_backward(q, k, v, *output)
         ctx.args = (scale, causal, block_q, block_k)
         # an output with no consumer gets None, not a tensor of zeros
         ctx.set_materialize_grads(False)
-        return o, lse
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, do, dlse):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse = (_unwrap_grad(t) for t in ctx.saved_tensors)
+        do, dlse = _unwrap_grad(do), _unwrap_grad(dlse)
         scale, causal, block_q, block_k = ctx.args
         do = torch.zeros_like(o) if do is None else do.contiguous()
         dq, dk, dv = _bwd(q, k, v, o, lse, do, scale, causal, block_q,
                           block_k, dlse=dlse)
         return dq, dk, dv, None, None, None, None
 
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, scale, causal, block_q, block_k):
+        n = info.batch_size
+
+        def fold(x, d):  # (..., n at d, ...) -> (n * BH, L, D)
+            x = x.unsqueeze(0).expand(n, *x.shape) if d is None else x.movedim(d, 0)
+            return x.reshape(n * x.shape[1], *x.shape[2:]).contiguous()
+
+        q, k, v = (fold(x, d) for x, d in zip((q, k, v), in_dims[:3]))
+        o, lse = _FlashWithLse.apply(q, k, v, scale, causal, block_q, block_k)
+        return (o.unflatten(0, (n, -1)), lse.unflatten(0, (n, -1))), (0, 0)
+
 
 def flash_with_lse(q, k, v, scale, causal, block_q, block_k):
-    """(o, lse) over (BH, L, D), differentiable through both outputs."""
-    return _FlashWithLse.apply(q, k, v, scale, causal, block_q, block_k)
+    """(o, lse) over (BH, L, D), differentiable through both outputs, and
+    through `torch.func`'s `vjp`, `grad` and `vmap`."""
+    return _FlashWithLse.apply(q.contiguous(), k.contiguous(), v.contiguous(), scale, causal,
+                               block_q, block_k)
 
 
 def _to_bh(x):

@@ -3,8 +3,8 @@ sharding, its Reducer and comm hooks: compression, block-quantized and
 PowerSGD) over the c10d core, in driver and
 multiproc mode; and, in driver mode (the ranks' shards stacked on one
 device), context parallelism (ring attention and Ulysses), sharding rules,
-FSDP (ZeRO-3) with ZeRO-2 and ZeRO-1, tensor parallelism and expert
-parallelism."""
+FSDP (ZeRO-3) with ZeRO-2 and ZeRO-1, tensor parallelism, expert
+parallelism and pipeline parallelism (GPipe, 1F1B, interleaved)."""
 
 from . import comm_hooks  # noqa: F401
 from .comm_hooks import (  # noqa: F401
@@ -44,3 +44,13 @@ from .tensor_parallel import (  # noqa: F401
     vocab_parallel_cross_entropy,
 )
 from .expert_parallel import make_ep_moe, moe_mlp  # noqa: F401
+from .pipeline import (  # noqa: F401
+    make_pipeline_fn,
+    make_pipeline_train_fn,
+    merge_microbatches,
+    pipeline_apply,
+    pipeline_apply_interleaved,
+    pipeline_train_1f1b,
+    split_microbatches,
+    stack_stage_params,
+)

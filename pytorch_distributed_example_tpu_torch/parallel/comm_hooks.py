@@ -226,7 +226,7 @@ class BlockwiseQuantHook:
     phase-1 residual ``(g + e) - dequant(quant(g + e))`` per rank and adds
     it back next step. Stateful: `make_ddp_train_step` carries its state.
     `as_stateless()` is the form without the carry (the ZeRO-2 step's
-    `comm_hook`, still to port)."""
+    `comm_hook`)."""
 
     per_leaf = True
 

@@ -8,7 +8,7 @@ the ring does not go through it yet: it runs the ranks in driver mode
 only, the W ranks' shards one rank-stacked tensor (W, B, L/W, H, D) on one
 device, the layout of the reference's own driver mode, until its
 multiproc mode routes the shift through the core's isend/irecv (ROADMAP,
-Queue 1 item 2). So:
+Queue 1 item 3c). So:
 
 * the ring shift i -> i+1 is `torch.roll(x, 1, dims=0)`, and a rank's
   `axis_index` is its index along dim 0;
@@ -20,9 +20,9 @@ Queue 1 item 2). So:
   ranks fold into B*H, so each ring step is one launch of each kernel;
 * Ulysses' all_to_all is a reshape and permute of the stacked dims.
 
-`make_cp_attention(world, ...)` takes and returns global (B, L, H, D)
-tensors; a bare world size stands in for the reference's mesh until that
-multiproc mode takes a process group or a `DeviceMesh` of the core.
+`make_cp_attention(mesh, axis_name, ...)` takes and returns global (B, L,
+H, D) tensors, the sequence split over the W ranks of the driver-mode
+mesh's `axis_name`; a bare world size W stands in for the mesh as well.
 """
 
 from __future__ import annotations
@@ -278,15 +278,16 @@ def ulysses_attention(q, k, v, attn_fn: Optional[Callable] = None, causal: bool 
 # ---------------------------------------------------------------------------
 
 
-def make_cp_attention(world: int, mode: str = "ring", causal: bool = True,
+def make_cp_attention(mesh, axis_name: str = "sp", mode: str = "ring", causal: bool = True,
                       attn_fn: Optional[Callable] = None) -> Callable:
-    """Ring or Ulysses attention over `world` sequence shards, as a
-    callable on global (B, L, H, D) tensors that returns the global output.
+    """Ring or Ulysses attention over the W ranks of `mesh`'s `axis_name`
+    (a driver-mode `DeviceMesh`; an int is W itself), as a callable on
+    global (B, L, H, D) tensors that returns the global output.
 
-    The reference takes a mesh and an axis name and shards L over it with
-    `shard_map`; here `world` stands in for the mesh until the port's c10d
-    core brings one, and the shards are stacked on one device (driver
-    mode). L must divide by `world`. `mode` is "ring" or "ulysses"."""
+    The reference shards L over the mesh axis with `shard_map`; here the
+    W shards are stacked on one device (driver mode). L must divide by W.
+    `mode` is "ring" or "ulysses"."""
+    world = mesh if isinstance(mesh, int) else mesh.axis_size(axis_name)
     if mode == "ring":
         local = functools.partial(ring_attention, causal=causal)
     elif mode == "ulysses":

@@ -15,16 +15,23 @@ reduce_scatter, and the optimizer (torch's, elementwise, so a stacked
 AdamW equals a per-rank one) steps the shards where they lie.
 
 A module that can run over the mesh itself (`TransformerLM.
-sharded_forward`: the reference's 2-D Megatron + ZeRO layout) does so;
-any other module runs on the gathered parameters (`DTensor.full_tensor`,
-differentiable) over the global batch.
+sharded_forward`: the reference's Megatron + ZeRO layout over ("fsdp",
+"tp") or ("dp", "fsdp", "tp")) does so; any other module runs on the
+gathered parameters (`DTensor.full_tensor`, differentiable) over the
+global batch.
 
 ZeRO stages: `make_fsdp_train_step` (params, grads and optimizer state
 sharded; ZeRO-3), `make_zero2_train_step` (params replicated, gradients
-reduce-scattered, optimizer state sharded), `shard_optimizer_only`
-(ZeRO-1: the optimizer state's layout). Not ported: `comm_hook` (the
-compression and planner hooks, ROADMAP Queue 1 item 2) and dropout in
-these steps (`has_rng=True`): both raise NotImplementedError.
+reduce-scattered, optimizer state sharded; a stateless `comm_hook`
+reduces them in its place), `shard_optimizer_only` (ZeRO-1: the
+optimizer state's layout).
+
+Dropout (`has_rng=True`) takes the DDP step's form (`parallel/ddp.py`):
+`rng_fn(generator, batch)` draws one data rank's random inputs (its
+masks) from the `torch.Generator` the step takes as its fifth argument,
+rank after rank, so each data rank gets its own draws, where the
+reference folds its key with the axis index; the masks go into the
+forward as inputs.
 """
 
 from __future__ import annotations
@@ -34,14 +41,17 @@ from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import torch
 from torch.func import functional_call
+from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from ..dtensor import DTensor, Replicate, Shard, distribute_tensor, spec_to_placements
 from ..mesh import DeviceMesh
 from ..nn import functional as nnf
+from ..tensor import DistTensor
 from ..types import ReduceOp
 from ..utils import memstats
 from . import sharding as shd
+from .ddp import _stack_trees
 
 
 def _as_parameters(params: Mapping[str, DTensor]) -> Dict[str, DTensor]:
@@ -70,14 +80,26 @@ def _split(x, n: int):
 
 
 def gathered_apply(module: torch.nn.Module):
-    """apply(params, xs): `module` on its gathered parameters, over the
-    data ranks' rows xs (n, b, ...) -> (n, b, ...)."""
-    def apply(params, xs):
+    """apply(params, xs[, masks]): `module` on its gathered parameters,
+    over the data ranks' rows xs (n, b, ...) -> (n, b, ...); `masks` (n,
+    b, ...), the ranks' random inputs, go in as the module's second
+    argument."""
+    def apply(params, xs, *masks):
         full = {k: v.full_tensor() if isinstance(v, DTensor) else v for k, v in params.items()}
-        out = functional_call(module, full, (xs.flatten(0, 1),))
+        args = (xs, *masks)
+        out = functional_call(module, full, tuple(a.flatten(0, 1) for a in args))
         return out.unflatten(0, xs.shape[:2])
 
     return apply
+
+
+def _draw_masks(rng_fn, generator, n: int, batch: int):
+    """Each of the n data ranks' random inputs for a local batch of
+    `batch`, drawn rank after rank from `generator`, stacked (n, ...)."""
+    if not isinstance(generator, torch.Generator):
+        raise TypeError(f"has_rng=True: the step's fifth argument is a torch.Generator, got "
+                        f"{type(generator).__name__}")
+    return _stack_trees([rng_fn(generator, batch) for _ in range(n)])
 
 
 class FSDPModule:
@@ -98,12 +120,12 @@ class FSDPModule:
         self.axis = axis
         self.param_specs = specs
         self.data_axes = tuple(data_axes)
-        other = [a for a in mesh.axis_names if a != axis]
-        stacked = (hasattr(module, "sharded_forward") and len(mesh.shape) == 2
-                   and mesh.axis_names[0] == axis and self.data_axes == (axis,))
+        names = tuple(mesh.axis_names)
+        data = tuple(a for a in ("dp", axis) if a in names)
+        stacked = (hasattr(module, "sharded_forward") and len(names) in (2, 3)
+                   and names[:-1] == data and self.data_axes == data)
         if stacked:
-            tp = other[0]
-            self.apply = lambda p, xs: module.sharded_forward(p, xs, mesh, axis, tp)
+            self.apply = lambda p, xs: module.sharded_forward(p, xs, mesh, axis, names[-1])
         else:
             self.apply = gathered_apply(module)
 
@@ -113,11 +135,12 @@ class FSDPModule:
         return out.flatten(0, 1)
 
     def make_train_step(self, optimizer, loss_fn: Callable, has_rng: bool = False,
-                        remat: bool = False, donate: bool = True,
-                        shard_weight_update: str = "auto"):
+                        rng_fn: Optional[Callable] = None, remat: bool = False,
+                        donate: bool = True, shard_weight_update: str = "auto"):
         return make_fsdp_train_step(self.apply, loss_fn, optimizer, self.mesh, self.param_specs,
-                                    data_axes=self.data_axes, has_rng=has_rng, remat=remat,
-                                    donate=donate, shard_weight_update=shard_weight_update)
+                                    data_axes=self.data_axes, has_rng=has_rng, rng_fn=rng_fn,
+                                    remat=remat, donate=donate,
+                                    shard_weight_update=shard_weight_update)
 
     def gather_params(self) -> Dict[str, torch.Tensor]:
         """Full (unsharded) params on the host: the rank-0 checkpoint's."""
@@ -147,13 +170,9 @@ def _check_swu(shard_weight_update: str) -> bool:
     return shard_weight_update != "off"
 
 
-def _refuse(has_rng: bool, comm_hook=None) -> None:
-    if has_rng:
-        raise NotImplementedError("dropout in the sharded train steps (has_rng=True) is not "
-                                  "ported yet: ROADMAP.md, Queue 1, 'Sharded training'")
-    if comm_hook is not None:
-        raise NotImplementedError("comm_hook on the ZeRO-2 step is not ported yet: ROADMAP.md, "
-                                  "Queue 1, 'Sharded training'")
+def _check_rng(has_rng: bool, rng_fn) -> None:
+    if has_rng and rng_fn is None:
+        raise ValueError("has_rng=True needs rng_fn(generator, batch) for the random inputs")
 
 
 def _mean_loss(loss_fn, out, ys):
@@ -185,7 +204,8 @@ class ReplicatedUpdate:
 
 def make_fsdp_train_step(apply_fn: Callable, loss_fn: Callable, optimizer, mesh: DeviceMesh,
                          param_specs, data_axes: Sequence[str] = ("dp", "fsdp"),
-                         has_rng: bool = False, remat: bool = False, donate: bool = True,
+                         has_rng: bool = False, rng_fn: Optional[Callable] = None,
+                         remat: bool = False, donate: bool = True,
                          shard_weight_update: str = "auto"):
     """The FSDP (ZeRO-3) train step: the batch split over the data axes,
     params sharded per ``param_specs``.
@@ -199,17 +219,22 @@ def make_fsdp_train_step(apply_fn: Callable, loss_fn: Callable, optimizer, mesh:
     steps the shards where they lie (its state mirrors the param layout);
     "off" keeps a replicated copy of params and state (the
     world-x-redundant baseline). ``donate`` is accepted (the update is in
-    place)."""
-    _refuse(has_rng)
+    place). With `has_rng` the step is `step(params, opt_state, x, y,
+    generator)` and the forward `apply_fn(params, xs, masks)`, the data
+    ranks' masks (n, ...) drawn by `rng_fn` (the module docstring)."""
+    _check_rng(has_rng, rng_fn)
     sharded_update = _check_swu(shard_weight_update)
     _, n = _data_ranks(mesh, data_axes)
 
-    def step(params, opt_state, x, y):
+    def step(params, opt_state, x, y, *generator):
+        if len(generator) != has_rng:
+            raise TypeError("the step takes a torch.Generator fifth exactly when has_rng=True")
         xs, ys = _split(x, n), _split(y, n)
+        masks = (_draw_masks(rng_fn, generator[0], n, xs.shape[1]),) if has_rng else ()
         for dt in params.values():
             dt._local.grad = None
-        out = checkpoint(apply_fn, params, xs, use_reentrant=False) if remat else apply_fn(
-            params, xs)
+        out = checkpoint(apply_fn, params, xs, *masks, use_reentrant=False) if remat else \
+            apply_fn(params, xs, *masks)
         loss = _mean_loss(loss_fn, out, ys)
         loss.backward()
         if isinstance(opt_state, ReplicatedUpdate):
@@ -266,55 +291,134 @@ def _full(p):
     return p
 
 
+def _axis_group(mesh: DeviceMesh, axis: str):
+    """A driver-mode process group of the c10d core over the ranks of
+    `axis`, on the mesh's device: what a comm hook reduces over."""
+    from ..backends.stacked import StackedBackend
+    from ..distributed import ProcessGroup
+
+    W = mesh.axis_size(axis)
+    flat = DeviceMesh([mesh.device] * W, (W,), (axis,))
+    return ProcessGroup(flat, list(range(W)), "xla", StackedBackend(flat, 0, W), None,
+                        f"zero2_{axis}", 1800.0)
+
+
+def _hook_reduce(hook, grads, group):
+    """A stateless comm hook's mean of the ranks' gradients {name: (W,
+    *shape)}: a per-leaf hook takes the leaves in order, a flat one their
+    (W, N) concatenation."""
+    names = list(grads)
+    if getattr(hook, "per_leaf", False):
+        out = hook([DistTensor.wrap(grads[k], group) for k in names], group)
+        return {k: o.tensor for k, o in zip(names, out)}
+    W = next(iter(grads.values())).shape[0]
+    flat = hook(DistTensor.wrap(torch.cat([grads[k].reshape(W, -1) for k in names], 1), group),
+                group).tensor
+    out, off = {}, 0
+    for k in names:
+        size = grads[k][0].numel()
+        out[k] = flat[:, off:off + size].reshape(grads[k].shape)
+        off += size
+    return out
+
+
 def make_zero2_train_step(apply_fn: Callable, loss_fn: Callable, optimizer, mesh: DeviceMesh,
                           axis: str = "fsdp", data_axes: Sequence[str] = ("dp", "fsdp"),
-                          has_rng: bool = False, remat: bool = False, donate: bool = True,
+                          has_rng: bool = False, rng_fn: Optional[Callable] = None,
+                          remat: bool = False, donate: bool = True,
                           comm_hook: Optional[Callable] = None,
                           shard_weight_update: str = "auto"):
     """ZeRO-2: params REPLICATED, gradients and optimizer state SHARDED.
 
     ``apply_fn(params, x)`` is one rank's forward on its rows (params a
-    mapping of name -> full tensor, e.g. through `functional_call`).
-    Each data rank's gradient comes from its own rows; they meet in an
-    AVG reduce_scatter over ``axis`` (dim 0 of each leaf it divides; the
+    mapping of name -> full tensor, e.g. through `functional_call`). The
+    batch splits over the data axes present in the mesh (dp-major). Each
+    data rank's gradient comes from its own rows; they are AVG-reduced
+    over the data axes other than ``axis`` (dp) and meet in an AVG
+    reduce_scatter over ``axis`` (dim 0 of each leaf it divides; the
     others all-reduce), the optimizer steps the 1/W shards, and one
-    all_gather of the updated shards refreshes the replicated params. The
-    per-step collectives equal DDP's all-reduce, the optimizer's work and
-    state are 1/W a rank. "off" all-reduces the gradients and updates the
-    replica. The single data axis must be ``axis``."""
-    _refuse(has_rng, comm_hook)
+    all_gather over ``axis`` of the updated shards refreshes the
+    replicated params. The per-step collectives equal DDP's all-reduce,
+    the optimizer's work and state are 1/W a rank. "off" all-reduces the
+    gradients and updates the replica. ``axis`` must be a data axis.
+
+    `comm_hook` replaces the gradient reduction with a STATELESS hook of
+    `comm_hooks.py` (e.g. `blockwise_quant_hook(error_feedback=False)`)
+    over the one data axis: it reduces the ranks' gradients over a
+    driver-mode group of that axis, and each rank keeps its shard of the
+    result; the update all-gather stays full precision. A stateful hook
+    raises NotImplementedError (this step carries no hook state), more
+    than one data axis ValueError, as in the reference. With `has_rng` the
+    step takes a `torch.Generator` fifth and the forward is
+    `apply_fn(params, x, masks)` (the module docstring)."""
+    _check_rng(has_rng, rng_fn)
     sharded_update = _check_swu(shard_weight_update)
     present, n = _data_ranks(mesh, data_axes)
-    if present != (axis,):
-        raise NotImplementedError(f"ZeRO-2 over data axes {present}: the port shards over the "
-                                  f"one data axis {axis!r}")
+    if axis not in present:
+        raise ValueError(f"ZeRO-2 shards over {axis!r}, which is not one of the data axes "
+                         f"{present} in the mesh")
+    group = None
+    if comm_hook is not None:
+        if hasattr(comm_hook, "init") and hasattr(comm_hook, "apply"):
+            raise NotImplementedError(
+                "stateful comm hooks (error feedback / PowerSGD) carry a state the ZeRO-2 "
+                "step's (params, opt_state, x, y) signature cannot: pass a stateless hook "
+                "(e.g. blockwise_quant_hook(error_feedback=False)) or use make_ddp_train_step")
+        if len(present) != 1:
+            raise ValueError(f"comm_hook needs exactly one data axis in the mesh; data_axes "
+                             f"{tuple(data_axes)} resolve to {list(present)} on mesh axes "
+                             f"{tuple(mesh.axis_names)}")
+        group = _axis_group(mesh, axis)
+    W = mesh.axis_size(axis)
+    sizes = [mesh.axis_size(a) for a in present]
+    others = [a for a in present if a != axis]
 
-    def step(params, opt_state, x, y):
+    def reduced(g, sharded: bool):
+        """(n, *shape) data ranks' gradients -> each rank's shard of their
+        mean (W, *shard), or the mean (1, *shape) of a leaf kept whole."""
+        g = g.reshape(*sizes, *g.shape[1:])
+        axes = list(present)
+        for a in others:  # AVG over dp: one replica left
+            g = nnf.all_reduce(g, ReduceOp.AVG, a, axes=tuple(axes), replica=True)
+            axes.remove(a)
+        if sharded:  # reduce_scatter(AVG) over the axis
+            return nnf.reduce_scatter(g, axis, 0) / W
+        return nnf.all_reduce(g, ReduceOp.AVG, axis, replica=True).unsqueeze(0)
+
+    def step(params, opt_state, x, y, *generator):
+        if len(generator) != has_rng:
+            raise TypeError("the step takes a torch.Generator fifth exactly when has_rng=True")
         xs, ys = _split(x, n), _split(y, n)
+        masks = _draw_masks(rng_fn, generator[0], n, xs.shape[1]) if has_rng else None
         full = {k: _full(v) for k, v in params.items()}
         names = list(opt_state.shards)
-        fwd = (lambda p, xx: checkpoint(apply_fn, p, xx, use_reentrant=False)) if remat \
-            else apply_fn
+        fwd = (lambda *a: checkpoint(apply_fn, *a, use_reentrant=False)) if remat else apply_fn
         losses, grads = [], []
         for d in range(n):  # each data rank's own gradient
             leaves = {k: v.detach().requires_grad_(k in opt_state.shards)
                       for k, v in full.items()}
-            loss = loss_fn(fwd(leaves, xs[d]), ys[d])
+            rank_masks = (pytree.tree_map(lambda m: m[d], masks),) if has_rng else ()
+            loss = loss_fn(fwd(leaves, xs[d], *rank_masks), ys[d])
             grads.append(torch.autograd.grad(loss, [leaves[k] for k in names]))
             losses.append(loss.detach())
         with torch.no_grad():
-            for i, k in enumerate(names):
-                g = torch.stack([gd[i] for gd in grads])  # (n, *shape)
+            stacked = {k: torch.stack([gd[i] for gd in grads]) for i, k in enumerate(names)}
+            if comm_hook is not None:
+                means = _hook_reduce(comm_hook, stacked, group)  # (W, *shape), each the mean
+            for k in names:
                 shard = opt_state.shards[k]
-                if shard.shape[0] == n and n > 1:  # reduce_scatter(AVG) over the axis
-                    shard.grad = nnf.reduce_scatter(g, axis, 0) / n
+                sharded = shard.shape[0] == W and W > 1
+                if comm_hook is None:
+                    shard.grad = reduced(stacked[k], sharded)
+                elif sharded:  # each rank keeps its own shard of the mean
+                    shard.grad = torch.stack([means[k][r].chunk(W, 0)[r] for r in range(W)])
                 else:
-                    shard.grad = nnf.all_reduce(g, ReduceOp.AVG, axis, replica=True).unsqueeze(0)
+                    shard.grad = means[k][:1]
         opt_state.optimizer.step()
         with torch.no_grad():
             for k, shard in opt_state.shards.items():
-                new = (nnf.all_gather(shard, axis, 0, replica=True) if shard.shape[0] == n
-                       and n > 1 else shard[0])
+                new = (nnf.all_gather(shard, axis, 0, replica=True) if shard.shape[0] == W
+                       and W > 1 else shard[0])
                 target = params[k]
                 if isinstance(target, DTensor):
                     target = target._local.view(target.local_shape)

@@ -25,6 +25,7 @@ from jax.sharding import PartitionSpec as P
 from pytorch_distributed_example_tpu._compat import shard_map_fn
 from pytorch_distributed_example_tpu.mesh import init_device_mesh
 from pytorch_distributed_example_tpu.parallel import context_parallel as jcp
+from pytorch_distributed_example_tpu_torch.mesh import DeviceMesh
 from pytorch_distributed_example_tpu_torch.ops import dense_attention
 from pytorch_distributed_example_tpu_torch.parallel import context_parallel as tcp
 
@@ -203,3 +204,22 @@ def test_make_cp_attention_takes_and_returns_global_tensors(causal):
         tcp.make_cp_attention(W, mode="star")
     with pytest.raises(ValueError, match="does not split"):
         tcp.make_cp_attention(3)(*ts)
+
+
+@pytest.mark.parametrize("mode", ["ring", "ulysses"])
+def test_make_cp_attention_takes_a_mesh_and_axis_name(mode):
+    """The reference's form, `make_cp_attention(mesh, axis_name=...)`: W is
+    the size of the driver-mode mesh's axis, and the result is the int
+    form's bit for bit and the reference's on its ("sp", 4) mesh."""
+    q, k, v = _inputs(5, 3, shape=(2, L, W, D))
+    jmesh = init_device_mesh(("sp",), (W,), devices=jax.devices()[:W])
+    jo = jcp.make_cp_attention(jmesh, axis_name="sp", mode=mode, causal=True)(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    ts = [torch.tensor(x) for x in (q, k, v)]
+    tmesh = DeviceMesh(["cpu"] * 8, (2, W), ("dp", "sp"))
+    o = tcp.make_cp_attention(tmesh, axis_name="sp", mode=mode, causal=True)(*ts)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **FWD_TOL)
+    torch.testing.assert_close(o, tcp.make_cp_attention(W, mode=mode, causal=True)(*ts),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        tcp.make_cp_attention(tmesh, axis_name="cp")

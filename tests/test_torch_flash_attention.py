@@ -292,3 +292,104 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
+
+
+# -- under torch.func: vmap folds into B*H, vjp is autograd's -----------------
+
+
+def _vmapped_inputs(V=3):
+    return [torch.tensor(x) for x in _inputs(7, 3, (V, 2, L, 2, D))]  # (V, B, L, H, D)
+
+
+def _flash(q, k, v):
+    return tfa.flash_attention(q, k, v, causal=True, block_q=BQ, block_k=BK)
+
+
+@pytest.mark.parametrize("in_dims", [(0, 0, 0), (0, None, None)], ids=["all", "q-only"])
+def test_vmap_of_flash_is_bitwise_the_loop(in_dims):
+    """`torch.func.vmap` folds the vmapped dim into B*H: one call of the
+    kernel's plain version for every row, bit for bit the per-row loop,
+    lse included, and nested vmaps fold the same way."""
+    q, k, v = _vmapped_inputs()
+    args = [x if d == 0 else x[0] for x, d in zip((q, k, v), in_dims)]
+    got = torch.func.vmap(_flash, in_dims=in_dims)(*args)
+    want = torch.stack([_flash(*(a[i] if d == 0 else a for a, d in zip(args, in_dims)))
+                        for i in range(q.shape[0])])
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    bh = [tfa._to_bh(x[0]) for x in (q, k, v)]
+    o, lse = torch.func.vmap(lambda a: tfa.flash_with_lse(a, *bh[1:], SCALE, True, BQ, BK))(
+        torch.stack([bh[0], bh[0]]))
+    wo, wlse = tfa.flash_with_lse(*bh, SCALE, True, BQ, BK)
+    torch.testing.assert_close(lse, torch.stack([wlse, wlse]), rtol=0, atol=0)
+    torch.testing.assert_close(o[1], wo, rtol=0, atol=0)
+    expand = lambda x: x.unsqueeze(1).expand(-1, 2, *x.shape[1:])  # noqa: E731
+    nested = torch.func.vmap(torch.func.vmap(_flash))(*(expand(x) for x in (q, k, v)))
+    loop = torch.stack([_flash(q[i], k[i], v[i]) for i in range(q.shape[0])])
+    for j in range(2):
+        torch.testing.assert_close(nested[:, j], loop, rtol=0, atol=0)
+
+
+def test_vmap_of_flash_launches_once_per_call(monkeypatch):
+    calls = []
+    real = tfa._fwd
+
+    def spy(q, *a, **kw):
+        calls.append(tuple(q.shape))
+        return real(q, *a, **kw)
+
+    monkeypatch.setattr(tfa, "_fwd", spy)
+    q, k, v = _vmapped_inputs(V=3)
+    torch.func.vmap(_flash)(q, k, v)
+    assert calls == [(3 * 2 * 2, L, D)]  # V * B * H rows, one call
+
+
+def test_torch_func_vjp_gives_autograds_gradients():
+    """`torch.func.vjp` of flash, alone and of its vmap (the 1F1B
+    recompute's composition), against autograd's backward, bitwise."""
+    q, k, v = _vmapped_inputs()
+    do = torch.tensor(_inputs(8, 1, tuple(q.shape))[0])
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    torch.stack([_flash(*(a[i] for a in leaves)) for i in range(q.shape[0])]).backward(do)
+    want = [x.grad for x in leaves]
+    _, fn = torch.func.vjp(torch.func.vmap(_flash), q, k, v)
+    for g, w in zip(fn(do), want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    _, fn = torch.func.vjp(_flash, q[1], k[1], v[1])
+    for g, w in zip(fn(do[1]), want):
+        torch.testing.assert_close(g, w[1], rtol=0, atol=0)
+
+
+def test_backward_under_vjp_sees_plain_tensors(monkeypatch):
+    """The kernels read raw storage, which `torch.func`'s grad wrappers do
+    not have: under `vjp` (and `vjp` of `vmap`) the backward hands the
+    kernels' entry points unwrapped tensors, as the card needs."""
+    from torch._C._functorch import is_functorch_wrapped_tensor
+
+    seen = []
+    real = tfa._dkdv_call
+
+    def spy(*args):
+        seen.extend(is_functorch_wrapped_tensor(a) for a in args if isinstance(a, torch.Tensor))
+        return real(*args)
+
+    monkeypatch.setattr(tfa, "_dkdv_call", spy)
+    q, k, v = _vmapped_inputs()
+    for fn, args in ((_flash, (q[0], k[0], v[0])), (torch.func.vmap(_flash), (q, k, v))):
+        out, pull = torch.func.vjp(fn, *args)
+        pull(torch.ones_like(out))
+    assert seen and not any(seen)
+
+
+def test_second_derivative_through_flash_raises():
+    """The backward is first-order: a second derivative through flash, by
+    nested grad transforms or by autograd's double backward, raises
+    instead of dropping the outer level's gradient."""
+    q, k, v = (x[0] for x in _vmapped_inputs())
+    loss = lambda q: (_flash(q, k, v) ** 2).sum()  # noqa: E731
+    torch.func.grad(loss)(q)  # first order runs
+    with pytest.raises(NotImplementedError, match="first-order"):
+        torch.func.grad(lambda q: torch.func.grad(loss)(q).sum())(q)
+    leaf = q.clone().requires_grad_()
+    (g,) = torch.autograd.grad(loss(leaf), leaf, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        g.sum().backward()

@@ -63,9 +63,9 @@ def test_port_imports_nothing_of_jax():
     assert word == "clean", out.stdout
     # ops, models, examples, parallel, the c10d core, data, DDP, sharded
     # training, generation, serving on one card and across ranks and
-    # pools, the planner's schedules, the ResNet and BERT workloads, and
-    # their modules
-    assert int(count) >= 82
+    # pools, the planner's schedules, the ResNet and BERT workloads, the
+    # pipeline and the dry run, and their modules
+    assert int(count) >= 84
     for name in ("ops.flash_attention", "parallel", "parallel.context_parallel",
                  "distributed", "store", "backends.stacked", "backends.process",
                  "examples.toy", "data.sampler", "data.loader", "models.convnet",
@@ -78,7 +78,7 @@ def test_port_imports_nothing_of_jax():
                  "plan", "plan.topology", "plan.schedules", "plan.transfer", "serve.router",
                  "serve.autoscale", "serve.elastic", "serve.disagg", "serve.disagg.migrate",
                  "serve.disagg.router", "optim", "utils.remat", "models.resnet", "models.bert",
-                 "examples.cifar", "parallel.comm_hooks"):
+                 "examples.cifar", "parallel.comm_hooks", "parallel.pipeline", "dryrun"):
         assert f"pytorch_distributed_example_tpu_torch.{name}" in modules.split(), name
 
 
