@@ -189,10 +189,55 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    GPipe's at M 4 and 8 growing by more than 10%, and the interleaved
    schedule (V 2: 8 stages of 2 blocks over pp 4) against the sequential
    forward (rms ratio <= 3e-2).
-17. report: one JSON line of kernels (each Hopper kernel once per Pallas
+17. ckpt: checkpoints, after `[dryrun]`. CFG_1B's single-card trainer
+   (`examples/lm.py` at the slice's argv, f32 params, AdamW): 2 steps,
+   `save_checkpoint` (~11.29 GB: seconds and GB/s of the device->host
+   copy, the npz write and the CRC + fsync, beside the free disk), step 3;
+   a model and optimizer from another seed, `load_checkpoint` (CRC
+   verify, npz read, host->device), and step 3 again: the loaded state
+   bitwise the saved one on the card, step 3's loss and params bitwise
+   the uninterrupted run's. Then CFG_1B over fsdp 2 x tp 2 after one
+   step: `dcp_save` (each rank's shard its own DCP entry), `dcp_load`
+   into the same layout and one step from that state against the live
+   one, 4 -> 1 into `resharded_template`'s single-card layout (bitwise
+   `redistribute_tree`'s global values; the load's peak host and device
+   memory), all bitwise; `dcp_async_save` of the single-card state
+   (foreground and durable seconds, a step taken while the write lands)
+   and 1 -> 4 from it back, bitwise. The F, KV and
+   Q launches of the phase's train steps are counted. Last, a byte
+   flipped in `arrays.npz` and one in a DCP step's `.metadata` on card
+   tensors: caught, quarantined, fallen back. Checkpoints go to
+   `.ckpt_smoke/` in the checkout and are deleted after their checks.
+18. train_utils: AMP, BERT-base at world 8 x 16 x 128 (adamw(2e-5),
+   dropout off) under `get_policy("fp16")` with the GradScaler's
+   cross-rank verdict and `clip_grad_norm_(1.0)`: 3 steps, each held
+   against plain float32 torch on the same params (the loss within 1e-2,
+   the all-reduced mean gradient unscaled and clipped within 5e-2 by
+   relative norm, the verdict equal to isfinite over every rank's
+   gradients); the float32 run against the port's DDP step with the same
+   clip and adamw (|dloss| 1e-5); then an inf in one rank's gradients
+   skips the step everywhere (params and adamw state bitwise, the scale
+   halved), ms a step; `PostLocalSGDOptimizer` on the DDP-MNIST ConvNet
+   at world 8 (period 4, warmup 2, 16 steps): replicas bitwise equal
+   right after each averaging only; float32 card vs CPU within 1e-5
+   over the warm-up steps and then within twice the CPU's own distance
+   from a float64 run (+1e-6); float64 card vs CPU within 1e-12 at every
+   step, which a planted fault (one replica left out of each average)
+   must break; samples/s beside the DDP step's; Join (rank r with 12 - r
+   batches, the weighted loss) card vs CPU within rtol 2e-4; the eager
+   `Reducer` with `BlockwiseQuantHook(bits=8).for_reducer` over
+   BERT-base's rank-stacked gradients at world 8: buckets and ms a pass
+   beside the stock pass, and a `comm.quantize` fault at bucket 1 with a
+   whole-pass retry bitwise the fault-free pass. No flash kernel may
+   launch.
+19. report: one JSON line of kernels (each Hopper kernel once per Pallas
    lowering it replaces, with its design, "wgmma" or "simt", and its
-   launches per phase, `serve_fleet`, `cifar`, `bert` and `dryrun` among
-   them), the card's name and power limit, then the `ok` line.
+   launches per phase, `serve_fleet`, `cifar`, `bert`, `dryrun`, `ckpt`
+   and `train_utils` among them), the card's name and power limit, then
+   the `ok` line.
+
+Every float32 card-vs-CPU check computes its CPU side under
+`utils/cpu_reference.py`'s `cpu_reference()`.
 """
 
 import contextlib
@@ -201,7 +246,10 @@ import importlib
 import io
 import json
 import math
+import os
 import re
+import resource
+import shutil
 import socket
 import subprocess
 import sys
@@ -212,6 +260,8 @@ import torch
 
 import pytorch_distributed_example_tpu_torch as tdx
 from pytorch_distributed_example_tpu_torch import bench, dryrun, optim
+from pytorch_distributed_example_tpu_torch import checkpoint_sharded as cs
+from pytorch_distributed_example_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from pytorch_distributed_example_tpu_torch.data import DataLoader, DistributedSampler, SyntheticMNIST
 from pytorch_distributed_example_tpu_torch.examples import cifar, lm, mnist, toy
 from pytorch_distributed_example_tpu_torch.models import (
@@ -227,11 +277,13 @@ from pytorch_distributed_example_tpu_torch.models.transformer import Block, rope
 from pytorch_distributed_example_tpu_torch.ops import _build, dense_attention, quant
 from pytorch_distributed_example_tpu_torch.parallel import comm_hooks, fully_shard
 from pytorch_distributed_example_tpu_torch.parallel import pipeline as pp
+from pytorch_distributed_example_tpu_torch.parallel.localsgd import PeriodicModelAverager
 from pytorch_distributed_example_tpu_torch.tensor import DistTensor
 from pytorch_distributed_example_tpu_torch.utils.flight_recorder import global_recorder
-from pytorch_distributed_example_tpu_torch.dtensor import DTensor
+from pytorch_distributed_example_tpu_torch.dtensor import DTensor, redistribute_tree
 from pytorch_distributed_example_tpu_torch.parallel import context_parallel as cp
 from pytorch_distributed_example_tpu_torch.parallel import expert_parallel as ep
+from pytorch_distributed_example_tpu_torch.utils.cpu_reference import cpu_reference
 
 # the module (its package exports the `flash_attention` function by that name)
 fa = importlib.import_module("pytorch_distributed_example_tpu_torch.ops.flash_attention")
@@ -277,7 +329,7 @@ REPLACES = {
 }
 # the phases that drive the port's main paths, by the regime they put the
 # kernels in
-PHASES = {"resident": ("slice", "fsdp_tp", "dryrun"), "streamed": ("ring", "long")}
+PHASES = {"resident": ("slice", "fsdp_tp", "dryrun", "ckpt"), "streamed": ("ring", "long")}
 
 
 class SmokeFailure(RuntimeError):
@@ -287,6 +339,14 @@ class SmokeFailure(RuntimeError):
 def check(ok, what):
     if not ok:
         raise SmokeFailure(what)
+
+
+def cpu_side(device):
+    """The CPU side of a float32 card-vs-CPU check runs primed
+    (`utils/cpu_reference.py`: PyTorch's CPU build can compute a process's
+    first float32 exp after an MKL batched matmul wrong); the card's side
+    as it is."""
+    return cpu_reference() if str(device) == "cpu" else contextlib.nullcontext()
 
 
 def card_line():
@@ -602,9 +662,10 @@ def reference_check():
     out = {}
     for name, model in (("cpu", cpu), ("cuda", gpu)):
         t = toks.to(next(model.parameters()).device)
-        logits = model(t)
-        loss = lm.loss_fn(logits, t)
-        loss.backward()
+        with cpu_side(name):
+            logits = model(t)
+            loss = lm.loss_fn(logits, t)
+            loss.backward()
         out[name] = (logits.detach().cpu(), loss.item(),
                      {n: p.grad.cpu() for n, p in model.named_parameters()})
     (cl, closs, cg), (gl, gloss, gg) = out["cpu"], out["cuda"]
@@ -1094,8 +1155,9 @@ def mnist_step_check():
     """The DDP step itself (reduce-scatter, sharded update, all-gather) on
     the card against the CPU, dropout off; then ZeRO auto against off on
     the card, bitwise."""
-    (gloss, gparams), (closs, cparams) = (mnist_ddp_run(d, "auto", False)
-                                          for d in ("cuda", "cpu"))
+    gloss, gparams = mnist_ddp_run("cuda", "auto", False)
+    with cpu_reference():
+        closs, cparams = mnist_ddp_run("cpu", "auto", False)
     lerr = float(((gloss - closs).abs() / closs.abs()).max())
     perr = max(float(((gparams[n] - cparams[n]).abs()
                       - MNIST_PARAM_TOL["rtol"] * cparams[n].abs()).max())
@@ -2398,7 +2460,8 @@ def cifar_first_step(device):
 
 def cifar_checks():
     old, gp, gs, gloss = cifar_first_step("cuda")
-    _, cp, cs, closs = cifar_first_step("cpu")
+    with cpu_reference():
+        _, cp, cs, closs = cifar_first_step("cpu")
     lerr = abs(gloss - closs) / abs(closs)
     uerr, uname = update_errors(gp, cp, old)
     serr, sname = max((rel_rms(gs[n], cs[n]), n) for n in cs)
@@ -2510,7 +2573,8 @@ def bert_check_run(device, steps=1, comm_hook=None, opt=None, has_rng=False, **k
 
 def bert_checks():
     old, gp, (gloss,) = bert_check_run("cuda")
-    _, cp, (closs,) = bert_check_run("cpu")
+    with cpu_reference():
+        _, cp, (closs,) = bert_check_run("cpu")
     lerr = abs(gloss - closs) / abs(closs)
     uerr, uname = update_errors(gp, cp, old)
     print(f"  first step, BERT at d 768 / 2 layers, world {DDP8} x {BERT_CHECK_BATCH} x "
@@ -2678,8 +2742,9 @@ def dryrun_check():
     out, devices = {}, (("card", "cuda"), ("cpu", "cpu"))
     for key, dev in devices:
         t0 = time.perf_counter()
-        out[key] = dryrun.dryrun_multichip(DRYRUN_N, device=dev, lm_params=lm_params,
-                                           convnet_params=cparams)
+        with cpu_side(dev):
+            out[key] = dryrun.dryrun_multichip(DRYRUN_N, device=dev, lm_params=lm_params,
+                                               convnet_params=cparams)
         print(f"  dryrun_multichip({DRYRUN_N}) on the {key}: {time.perf_counter() - t0:.2f} s")
     for key in ("loss", "ring", "moe_y", "moe_aux", "pipe"):
         got = torch.as_tensor(out["card"][key]).detach().cpu()
@@ -2695,8 +2760,9 @@ def dryrun_check():
     for key, dev in devices:
         tdx.init_process_group(world_size=DRYRUN_N, device=dev)
         try:
-            losses[key] = float(dryrun.ddp_step(DRYRUN_N, d["cx"], d["cy"], dev, cparams,
-                                                has_rng=False))
+            with cpu_side(dev):
+                losses[key] = float(dryrun.ddp_step(DRYRUN_N, d["cx"], d["cy"], dev, cparams,
+                                                    has_rng=False))
         finally:
             tdx.destroy_process_group()
     print(f"  part 5 with dropout off: DDP loss {losses['card']:.7f} (card) vs "
@@ -2920,6 +2986,830 @@ def dryrun_phase(card):
     return {k: routes[k] + pipe_routes[k] for k in routes}
 
 
+# checkpoints: the rank-0 save/load of the CFG_1B trainer with bitwise
+# resume, DCP over the fsdp 2 x tp 2 state, the integrity layer on the card
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".ckpt_smoke")
+CKPT_STEPS = 2  # steps before the save; the next one is taken live and resumed
+CKPT_DISK_MARGIN = 2 ** 30
+
+
+def dtensor_leaves(tree):
+    """A tree's DTensors and tensors, in order (its Python leaves left out)."""
+    return [l for l in torch.utils._pytree.tree_leaves(
+        tree, is_leaf=lambda x: isinstance(x, DTensor)) if isinstance(l, (DTensor, torch.Tensor))]
+
+
+def tree_bytes(tree):
+    return sum(t.numel() * t.element_size()
+               for t in (l._local if isinstance(l, DTensor) else l for l in dtensor_leaves(tree)))
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, n))
+               for root, _, names in os.walk(path) for n in names)
+
+
+def bits(t):
+    """A tensor's words, for bitwise comparison (-0.0 and NaN included)."""
+    if t.is_floating_point():
+        return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t
+
+
+def same_bits(a, b):
+    return (a.dtype == b.dtype and a.shape == b.shape and a.device == b.device
+            and torch.equal(bits(a), bits(b)))
+
+
+def need_disk(nbytes, what):
+    free = shutil.disk_usage(os.path.dirname(CKPT_DIR)).free
+    print(f"  free disk before {what}: {free} bytes; it writes ~{nbytes} bytes")
+    check(free >= nbytes + CKPT_DISK_MARGIN,
+          f"{what} needs {nbytes + CKPT_DISK_MARGIN} bytes of free disk, {free} are free")
+
+
+def gbs(nbytes, seconds):
+    return nbytes / seconds / 1e9 if seconds > 0 else float("inf")
+
+
+def rank0_resume(card):
+    """CFG_1B's single-card trainer (f32 params, AdamW): CKPT_STEPS steps,
+    `save_checkpoint`, the next step; then a model and optimizer from
+    another seed, `load_checkpoint`, and that step again. The loaded state
+    must be bitwise the saved one (on the card, in its dtypes), and the
+    resumed step's loss and params bitwise the uninterrupted one's.
+    Returns the number of train steps taken."""
+    args = lm.parse_args(SLICE_ARGV)
+    model, opt, next_tokens = lm.build(args, world=1)
+    cfg = model.cfg
+    toks = [next_tokens() for _ in range(CKPT_STEPS + 1)]
+    for t in toks[:CKPT_STEPS]:
+        lm.train_step(model, opt, t)
+    torch.cuda.synchronize()
+    params, ostate = model.state_dict(), opt.state_dict()
+    p_bytes, o_bytes = tree_bytes(params), tree_bytes(ostate["state"])
+    print(f"  CFG_1B ({sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, f32, "
+          f"AdamW): state {p_bytes} bytes of params + {o_bytes} of optimizer state")
+    need_disk(p_bytes + o_bytes, "the rank-0 checkpoint")
+    clone = lambda t: t.clone() if isinstance(t, torch.Tensor) else t  # noqa: E731
+    saved = (torch.utils._pytree.tree_map(clone, params),
+             torch.utils._pytree.tree_map(clone, ostate))
+    path = os.path.join(CKPT_DIR, "rank0")
+    t0 = time.perf_counter()
+    T = {}
+    save_checkpoint(path, params, ostate, step=CKPT_STEPS, timings=T)
+    save_s = time.perf_counter() - t0
+    written = dir_bytes(path)
+    print(f"  save: {save_s:.2f} s for {written} bytes written ({gbs(written, save_s):.2f} GB/s): "
+          f"device->host {T['to_host']:.2f} s ({gbs(p_bytes + o_bytes, T['to_host']):.2f} GB/s), "
+          f"npz write {T['write']:.2f} s ({gbs(written, T['write']):.2f} GB/s), CRC + fsync "
+          f"{T['seal']:.2f} s ({gbs(written, T['seal']):.2f} GB/s)")
+    del params, ostate
+    want_loss = lm.train_step(model, opt, toks[CKPT_STEPS])
+    want = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, opt
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model2 = TransformerLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+    opt2 = lm.make_optimizer(model2, args.lr)
+    t0 = time.perf_counter()
+    T = {}
+    params, ostate, step, _ = load_checkpoint(path, saved[0], saved[1], timings=T)
+    load_s = time.perf_counter() - t0
+    print(f"  load: {load_s:.2f} s ({gbs(written, load_s):.2f} GB/s): CRC verify {T['verify']:.2f} s "
+          f"({gbs(written, T['verify']):.2f} GB/s), npz read {T['read']:.2f} s "
+          f"({gbs(written, T['read']):.2f} GB/s), host->device {T['to_device']:.2f} s "
+          f"({gbs(p_bytes + o_bytes, T['to_device']):.2f} GB/s)")
+    pairs = list(zip(dtensor_leaves(saved), dtensor_leaves((params, ostate))))
+    state_ok = step == CKPT_STEPS and len(pairs) == len(dtensor_leaves(saved)) and all(
+        same_bits(a, b) for a, b in pairs)
+    print(f"  the loaded state is bitwise the saved one ({len(pairs)} tensors, on their devices, "
+          f"in their dtypes): {state_ok}")
+    check(state_ok, "the rank-0 checkpoint did not load bitwise")
+    del saved
+    model2.load_state_dict(params)
+    opt2.load_state_dict(ostate)
+    del params, ostate
+    got_loss = lm.train_step(model2, opt2, toks[CKPT_STEPS])
+    resumed = same_bits(got_loss, want_loss) and all(
+        same_bits(p.detach(), want[n]) for n, p in model2.named_parameters())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  step {CKPT_STEPS + 1}: loss {float(want_loss):.6f} uninterrupted, "
+          f"{float(got_loss):.6f} resumed; loss and every param bitwise equal: {resumed}; "
+          f"peak device memory of the resume {peak / 2 ** 30:.2f} GiB  [{card}]")
+    check(resumed, "the resumed CFG_1B step is not bitwise the uninterrupted one")
+    del model2, opt2, want
+    shutil.rmtree(path)
+    torch.cuda.empty_cache()
+    return CKPT_STEPS + 2
+
+
+def fsdp_state_specs(mod, state):
+    """Each leaf's spec: a param's, its optimizer moments' the same,
+    scalars replicated."""
+    specs = {"params": dict(mod.param_specs), "optim": {}}
+    for name, st in state["optim"].items():
+        specs["optim"][name] = {k: mod.param_specs[name] if isinstance(v, DTensor) else ()
+                                for k, v in st.items()}
+    return specs
+
+
+def same_state(a, b):
+    """Bitwise equal leaves and layouts of two DTensor trees."""
+    la, lb = dtensor_leaves(a), dtensor_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if isinstance(x, DTensor):
+            if not (isinstance(y, DTensor) and x.placements == y.placements
+                    and x.device_mesh == y.device_mesh and same_bits(x._local, y._local)):
+                return False
+        elif not same_bits(x, y):
+            return False
+    return True
+
+
+def sharded_ckpt(card):
+    """CFG_1B over fsdp 2 x tp 2 after one step: `dcp_save` (each rank's
+    shard its own entry); `dcp_load` into the same layout, bitwise, and a
+    step from that restored state against the live step, bitwise; 4 -> 1
+    into `resharded_template`'s single-card layout, bitwise
+    `redistribute_tree`'s global values; `dcp_async_save` of that
+    single-card state (foreground and durable seconds, a train step taken
+    while the write lands against the step alone); 1 -> 4 from it back
+    into fsdp 2 x tp 2, bitwise. Returns the number of train steps taken."""
+    from torch.distributed.checkpoint import FileSystemReader
+
+    args = lm.parse_args(FSDP_TP_ARGV)
+    mod, opt, next_tokens = lm.build(args, world=FSDP_TP_WORLD)
+    lm.train_step(mod, opt, next_tokens())
+    steps = 1
+    state = mod.state_dict(opt)
+    specs = fsdp_state_specs(mod, state)
+    nbytes = tree_bytes(state)
+    need_disk(nbytes, "the sharded checkpoints (one at a time)")
+    p4 = os.path.join(CKPT_DIR, "fsdp_tp")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tdx.dcp_save(state, p4)
+    save_s = time.perf_counter() - t0
+    written = dir_bytes(p4)
+    md = FileSystemReader(p4).read_metadata()
+    n_leaves = len(dtensor_leaves(state))
+    print(f"  dcp_save of the fsdp 2 x tp 2 state ({nbytes} bytes, {n_leaves} leaves): "
+          f"{save_s:.2f} s, {written} bytes written ({gbs(written, save_s):.2f} GB/s); "
+          f"{len(md.state_dict_metadata)} DCP entries (one a rank's shard)")
+    check(len(md.state_dict_metadata) > n_leaves, "the ranks' shards are not separate entries")
+    t0 = time.perf_counter()
+    stats = {}
+    same = tdx.dcp_load(state, p4, stats=stats)
+    print(f"  dcp_load into the same layout: {time.perf_counter() - t0:.2f} s "
+          f"({gbs(stats['read_bytes'], stats['seconds']):.2f} GB/s, CRC verify "
+          f"{stats['verify_s']:.2f} s); bitwise: {same_state(state, same)}")
+    check(same_state(state, same), "dcp_load into the same layout is not bitwise")
+
+    mesh1 = tdx.DeviceMesh(["cuda:0"], (1, 1), ("fsdp", "tp"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    stats = {}
+    one = tdx.dcp_load(tdx.resharded_template(state, mesh1, specs=specs), p4, stats=stats)
+    torch.cuda.synchronize()
+    reshard_s = time.perf_counter() - t0
+    dev_peak = torch.cuda.max_memory_allocated() - base
+    ok4 = True
+    for (path, a), b in zip(_flat(state), dtensor_leaves(one)):
+        if isinstance(a, DTensor):
+            ok4 &= same_bits(redistribute_tree(a, mesh1, _spec_at(specs, path))._local, b._local)
+        else:  # a scalar (AdamW's step count) lands on the mesh's device
+            ok4 &= same_bits(a.cpu(), b.full_tensor().cpu())
+    print(f"  4 -> 1 into resharded_template's single-card layout: {reshard_s:.2f} s; the global "
+          f"values bitwise (redistribute_tree): {ok4}; peak host bytes held by the load "
+          f"{stats['peak_host_bytes']} (of {nbytes}), process max RSS "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024} bytes; device memory "
+          f"above the live state {dev_peak} bytes  [{card}]")
+    check(ok4, "the 4 -> 1 reshard is not bitwise the global values")
+    shutil.rmtree(p4)
+
+    tokens = next_tokens()
+    want_loss = lm.train_step(mod, opt, tokens)
+    want = {k: v._local.detach().clone() for k, v in mod.params.items()}
+    mod.load_state_dict(same, opt)
+    got_loss = lm.train_step(mod, opt, tokens)
+    steps += 2
+    resumed = same_bits(got_loss, want_loss) and all(
+        same_bits(v._local.detach(), want[k]) for k, v in mod.params.items())
+    print(f"  one sharded step from the restored state against the live one: loss "
+          f"{float(got_loss):.6f} vs {float(want_loss):.6f}; loss and params bitwise: {resumed}")
+    check(resumed, "the sharded step from the restored state is not bitwise the live one")
+    del want
+    torch.cuda.empty_cache()
+
+    def timed_step():
+        batch = next_tokens()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.train_step(mod, opt, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    alone = [timed_step() for _ in range(2)]
+    p1 = os.path.join(CKPT_DIR, "single")
+    t0 = time.perf_counter()
+    handle = cs.dcp_async_save(one, p1)
+    fg_s = time.perf_counter() - t0
+    del one
+    during = timed_step()
+    writing = not handle.done()
+    handle.result()
+    durable_s = handle.finished_at - t0
+    steps += 3
+    print(f"  dcp_async_save of the single-card state: foreground {fg_s:.2f} s, durable after "
+          f"{durable_s:.2f} s; a train step while the write lands {during:.2f} ms (still "
+          f"writing when it ended: {writing}) against {alone[-1]:.2f} ms alone "
+          f"({[round(t, 2) for t in alone]})  [{card}]")
+    four = tdx.dcp_load(state, p1)
+    ok1 = same_state(same, four)
+    print(f"  1 -> 4 from the single-card save into fsdp 2 x tp 2: bitwise: {ok1}")
+    check(ok1, "the 1 -> 4 reshard is not bitwise the saved state")
+    shutil.rmtree(p1)
+    del mod, opt, state, same, four
+    torch.cuda.empty_cache()
+    return steps
+
+
+def _flat(tree):
+    return [(p, l) for p, l in torch.utils._pytree.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, DTensor))[0]
+        if isinstance(l, (DTensor, torch.Tensor))]
+
+
+def _spec_at(specs, path):
+    node = specs
+    for k in path:
+        node = node[k.key]
+    return node
+
+
+def ckpt_integrity(card):
+    """A byte flipped in `arrays.npz` and one in a DCP step's `.metadata`:
+    each is caught by the CRC, quarantined, and the load falls back to the
+    last good copy, on card tensors."""
+    import warnings
+
+    tree = lambda v: {"w": torch.full((64, 3), v, device="cuda"),  # noqa: E731
+                      "h": torch.full((8,), v, device="cuda").to(torch.bfloat16)}
+    path = os.path.join(CKPT_DIR, "small")
+    save_checkpoint(path, tree(1.0), step=1)
+    save_checkpoint(path, tree(2.0), step=2)
+    with open(os.path.join(path, "arrays.npz"), "r+b") as f:
+        f.seek(40)
+        f.write(b"\xde\xad\xbe\xef")
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        got, _, step, _ = load_checkpoint(path, tree(0.0))
+    quarantined = [n for n in os.listdir(CKPT_DIR) if n.startswith("small.quarantine")]
+    npz_ok = (step == 1 and float(got["w"][0, 0]) == 1.0 and got["w"].device.type == "cuda"
+              and bool(quarantined) and any("corrupt" in str(x.message) for x in w))
+    mgr = tdx.DCPCheckpointer(os.path.join(CKPT_DIR, "mgr"), max_to_keep=3)
+    mesh = tdx.DeviceMesh(["cuda:0"] * 2, (2,), ("fsdp",))
+    from pytorch_distributed_example_tpu_torch.dtensor import Shard, distribute_tensor
+
+    dt = lambda v: {"w": distribute_tensor(torch.full((4, 3), v, device="cuda"),  # noqa: E731
+                                           mesh, [Shard(0)])}
+    mgr.save(0, dt(1.0))
+    mgr.save(1, dt(2.0))
+    with open(os.path.join(CKPT_DIR, "mgr", "1", ".metadata"), "r+b") as f:
+        f.seek(0)
+        f.write(b"\x00CORRUPT")
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        restored = mgr.restore(template=dt(0.0))
+    dcp_ok = (float(restored["w"].full_tensor()[0, 0]) == 1.0 and mgr.all_steps() == [0]
+              and any("quarantine.step1" in n for n in os.listdir(CKPT_DIR))
+              and any("corrupt" in str(x.message) for x in w))
+    print(f"  integrity on the card: arrays.npz byte flip caught, quarantined, fell back to "
+          f"step 1: {npz_ok}; DCP .metadata byte flip caught, step quarantined, fell back to "
+          f"step 0: {dcp_ok}")
+    check(npz_ok and dcp_ok, "the checkpoint integrity layer failed on the card")
+
+
+def ckpt_phase(card):
+    """Rank-0 resume of the CFG_1B trainer, the sharded checkpoint of the
+    fsdp 2 x tp 2 state, the integrity layer. Returns the phase's flash
+    launches by route (its train steps' F, KV and Q)."""
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    try:
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        n1 = rank0_resume(card)
+        print(f"  rank-0 resume in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        n4 = sharded_ckpt(card)
+        print(f"  sharded checkpoint in {time.perf_counter() - t0:.1f} s")
+        routes = dict(fa.ROUTE_LAUNCHES)
+        layers = lm.config_for(lm.parse_args(SLICE_ARGV)).n_layers
+        want = layers * (n1 + n4)
+        print(f"  flash launches in the phase's {n1} single-card and {n4} sharded steps: "
+              f"{dict(fa.LAUNCHES)}; by route: {routes}")
+        check(routes == want_routes(want),
+              f"F, KV and Q should each launch {want} times on the wgmma route: {routes}")
+        ckpt_integrity(card)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return routes
+
+
+# the remaining training utilities: AMP (fp16 BERT-base), post-local SGD
+# and Join on DDP-MNIST, the quantized hook through the eager Reducer
+AMP_STEPS = 3
+# each fp16 step against plain float32 torch on the same params: its loss
+# within 1e-2; its all-reduced mean gradient, unscaled and then clipped,
+# within 5e-2 by relative norm (on the H100 the first step reads 2.283e-2
+# unscaled, 1.237e-2 clipped: random-init BERT-base's small gradient, norm
+# 2.3, in fp16 throughout; 1.8e-3 at norm 54)
+AMP_LOSS_TOL = 1e-2
+AMP_GRAD_TOL = 5e-2
+# the hand-written float32 step against the port's DDP step with the same
+# clip and adamw, |dloss| (they agree bitwise on the H100)
+AMP_WITNESS_TOL = 1e-5
+AMP_TIMED = 3
+LOCALSGD = dict(period=4, warmup_steps=2)
+LOCALSGD_STEPS = 16
+# the float32 card against the float32 CPU: within 1e-5 of a leaf's largest
+# entry (and of the loss) over the warm-up steps; after them, within twice
+# the CPU's own distance from a float64 run plus 1e-6. The float32 runs of
+# either side part from float64 by up to 5e-2 of a leaf's largest entry
+# over the 16 steps on the H100's host (a step's rounding moves a later
+# step's routing through max-pool and ReLU), so no fixed float32 limit
+# holds there. The float64 runs, card against CPU, are held to 1e-12 at
+# every step (7.9e-16 at worst on the H100), and a planted fault (one
+# replica left out of each average) must break that limit
+LOCALSGD_EARLY_TOL = 1e-5
+LOCALSGD_ENVELOPE, LOCALSGD_FLOOR = 2.0, 1e-6
+LOCALSGD_F64_TOL = 1e-12
+JOIN_BATCH, JOIN_MAX = 16, 12  # rank r holds JOIN_MAX - r batches of JOIN_BATCH
+JOIN_TOL = dict(rtol=2e-4, atol=2e-5)
+PR10_HOOK_MS = 58.99  # the int8 per-leaf hook inside PR 10's BERT DDP step (PERF.md)
+
+
+def amp_bert(policy_name, steps, inject_rank=None, timed=0, reference=False):
+    """BERT-base fine-tune at world 8 x 16 x 128 (dropout off, adamw(2e-5))
+    under `policy_name`, written with the port's pieces: the rank vmap of
+    grad of the scaled loss, GradScaler.unscale with the cross-rank verdict
+    (the min over the rank dim), the c10d AVG all-reduce, clip_grad_norm_
+    (1.0), adamw, where_finite and update. Returns a dict: each step's
+    loss, verdict, scale and pre-clip gradient norm; with `reference`,
+    each step held against plain float32 torch on the same params (its
+    loss, its clipped mean gradient by relative norm and the adamw update
+    that gradient gives, on a finite step) and the verdict against
+    isfinite over every rank's gradients; ms of the timed steps; the
+    inject step's (skipped bitwise, scale before, after)."""
+    from torch.func import functional_call, grad_and_value, vmap
+
+    from pytorch_distributed_example_tpu_torch import amp
+    from pytorch_distributed_example_tpu_torch.nn.utils import clip_grad_norm_
+
+    policy = amp.get_policy(policy_name)
+    pg = tdx.init_process_group(world_size=DDP8)
+    try:
+        cfg = BertConfig(max_seq_len=BERT_SEQ, dtype=policy.compute_dtype, dropout=0.0,
+                         **bench.BERT_PRESETS["base"])
+        model = BertForSequenceClassification(cfg, num_labels=2, device="cpu",
+                                              generator=torch.Generator().manual_seed(0)).cuda()
+        params = policy.cast_to_param({n: p.detach() for n, p in model.named_parameters()})
+        opt = optim.adamw(2e-5)
+        state = opt.init(params)
+        scaler = amp.GradScaler()
+        sstate = scaler.init("cuda")
+        xs, ys = amp_batch(cfg.vocab_size)
+
+        def scaled_loss(p, x, y, s):
+            logits = policy.cast_to_output(functional_call(model, p, (x,)))
+            return scaler.scale(torch.nn.functional.cross_entropy(logits, y), s)
+
+        per_rank = vmap(grad_and_value(scaled_loss), in_dims=(None, 0, 0, None))
+        names = list(params)
+        model32 = BertForSequenceClassification(
+            dataclasses.replace(cfg, dtype=torch.float32), num_labels=2, device="meta")
+
+        def f32_step(p):
+            """Plain float32 torch on params `p`: the mean over the ranks of
+            the loss and of the gradients, and those clipped to norm 1.0."""
+            one = lambda p, x, y: torch.nn.functional.cross_entropy(  # noqa: E731
+                functional_call(model32, p, (x,)), y)
+            g, loss = vmap(grad_and_value(one), in_dims=(None, 0, 0))(p, xs, ys)
+            mean = {n: g[n].mean(0) for n in names}
+            return float(loss.mean()), mean, clip_plain(mean)
+
+        def step(params, state, sstate, inject=None):
+            grads, scaled = per_rank(params, xs, ys, sstate)
+            if inject is not None:
+                grads[names[0]][inject].view(-1)[0] = float("inf")
+            every = all(bool(torch.isfinite(grads[n]).all()) for n in names) if reference else None
+            grads, finite = scaler.unscale(grads, sstate, axis_name="ranks")
+            flat = DistTensor.wrap(torch.cat([grads[n].reshape(DDP8, -1) for n in names], 1), pg)
+            tdx.all_reduce(flat, tdx.ReduceOp.AVG, pg)
+            mean, off = {}, 0
+            for n in names:
+                k = params[n].numel()
+                mean[n] = flat.tensor[0, off:off + k].view(params[n].shape)
+                off += k
+            loss = DistTensor.wrap(scaled / sstate.scale, pg)
+            tdx.all_reduce(loss, tdx.ReduceOp.AVG, pg)
+            clipped, total = clip_grad_norm_(mean, 1.0)
+            updates, new_state = opt.update(clipped, state, params)
+            new_params = optim.apply_updates(params, updates)
+            return (scaler.where_finite(finite, new_params, params),
+                    scaler.where_finite(finite, new_state, state),
+                    scaler.update(sstate, finite), loss.tensor[0], finite,
+                    dict(mean=mean, clipped=clipped, updates=updates, norm=float(total),
+                         every=every))
+
+        out = dict(losses=[], finite=[], scales=[], norms=[], ref_losses=[], mean_rel=[],
+                   grad_rel=[], update_rel=[], verdict_ok=[])
+        for _ in range(steps):
+            ref = f32_step(params) if reference else None
+            prev = (params, state)
+            params, state, sstate, loss, finite, seen = step(params, state, sstate)
+            out["losses"].append(float(loss))
+            out["finite"].append(bool(finite))
+            out["scales"].append(float(sstate.scale))
+            out["norms"].append(seen["norm"])
+            if reference:
+                out["ref_losses"].append(ref[0])
+                out["verdict_ok"].append(seen["every"] == bool(finite))
+                if bool(finite):
+                    want_updates, _ = opt.update(ref[2], prev[1], prev[0])
+                    out["mean_rel"].append(rel_norm(seen["mean"], ref[1]))
+                    out["grad_rel"].append(rel_norm(seen["clipped"], ref[2]))
+                    out["update_rel"].append(rel_norm(seen["updates"], want_updates))
+                else:
+                    for k in ("mean_rel", "grad_rel", "update_rel"):
+                        out[k].append(None)
+        if timed:
+            times = []
+            for _ in range(timed):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, sstate, loss, finite, _ = step(params, state, sstate)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out["ms"] = times
+        if inject_rank is not None:
+            old = ({n: t.clone() for n, t in params.items()},
+                   torch.utils._pytree.tree_map(torch.clone, state), float(sstate.scale))
+            params, state, sstate, _, finite, seen = step(params, state, sstate,
+                                                          inject=inject_rank)
+            skipped = (not bool(finite) and seen["every"] is not True
+                       and all(same_bits(params[n], old[0][n]) for n in names)
+                       and all(same_bits(a, b) for a, b in zip(
+                           torch.utils._pytree.tree_leaves(state),
+                           torch.utils._pytree.tree_leaves(old[1]))))
+            out["injected"] = (skipped, old[2], float(sstate.scale))
+        return out
+    finally:
+        tdx.destroy_process_group()
+
+
+def amp_batch(vocab):
+    """The fine-tune's fixed batch: (8, 16, 128) token ids, (8, 16) labels."""
+    gen = np.random.default_rng(0)
+    xs = torch.from_numpy(gen.integers(0, vocab, (DDP8, BERT_BATCH, BERT_SEQ))).cuda()
+    return xs, torch.from_numpy(gen.integers(0, 2, (DDP8, BERT_BATCH))).cuda()
+
+
+def clip_plain(grads, max_norm=1.0):
+    """`grads` scaled to a global 2-norm of at most `max_norm`, in plain
+    torch (torch's clip_grad_norm_ formula)."""
+    total = float(torch.stack([(g.double() ** 2).sum() for g in grads.values()]).sum()) ** 0.5
+    return {n: g * min(1.0, max_norm / (total + 1e-6)) for n, g in grads.items()}
+
+
+class ClippedAdamW:
+    """adamw(2e-5) after a global-norm clip to 1.0 (optax's chain of
+    clip_by_global_norm and adamw), for the DDP step's unsharded update."""
+
+    def __init__(self):
+        self.inner = optim.adamw(2e-5)
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params=None):
+        return self.inner.update(clip_plain(grads), state, params)
+
+
+def rel_norm(a, b):
+    """||a - b|| / ||b|| over every leaf of two trees of tensors, in float64."""
+    num = sum(float(((a[n].double() - b[n].double()) ** 2).sum()) for n in b)
+    return (num / sum(float((b[n].double() ** 2).sum()) for n in b)) ** 0.5
+
+
+def amp_witness(steps):
+    """The same fine-tune in float32 through the port's DDP step
+    (`make_ddp_train_step`, ZeRO off, the clip in plain torch before
+    adamw(2e-5), no scaler): its losses, a second witness of the
+    hand-written float32 step's."""
+    tdx.init_process_group(world_size=DDP8)
+    try:
+        cfg = BertConfig(max_seq_len=BERT_SEQ, dropout=0.0, **bench.BERT_PRESETS["base"])
+        model = BertForSequenceClassification(cfg, num_labels=2, device="cpu",
+                                              generator=torch.Generator().manual_seed(0)).cuda()
+        ddp = tdx.DistributedDataParallel(model)
+        opt = ClippedAdamW()
+        step = ddp.make_train_step(opt, torch.nn.functional.cross_entropy,
+                                   shard_weight_update="off")
+        xs, ys = amp_batch(cfg.vocab_size)
+        p, s, losses = ddp.params, opt.init(ddp.params), []
+        for _ in range(steps):
+            p, s, loss = step(p, s, xs.reshape(-1, BERT_SEQ), ys.reshape(-1))
+            losses.append(float(loss))
+        return losses
+    finally:
+        tdx.destroy_process_group()
+
+
+def amp_check(card):
+    f32 = amp_bert("f32", AMP_STEPS, timed=AMP_TIMED)
+    witness = amp_witness(AMP_STEPS)
+    fp16 = amp_bert("fp16", AMP_STEPS, inject_rank=3, timed=AMP_TIMED, reference=True)
+    skipped, before, after = fp16["injected"]
+    fmt = lambda v: "-" if v is None else f"{v:.3e}"  # noqa: E731
+    loss_err = max(abs(a - b) for a, b in zip(fp16["losses"], fp16["ref_losses"]))
+    grad_err = max([v for k in ("mean_rel", "grad_rel") for v in fp16[k] if v is not None],
+                   default=0.0)
+    witness_err = max(abs(a - b) for a, b in zip(f32["losses"], witness))
+    print(f"  AMP fp16 BERT-base, world {DDP8} x {BERT_BATCH} x {BERT_SEQ}, adamw(2e-5), dropout "
+          f"off: losses {fp16['losses']}, finite {fp16['finite']}, scales {fp16['scales']}, "
+          f"pre-clip gradient norms {[round(v, 4) for v in fp16['norms']]}")
+    print(f"  each fp16 step against plain float32 on the same params: loss "
+          f"{fp16['ref_losses']} (worst |dloss| {loss_err:.3e}, limit {AMP_LOSS_TOL:g}); "
+          f"mean gradient rel norm, unscaled {[fmt(v) for v in fp16['mean_rel']]} and clipped "
+          f"{[fmt(v) for v in fp16['grad_rel']]} (limit {AMP_GRAD_TOL:g}; - a skipped step); "
+          f"the adamw update from the same state, rel norm "
+          f"{[fmt(v) for v in fp16['update_rel']]}; verdict = isfinite over every rank's "
+          f"gradients: {fp16['verdict_ok']}")
+    print(f"  the float32 run: losses {f32['losses']} (finite {f32['finite']}, pre-clip norms "
+          f"{[round(v, 4) for v in f32['norms']]}); the port's DDP step in float32, the clip and "
+          f"adamw(2e-5), on the same batch: {witness} (worst |dloss| {witness_err:.3e}, limit "
+          f"{AMP_WITNESS_TOL:g})")
+    print(f"  an inf in rank 3's gradients: every rank skipped, params and adamw state bitwise: "
+          f"{skipped}; scale {before:g} -> {after:g}")
+    print(f"  step times (ms): fp16 {[round(t, 2) for t in fp16['ms']]}, float32 "
+          f"{[round(t, 2) for t in f32['ms']]}; PR 10's bf16 DDP step 157.08 ms  [{card}]")
+    check(all(fp16["verdict_ok"]), "the cross-rank verdict disagrees with the ranks' gradients")
+    check(loss_err <= AMP_LOSS_TOL, "an fp16 loss strays from float32 on the same params")
+    check(any(fp16["finite"]) and grad_err <= AMP_GRAD_TOL,
+          "the fp16 step's clipped gradient strays from float32's on the same params")
+    check(witness_err <= AMP_WITNESS_TOL, "the float32 step disagrees with the port's DDP step")
+    check(skipped and after == before / 2, "the overflowing step was not skipped everywhere")
+
+
+def localsgd_run(device, timed=False, dtype=torch.float32, averager=None):
+    """PostLocalSGDOptimizer over the DDP-MNIST ConvNet at world 8 (sgd
+    0.01, momentum 0.5, period 4, warmup 2) on the fixed batch, with the
+    averager class `averager` (the stock one by default): (each step's
+    losses (8,) and replicas on the host in float64, replicas-equal flags
+    after each step, samples/s a card of the timed steps or None)."""
+    from torch.func import functional_call
+
+    tdx.init_process_group(world_size=MNIST_WORLD, device=None if device == "cuda" else device)
+    try:
+        model = mnist_model(device).to(dtype)
+        apply = lambda p, x: functional_call(model, p, (x,))  # noqa: E731
+        opt = optim.PostLocalSGDOptimizer(
+            optim.sgd(0.01, momentum=0.5), apply, mnist.loss_fn,
+            averager=averager and averager(**LOCALSGD), **LOCALSGD)
+        p, o = opt.init({n: t.detach() for n, t in model.named_parameters()})
+        x, y = mnist_batch(MNIST_WORLD, device)
+        x = x.to(dtype)
+        hist, equal = [], []
+        for _ in range(LOCALSGD_STEPS):
+            p, o, loss = opt.step(p, o, x, y)
+            hist.append((loss.double().cpu(), {n: t.double().cpu() for n, t in p.items()}))
+            equal.append(all(bool((bits(t) == bits(t[:1])).all()) for t in p.values()))
+        rate = None
+        if timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LOCALSGD_STEPS):
+                p, o, loss = opt.step(p, o, x, y)
+            torch.cuda.synchronize()
+            rate = LOCALSGD_STEPS * MNIST_BATCH * MNIST_WORLD / (time.perf_counter() - t0)
+        return hist, equal, rate
+    finally:
+        tdx.destroy_process_group()
+
+
+def ddp_rate():
+    """samples/s a card of the DDP step (ZeRO auto) on the same batch and
+    step count as `localsgd_run`'s timed steps, in the same process."""
+    tdx.init_process_group(world_size=MNIST_WORLD)
+    try:
+        ddp = tdx.DistributedDataParallel(mnist_model("cuda"))
+        opt = optim.sgd(0.01, momentum=0.5)
+        step = ddp.make_train_step(opt, mnist.loss_fn)
+        x, y = mnist_batch(MNIST_WORLD, "cuda")
+        p, s = ddp.params, opt.init(ddp.params)
+        for _ in range(2):
+            p, s, _ = step(p, s, x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LOCALSGD_STEPS):
+            p, s, _ = step(p, s, x, y)
+        torch.cuda.synchronize()
+        return LOCALSGD_STEPS * MNIST_BATCH * MNIST_WORLD / (time.perf_counter() - t0)
+    finally:
+        tdx.destroy_process_group()
+
+
+class LeftOutAverager(PeriodicModelAverager):
+    """A planted fault for the post-local SGD check: each averaging leaves
+    the last replica out of the mean (every replica still gets the same
+    values)."""
+
+    def average_parameters(self, stacked):
+        self.step += 1
+        if self.step <= self.warmup_steps or self.step % self.period != 0:
+            return stacked, False
+        return {n: t[:-1].mean(0, keepdim=True).expand_as(t).clone()
+                for n, t in stacked.items()}, True
+
+
+def localsgd_errs(a, b):
+    """Each step's (losses' largest relative error, params' largest error
+    as a share of the leaf's largest entry) of run `a` against run `b`."""
+    out = []
+    for (la, pa), (lb, pb) in zip(a, b):
+        out.append((float(((la - lb).abs() / lb.abs()).max()),
+                    max(float((pa[n] - pb[n]).abs().max() / pb[n].abs().max()) for n in pb)))
+    return out
+
+
+def localsgd_check(card):
+    card_hist, equal, rate = localsgd_run("cuda", timed=True)
+    with cpu_reference():
+        cpu_hist, cequal, _ = localsgd_run("cpu")
+    f64_hist, _, _ = localsgd_run("cpu", dtype=torch.float64)
+    card64, equal64, _ = localsgd_run("cuda", dtype=torch.float64)
+    # the planted fault, in float64 and in float32 on the card
+    bad64, _, _ = localsgd_run("cuda", dtype=torch.float64, averager=LeftOutAverager)
+    bad32, _, _ = localsgd_run("cuda", averager=LeftOutAverager)
+    averaged = [(i + 1) > LOCALSGD["warmup_steps"] and (i + 1) % LOCALSGD["period"] == 0
+                for i in range(LOCALSGD_STEPS)]
+    gc, cd = localsgd_errs(card_hist, cpu_hist), localsgd_errs(cpu_hist, f64_hist)
+    g64, b64 = localsgd_errs(card64, f64_hist), localsgd_errs(bad64, f64_hist)
+    b32 = localsgd_errs(bad32, cpu_hist)
+
+    def in_envelope(errs):
+        return [l <= LOCALSGD_ENVELOPE * lcd + LOCALSGD_FLOOR
+                and p <= LOCALSGD_ENVELOPE * pcd + LOCALSGD_FLOOR
+                for (l, p), (lcd, pcd) in zip(errs, cd)]
+
+    within, bad_within = in_envelope(gc), in_envelope(b32)
+    early = max(max(e) for e in gc[:LOCALSGD["warmup_steps"]])
+    worst64 = max(max(e) for e in g64)
+    bad64_worst = max(max(e) for e in b64)
+    print(f"  post-local SGD, ConvNet at world {MNIST_WORLD} x {MNIST_BATCH}, period "
+          f"{LOCALSGD['period']}, warmup {LOCALSGD['warmup_steps']}, {LOCALSGD_STEPS} steps: "
+          f"replicas bitwise equal after steps {[i + 1 for i, e in enumerate(equal) if e]} "
+          f"(averagings at {[i + 1 for i, a in enumerate(averaged) if a]})")
+    print("  step: loss rel err, params |err| / max: float32 card vs CPU | CPU float32 vs "
+          "float64 | float64 card vs CPU | planted fault (the last replica left out of each "
+          "average): float64 card vs CPU, float32 card vs CPU")
+    for i in range(LOCALSGD_STEPS):
+        row = " | ".join(f"{e[i][0]:.2e} {e[i][1]:.2e}" for e in (gc, cd, g64, b64, b32))
+        print(f"    {i + 1:2d}: {row}")
+    print(f"  float32 card vs CPU over the steps before the first local drift (1-"
+          f"{LOCALSGD['warmup_steps']}): {early:.3e} (limit {LOCALSGD_EARLY_TOL:g}); within "
+          f"{LOCALSGD_ENVELOPE:g}x the CPU's distance from float64 (+{LOCALSGD_FLOOR:g}) at every "
+          f"step: {all(within)}")
+    print(f"  float64 card vs CPU at every step: worst {worst64:.3e} (limit {LOCALSGD_F64_TOL:g}); "
+          f"the planted fault reads {bad64_worst:.3e} in float64, and its float32 run stays "
+          f"inside the float32 envelope at {sum(bad_within)} of {LOCALSGD_STEPS} steps")
+    ddp = ddp_rate()
+    print(f"  {rate:.1f} samples/s a card local SGD against {ddp:.1f} for the DDP step (ZeRO "
+          f"auto), the same batch and {LOCALSGD_STEPS} steps  [{card}]")
+    check(equal == averaged and cequal == averaged and equal64 == averaged,
+          "the replicas should agree right after each averaging and differ between")
+    check(early <= LOCALSGD_EARLY_TOL, "post-local SGD's first steps on the card stray from the CPU")
+    check(all(within), "post-local SGD on the card strays from the CPU beyond float32's own envelope")
+    check(worst64 <= LOCALSGD_F64_TOL, "post-local SGD in float64 on the card strays from the CPU")
+    check(bad64_worst > LOCALSGD_F64_TOL, "the float64 check does not see a replica left out")
+
+
+def join_run(device):
+    """DDP-MNIST at world 8 (sgd 0.01, momentum 0.5, ZeRO auto) on
+    `join_batches` of rank r's JOIN_MAX - r batches, the weighted loss
+    across the ranks: (losses, params, shadow rows a step)."""
+    from pytorch_distributed_example_tpu_torch.parallel.join import join_batches, weighted_loss_fn
+
+    gen = np.random.default_rng(5)
+    streams = [[(gen.standard_normal((JOIN_BATCH, 28, 28, 1)).astype(np.float32),
+                 gen.integers(0, 10, JOIN_BATCH).astype(np.int32))
+                for _ in range(JOIN_MAX - r)] for r in range(MNIST_WORLD)]
+    tdx.init_process_group(world_size=MNIST_WORLD, device=None if device == "cuda" else device)
+    try:
+        ddp = tdx.DistributedDataParallel(mnist_model(device))
+        opt = optim.sgd(0.01, momentum=0.5)
+        wl = weighted_loss_fn(lambda lg, y: torch.nn.functional.cross_entropy(
+            lg, y, reduction="none"), world=MNIST_WORLD)
+        step = ddp.make_train_step(opt, lambda lg, yw: wl(lg, yw[0], yw[1]))
+        p, s = ddp.params, opt.init(ddp.params)
+        losses, shadow = [], []
+        for x, y, w in join_batches(streams):
+            xt, yt = mnist.to_device(x, y, device)
+            p, s, loss = step(p, s, xt, (yt, torch.from_numpy(w).to(device)))
+            losses.append(float(loss))
+            shadow.append(int((w == 0).sum()))
+        return losses, {n: t.cpu() for n, t in p.items()}, shadow
+    finally:
+        tdx.destroy_process_group()
+
+
+def join_check(card):
+    gl, gp, shadow = join_run("cuda")
+    with cpu_reference():
+        cl, cp, _ = join_run("cpu")
+    ok = np.allclose(gl, cl, **JOIN_TOL) and all(
+        np.allclose(gp[n].numpy(), cp[n].numpy(), **JOIN_TOL) for n in cp)
+    worst = max(float((gp[n] - cp[n]).abs().max()) for n in cp)
+    print(f"  Join: rank r with {JOIN_MAX} - r batches of {JOIN_BATCH}, {len(gl)} steps, shadow "
+          f"rows a step {shadow}: card vs CPU within rtol 2e-4 / atol 2e-5: {ok} (params max "
+          f"|err| {worst:.3e}; losses {[round(v, 5) for v in gl]})")
+    check(ok and shadow[-1] == (MNIST_WORLD - 1) * JOIN_BATCH,
+          "the Join step on the card disagrees with the CPU")
+
+
+def reducer_hook_check(card):
+    """The eager Reducer over BERT-base's rank-stacked float32 gradients at
+    world 8: the stock pass and `BlockwiseQuantHook(bits=8).for_reducer`
+    at the default bucket cap (ms a pass by CUDA events); a comm.quantize
+    fault at bucket 1 and a whole-pass retry bitwise the fault-free pass."""
+    from pytorch_distributed_example_tpu_torch import faults
+    from pytorch_distributed_example_tpu_torch.parallel import Reducer
+
+    pg = tdx.init_process_group(world_size=DDP8)
+    try:
+        model = BertForSequenceClassification(
+            BertConfig(max_seq_len=BERT_SEQ, **bench.BERT_PRESETS["base"]), device="meta")
+        gen = torch.Generator("cuda").manual_seed(0)
+        grads = {n: torch.randn((DDP8,) + tuple(p.shape), device="cuda", generator=gen)
+                 for n, p in model.named_parameters()}
+        nbytes = sum(g.numel() * 4 for g in grads.values())
+        stock = Reducer(pg)
+        stock.reduce(grads)
+        stock_ms = timed_events(lambda: stock.reduce(grads), 3)
+        make = lambda: comm_hooks.BlockwiseQuantHook(bits=8).for_reducer(pg)  # noqa: E731
+        quant_red = Reducer(pg, comm_hook=make())
+        quant_red.reduce(grads)
+        quant_ms = timed_events(lambda: quant_red.reduce(grads), 3)
+        clean = Reducer(pg, comm_hook=make())
+        want = clean.reduce(grads)
+        hook = make()
+        faulted = Reducer(pg, comm_hook=hook)
+        faults.install_plan([{"point": "comm.quantize", "action": "reset", "after": 2}],
+                            export_env=False)
+        try:
+            faulted.reduce(grads)
+            raised = False
+        except ConnectionResetError:
+            raised = True
+        finally:
+            faults.clear_plan()
+        got = faulted.reduce(grads)
+        same = raised and all(same_bits(got[n], want[n]) for n in grads) and all(
+            same_bits(hook._errors[b], clean.comm_hook._errors[b]) for b in hook._errors)
+        print(f"  Reducer over BERT-base's gradients at world {DDP8} ({nbytes} bytes f32): "
+              f"{quant_red.stats['num_buckets']} buckets at the default cap; the int8 hook "
+              f"{quant_ms:.2f} ms a pass against the stock pass {stock_ms:.2f} ms and PR 10's "
+              f"per-leaf int8 hook in the DDP step {PR10_HOOK_MS} ms  [{card}]")
+        print(f"  a comm.quantize fault at bucket 1, then a whole-pass retry: bitwise the "
+              f"fault-free pass (values and error feedback): {same}")
+        check(same, "the quantized Reducer's retry is not bitwise the fault-free pass")
+    finally:
+        tdx.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def train_utils_phase(card):
+    """AMP, post-local SGD, Join and the Reducer hook. Returns the phase's
+    flash launches by route (none may launch)."""
+    fa.reset_launch_counts()
+    for fn in (amp_check, localsgd_check, join_check, reducer_hook_check):
+        t0 = time.perf_counter()
+        fn(card)
+        print(f"  {fn.__name__} in {time.perf_counter() - t0:.1f} s")
+    routes = dict(fa.ROUTE_LAUNCHES)
+    check(sum(fa.LAUNCHES.values()) == 0, "a flash kernel launched on the train_utils path")
+    torch.cuda.empty_cache()
+    return routes
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3044,13 +3934,26 @@ def main():
     phase_launches["dryrun"] = dryrun_phase(card)
     print(f"  dryrun in {time.perf_counter() - t0:.1f} s")
 
-    # 17. report
+    # 17. checkpoints: rank-0 resume of CFG_1B, DCP of the fsdp x tp state
+    t0 = time.perf_counter()
+    print("[ckpt]")
+    phase_launches["ckpt"] = ckpt_phase(card)
+    print(f"  ckpt in {time.perf_counter() - t0:.1f} s")
+
+    # 18. AMP, post-local SGD, Join, the quantized hook through the Reducer
+    t0 = time.perf_counter()
+    print("[train_utils]")
+    phase_launches["train_utils"] = train_utils_phase(card)
+    print(f"  train_utils in {time.perf_counter() - t0:.1f} s")
+
+    # 19. report
     kernels = []
     for name, lowerings in REPLACES.items():
         for regime, replaces in lowerings.items():
             design = results[regime][name]["design"]
             by_phase = {ph: phase_launches[ph].get(f"{name}:{design}", 0)
-                        for ph in PHASES[regime] + ("serve_fleet", "cifar", "bert")}
+                        for ph in PHASES[regime] + ("serve_fleet", "cifar", "bert",
+                                                    "train_utils")}
             kernels.append({"name": name, "route": "cuda",
                             "source": WGMMA_SOURCE if design == "wgmma" else SOURCE,
                             "replaces": replaces, "regime": regime,

@@ -14,8 +14,12 @@ stores, rendezvous and every collective, in driver and multiproc mode
 (`examples/toy.py`); and the reference workload on that core: the data
 pipeline (`data/`), the MNIST ConvNet (`models/convnet.py`) and DDP with
 ZeRO weight-update sharding (`parallel/ddp.py`), driven by the MNIST
-example (`examples/mnist.py`) and timed by `bench.py`. ROADMAP.md lists
-what is still to come.
+example (`examples/mnist.py`) and timed by `bench.py`; checkpoints,
+rank-0 (`checkpoint.py`) and sharded over torch.distributed.checkpoint
+(`checkpoint_sharded.py`), AMP's functional `GradScaler` (`amp.py`),
+gradient clipping (`nn/utils.py`), Join (`parallel/join.py`) and
+post-local SGD (`parallel/localsgd.py`). ROADMAP.md lists what is still
+to come.
 
 Typical alias, as with the reference:
 
@@ -111,5 +115,16 @@ from .store import (  # noqa: F401  (torch exposes the store family here)
 )
 
 from .parallel.ddp import DistributedDataParallel  # noqa: F401
+from .parallel.join import Join, Joinable  # noqa: F401
+from .checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
+from . import nn  # noqa: F401  (differentiable collectives, nn.utils)
+from . import optim  # noqa: F401  (ZeroRedundancyOptimizer, PostLocalSGDOptimizer)
+from . import amp  # noqa: F401  (GradScaler, dtype policies)
+from .checkpoint_sharded import (  # noqa: F401
+    DCPCheckpointer,
+    dcp_load,
+    dcp_save,
+    resharded_template,
+)
 
 __version__ = "0.1.0"

@@ -336,3 +336,40 @@ def replicate(x, axis_name: str, size: int, axes=None):
     all-reduces the ranks' cotangents into the replica's."""
     axes = tuple(axes) if axes is not None else (axis_name,)
     return _Replicate.apply(x, axes.index(axis_name), size)
+
+
+class _VmapRankReduce(torch.autograd.Function):
+    """The SUM or AVG over the ranks of a rank `vmap` (the DDP step's): a
+    rank's value inside the vmapped function, whose `vmap` rule folds the
+    rank dim through `all_reduce` above. Outside a vmap, or on a value that
+    does not vary over the ranks, there are no ranks to reduce over, and it
+    raises."""
+
+    @staticmethod
+    def forward(x, op):
+        raise RuntimeError(
+            "rank_all_reduce reduces over the ranks of a rank-vmapped step "
+            "(parallel/ddp.py's); call it inside the loss of such a step")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.op = inputs[1]
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _VmapRankReduce.apply(ct, ctx.op), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, op):
+        x = x.movedim(in_dims[0], 0)
+        return all_reduce(x, op, axis_name="_ranks"), 0
+
+
+def rank_all_reduce(x, op=ReduceOp.SUM):
+    """SUM or AVG of `x` over the ranks of the rank `vmap` it runs in
+    (the reference's `lax.psum(x, axis)` inside its step's `shard_map`).
+    Differentiable: the backward reduces the cotangents the same way."""
+    op = _resolve_op(op)
+    if op not in (ReduceOp.SUM, ReduceOp.AVG):
+        raise ValueError(f"rank_all_reduce takes SUM or AVG, not {op}")
+    return _VmapRankReduce.apply(x, op)

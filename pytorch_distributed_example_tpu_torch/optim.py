@@ -24,7 +24,8 @@ out of the shard layout (`parallel/ddp.py`).
 `ZeroRedundancyOptimizer` is the reference's torch-shaped ZeRO-1 wrapper
 (`optim.py:31-84`). The DDP step unwraps it and shards the state itself,
 as the reference's does (`parallel/ddp.py:434-441`). `PostLocalSGDOptimizer`
-is still to port, with `parallel/localsgd.py` (ROADMAP, Queue 1 item 3).
+(`optim.py:86-140`) runs local steps and periodic parameter averaging over
+`parallel/localsgd.py`'s replica-stacked params.
 """
 
 from __future__ import annotations
@@ -157,3 +158,42 @@ class ZeroRedundancyOptimizer:
         return pytree.tree_unflatten(
             [zero.from_shard_layout(zero.unshard(l, self.group), r).cpu() if r.dim()
              else l.cpu() for l, r in zip(leaves, refs)], spec)
+
+
+class PostLocalSGDOptimizer:
+    """torch `PostLocalSGDOptimizer`: wraps an optimizer so that `step()`
+    runs the local (collective-free) update and periodically averages the
+    params, over `parallel/localsgd.py`::
+
+        opt = PostLocalSGDOptimizer(optim.sgd(0.1), apply_fn, loss_fn,
+                                    period=4, warmup_steps=2)
+        params, opt_state = opt.init(params)      # replica-stacked
+        params, opt_state, losses = opt.step(params, opt_state, x, y)
+    """
+
+    def __init__(self, optimizer, apply_fn, loss_fn, group=None, period: int = 4,
+                 warmup_steps: int = 0, has_rng: bool = False, rng_fn=None, averager=None):
+        from .parallel.localsgd import PeriodicModelAverager, make_localsgd_train_step
+
+        self.optimizer = optimizer
+        self._step = make_localsgd_train_step(apply_fn, loss_fn, optimizer, group=group,
+                                              has_rng=has_rng, rng_fn=rng_fn)
+        # torch's PostLocalSGDOptimizer takes the averager instance: pass a
+        # HierarchicalModelAverager here for tiered averaging
+        self.averager = averager or PeriodicModelAverager(
+            group=group, period=period, warmup_steps=warmup_steps)
+
+    def init(self, params: Tree):
+        """A replica of the params for each of this process's ranks, and
+        each replica's optimizer state."""
+        from . import distributed as dist
+        from .parallel.localsgd import init_stacked_opt_state, stack_replicas
+
+        stacked = stack_replicas(params, len(dist._local_rows(self._step.group)))
+        return stacked, init_stacked_opt_state(self.optimizer, stacked)
+
+    def step(self, params, opt_state, x, y, *seed):
+        """One local step; averages the params when the period is due."""
+        params, opt_state, loss = self._step(params, opt_state, x, y, *seed)
+        params, _ = self.averager.average_parameters(params)
+        return params, opt_state, loss

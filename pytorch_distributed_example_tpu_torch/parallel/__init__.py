@@ -4,7 +4,9 @@ PowerSGD) over the c10d core, in driver and
 multiproc mode; and, in driver mode (the ranks' shards stacked on one
 device), context parallelism (ring attention and Ulysses), sharding rules,
 FSDP (ZeRO-3) with ZeRO-2 and ZeRO-1, tensor parallelism, expert
-parallelism and pipeline parallelism (GPipe, 1F1B, interleaved)."""
+parallelism and pipeline parallelism (GPipe, 1F1B, interleaved); Join
+for uneven inputs and post-local SGD with periodic and hierarchical model
+averaging."""
 
 from . import comm_hooks  # noqa: F401
 from .comm_hooks import (  # noqa: F401
@@ -26,6 +28,15 @@ from .context_parallel import (  # noqa: F401
 )
 from .ddp import DistributedDataParallel, make_ddp_train_step, make_eval_step  # noqa: F401
 from .reducer import Reducer  # noqa: F401
+from .join import Join, Joinable, JoinHook, join_batches  # noqa: F401
+from .localsgd import (  # noqa: F401
+    HierarchicalModelAverager,
+    PeriodicModelAverager,
+    init_stacked_opt_state,
+    make_localsgd_train_step,
+    stack_replicas,
+    unstack_replicas,
+)
 from . import sharding  # noqa: F401
 from . import zero  # noqa: F401
 from .fsdp import (  # noqa: F401

@@ -26,8 +26,12 @@ but send the leaves of one phase together: the collectives are elementwise
 and the quantization blocks never straddle two leaves, so one collective
 a phase gives the per-leaf results bit for bit.
 
-Still to port (ROADMAP, Queue 1 item 3): the quantized hook's eager
-Reducer seam (`for_reducer`) and the planner's hook (`planner_hook`).
+The block-quantized hook also serves the eager bucketed `Reducer`
+(`BlockwiseQuantHook.for_reducer`): a bucket's flat (n, total) buffer a
+call, error feedback carried on the host side per bucket, staged during a
+pass and committed when the whole pass has succeeded. The planner's hook
+(`planner_hook`) comes with the collective planner (ROADMAP, Queue 1
+item 4).
 """
 
 from __future__ import annotations
@@ -278,9 +282,56 @@ class BlockwiseQuantHook:
         hook.__name__ = f"blockwise_quant_hook_{self.wire}_stateless"
         return hook
 
+    def for_reducer(self, group=None):
+        """Adapter for `parallel.reducer.Reducer(comm_hook=...)`: the eager
+        `(backend, flat, bucket_no) -> (out, work)` bucket contract over
+        rank-stacked (n, total) buffers. Error feedback is carried per
+        bucket index, staged during the pass and committed only when
+        `Reducer.reduce` has finished the whole pass, so a `comm.quantize`
+        fault at any bucket and a whole-pass retry replay exactly."""
+        return _ReducerBlockwiseQuantHook(self, group)
+
     def compression_ratio(self, params=None) -> float:
         """Dense float32 wire bytes / this hook's: the wire format's alone."""
         return 4.0 / (_q.wire_itemsize(self.wire) + 4.0 / self.block_size)
+
+
+class _ReducerBlockwiseQuantHook:
+    """Eager bucket-path adapter: see `BlockwiseQuantHook.for_reducer`."""
+
+    wants_bucket_index = True
+
+    def __init__(self, hook: BlockwiseQuantHook, group=None):
+        self.hook = hook
+        self.group = dist._resolve(group)
+        self.__name__ = f"{hook.__name__}_reducer"
+        self._errors: dict = {}  # bucket_no -> (n, total) float32 residual
+        self._pending: dict = {}  # staged this pass; committed at its end
+
+    def __call__(self, backend, flat: torch.Tensor, bucket_no: int = 0):
+        from .. import faults
+        from ..types import OpType, TensorWork
+
+        # the quantized dispatch is the injection seam, fired BEFORE any
+        # state change: residuals are staged per bucket and committed only
+        # by `on_reduce_complete`, so a transient fault at any bucket
+        # leaves the carry untouched and a whole-pass retry replays exactly
+        faults.fire("comm.quantize", bucket=bucket_no)
+        err = self._errors.get(bucket_no)
+        comp = flat.float()
+        if err is not None and err.shape == flat.shape and self.hook.use_error_feedback:
+            comp = comp + err
+        (out,), (resid,) = self.hook._reduce([comp], self.group, with_residual=True)
+        if self.hook.use_error_feedback:
+            self._pending[bucket_no] = resid
+        out = out.to(flat.dtype)
+        return out, TensorWork(out, OpType.ALLREDUCE, "quant_bucket", device=out.device)
+
+    def on_reduce_complete(self) -> None:
+        """Pass-commit seam (called by `Reducer.reduce` after the finalize):
+        this pass's staged residuals become the carried state."""
+        self._errors.update(self._pending)
+        self._pending.clear()
 
 
 def blockwise_quant_hook(bits: int = 8, error_feedback: bool = True, wire: Optional[str] = None,

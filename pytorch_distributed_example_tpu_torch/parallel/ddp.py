@@ -259,6 +259,9 @@ def make_ddp_train_step(
     signature; the eager step has no loop to unroll. As in the reference,
     it does not carry `with_aux`.
 
+    `y` may be a tree of tensors split as `x` is (a join weight beside the
+    labels: `parallel/join.py`).
+
     `shard_weight_update` ("auto", the default, "off", "force") is ZeRO
     weight-update sharding (`parallel/zero.py`): under "auto" at world > 1
     and under "force", gradients are reduce-scattered to their owning 1/W
@@ -267,8 +270,10 @@ def make_ddp_train_step(
     only, with its state held shard-only, and an all-gather rebuilds the
     params. The step accepts a plain `optimizer.init(params)` state and
     converts it; `step.init_opt_state(params)` builds the sharded state,
-    `step.unshard_opt_state(params, state)` the full one. EXACT for
-    elementwise optimizers (`optim.sgd`, `adam`, `adamw`); scalar state
+    `step.unshard_opt_state(params, state)` the full one, and
+    `step.checkpoint_opt_state(params, state)` the reference's checkpoint
+    form (per-leaf padded flats), which `step.shard_opt_state` takes
+    back. EXACT for elementwise optimizers (`optim.sgd`, `adam`, `adamw`); scalar state
     leaves (adam's `count`) stay whole."""
     from ..optim import ZeroRedundancyOptimizer
 
@@ -341,7 +346,7 @@ def make_ddp_train_step(
     def local_grads(params, x, y, seed):
         """Each local rank's gradients (n, *shape), losses (n,) and aux."""
         xs = x.reshape((n_local, -1) + tuple(x.shape[1:]))
-        ys = y.reshape((n_local, -1) + tuple(y.shape[1:]))
+        ys = pytree.tree_map(lambda a: a.reshape((n_local, -1) + tuple(a.shape[1:])), y)
         B = xs.shape[1]
         if B % A:
             raise ValueError(f"a rank's batch of {B} does not split into {A} microbatches")
@@ -350,11 +355,12 @@ def make_ddp_train_step(
             grads, (losses, aux) = per_rank(params, xs, ys, masks[0])
             return grads, losses, aux
         xa = xs.reshape((n_local, A, B // A) + tuple(xs.shape[2:]))
-        ya = ys.reshape((n_local, A, B // A) + tuple(ys.shape[2:]))
+        ya = pytree.tree_map(lambda t: t.reshape((n_local, A, B // A) + tuple(t.shape[2:])), ys)
         gsum = lsum = None
         auxs = []
         for a in range(A):
-            gr, (l, aux) = per_rank(params, xa[:, a], ya[:, a], masks[a])
+            gr, (l, aux) = per_rank(params, xa[:, a], pytree.tree_map(lambda t: t[:, a], ya),
+                                    masks[a])
             gsum = gr if gsum is None else {n: gsum[n] + gr[n] for n in gsum}
             lsum = l if lsum is None else lsum + l
             auxs.append(aux)
@@ -422,21 +428,35 @@ def make_ddp_train_step(
         return optimizer.init(zero.shard_rows(params, g) if zero_update else params)
 
     def shard_opt_state(params, opt_state):
-        """An unsharded state (`optimizer.init(params)`, a restored one)
-        in the sharded layout; a sharded one as it is."""
+        """An unsharded state (`optimizer.init(params)`, a restored one) or
+        one of per-leaf padded flats (`checkpoint_opt_state`'s, the
+        reference's checkpoint form at this world) in the sharded layout;
+        a sharded one as it is."""
         if not zero_update:
             return opt_state
         unsharded, sharded = templates(params)
         shapes = _shapes(opt_state)
         if shapes == _shapes(sharded):
             return opt_state
-        if shapes != _shapes(unsharded):
+        if shapes not in (_shapes(unsharded), _shapes(zero.to_shard_layout(unsharded, W))):
             raise ValueError(
                 "shard_weight_update: the optimizer state matches neither the sharded "
                 "nor the unsharded layout of these params; build it with "
                 "step.init_opt_state() or optimizer.init(params)")
         return pytree.tree_map(
             lambda l: zero.padded_flat(l, W).view(W, -1)[rows].clone() if l.dim() else l,
+            opt_state)
+
+    def checkpoint_opt_state(params, opt_state):
+        """The state as the reference checkpoints its ZeRO state: every
+        param-shaped leaf as its padded flat (W*k,) (`zero.to_shard_layout`),
+        which `checkpoint.load_checkpoint` strips back into an unsharded
+        template at any world (a collective in multiproc mode)."""
+        if not zero_update:
+            return zero.to_shard_layout(opt_state, W)
+        opt_state = shard_opt_state(params, opt_state)
+        return pytree.tree_map(
+            lambda l: (l if n_local == W else zero.unshard(l, g)).reshape(-1) if l.dim() else l,
             opt_state)
 
     def unshard_opt_state(params, opt_state):
@@ -555,6 +575,7 @@ def make_ddp_train_step(
     step.weight_update_sharded = zero_update
     step.init_opt_state = init_opt_state
     step.shard_opt_state = shard_opt_state
+    step.checkpoint_opt_state = checkpoint_opt_state
     step.unshard_opt_state = unshard_opt_state
     step.memory_report = memory_report
     return step

@@ -146,6 +146,42 @@ class FSDPModule:
         """Full (unsharded) params on the host: the rank-0 checkpoint's."""
         return {k: v.full_tensor().detach().cpu() for k, v in self.params.items()}
 
+    def state_dict(self, optimizer=None) -> dict:
+        """The sharded train state, as `checkpoint_sharded.dcp_save` takes
+        it: {"params": name -> DTensor} and, given the step's (sharded)
+        torch optimizer, {"optim": name -> {state key -> DTensor or tensor}}
+        with each param-shaped state (AdamW's moments) in its param's
+        layout. Views of the live tensors, no copies."""
+        out = {"params": {k: DTensor(v._local.detach(), v.device_mesh, v.placements)
+                          for k, v in self.params.items()}}
+        if optimizer is not None:
+            optim = {}
+            for k, v in self.params.items():
+                st = optimizer.state.get(v._local, {})
+                optim[k] = {key: (DTensor(t, v.device_mesh, v.placements)
+                                  if isinstance(t, torch.Tensor) and t.shape == v._local.shape
+                                  else t) for key, t in st.items()}
+            out["optim"] = optim
+        return out
+
+    def load_state_dict(self, state: dict, optimizer=None) -> None:
+        """Copy a `state_dict`-shaped tree (e.g. `dcp_load`'s, into this
+        module's layout) into the live shards and optimizer state, in place."""
+        with torch.no_grad():
+            for k, v in self.params.items():
+                v._local.copy_(state["params"][k]._local)
+        if optimizer is None:
+            return
+        for k, v in self.params.items():
+            saved = state["optim"][k]
+            st = optimizer.state[v._local]
+            for key, t in saved.items():
+                t = t._local if isinstance(t, DTensor) else t
+                if isinstance(st.get(key), torch.Tensor):
+                    st[key].copy_(t)
+                else:
+                    st[key] = t.clone() if isinstance(t, torch.Tensor) else t
+
 
 def fully_shard(module, params=None, mesh: Optional[DeviceMesh] = None, axis: str = "fsdp",
                 rules: Optional[Sequence[shd.Rule]] = None,

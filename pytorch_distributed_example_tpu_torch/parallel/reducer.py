@@ -16,12 +16,19 @@ all-reduce goes through `ProcessGroup._dispatch`, so it has a sequence
 number, a flight-recorder entry and the watchdog's cover. The train step
 (`ddp.make_ddp_train_step`) does not take this path: it reduces one flat
 buffer per step.
+
+A `comm_hook` replaces each bucket's all-reduce, in the reference's eager
+contract `hook(backend, flat) -> (out, work)`, or `hook(backend, flat,
+bucket_no)` for a hook that declares `wants_bucket_index` (the
+block-quantized hook's `for_reducer`, whose error feedback is keyed by
+bucket). A hook with `on_reduce_complete` has it called once a whole pass
+has succeeded.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -80,12 +87,19 @@ class Reducer:
         process_group=None,
         bucket_cap_mb: float = DEFAULT_BUCKET_CAP_MB,
         first_bucket_bytes: int = DEFAULT_FIRST_BUCKET_BYTES,
+        comm_hook: Optional[Callable] = None,
+        gradient_as_bucket_view: bool = False,
     ):
         from .. import distributed as dist
 
         self.group = dist._resolve(process_group)
         self.bucket_cap_bytes = bucket_cap_mb * 1024 * 1024
         self.first_bucket_bytes = first_bucket_bytes
+        if gradient_as_bucket_view:
+            # torch's flag makes the grads views of the buckets; the reduced
+            # tree here is always a fresh one
+            raise NotImplementedError("gradient_as_bucket_view=True: reduce() returns new tensors")
+        self.comm_hook = comm_hook
         self._buckets_spec: Optional[List[List[int]]] = None
         # DDP Logger food (torch logger.hpp:42-90)
         self.stats = {
@@ -135,9 +149,20 @@ class Reducer:
             lengths = [int(torch.Size(s).numel()) for s in shapes]
             offsets = [sum(lengths[:j]) for j in range(len(lengths))]
             flat = torch.cat([leaves[i].reshape(n, -1) for i in idx_list], dim=1)
-            out, work = self.group._dispatch(
-                f"reduce_bucket[{bucket_no}]", flat,
-                lambda flat=flat: backend.allreduce(flat, ReduceOp.AVG), detail=str(ReduceOp.AVG))
+            # `detail` feeds the schedule fingerprint: ranks disagreeing on
+            # which hook runs must diverge even when bucket shapes match
+            hook = self.comm_hook
+            if hook is None:
+                run, detail = (lambda flat=flat: backend.allreduce(flat, ReduceOp.AVG),
+                               str(ReduceOp.AVG))
+            elif getattr(hook, "wants_bucket_index", False):
+                run = lambda flat=flat, bno=bucket_no: hook(backend, flat, bno)  # noqa: E731
+                detail = getattr(hook, "__name__", "comm_hook")
+            else:
+                run = lambda flat=flat: hook(backend, flat)  # noqa: E731
+                detail = getattr(hook, "__name__", "comm_hook")
+            out, work = self.group._dispatch(f"reduce_bucket[{bucket_no}]", flat, run,
+                                             detail=detail)
             in_flight.append(Bucket(idx_list, offsets, lengths, shapes, work, out))
 
         # finalize: wait, then scatter each bucket back (torch finalize_backward)
@@ -147,4 +172,8 @@ class Reducer:
             n = b.flat.shape[0]
             for i, off, ln, shp in zip(b.leaf_indices, b.offsets, b.lengths, b.shapes):
                 new_leaves[i] = b.flat[:, off:off + ln].reshape((n,) + shp)
+        # a stateful hook stages per-bucket state and commits it only after
+        # a whole pass: a fault at ANY bucket leaves the carry untouched
+        if hasattr(self.comm_hook, "on_reduce_complete"):
+            self.comm_hook.on_reduce_complete()
         return pytree.tree_unflatten(new_leaves, treedef)

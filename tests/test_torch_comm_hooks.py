@@ -27,6 +27,8 @@ Tolerances, all float32 unless named:
     both sides, in other orders; the column signs cancel in P Q^T).
 """
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -297,3 +299,138 @@ def test_hook_views_give_per_leaf_hooks_the_reference_layout(group):
                                hook_views={"b": None, "w": (1, 0)})
     step(params, {}, torch.randn(2 * W, 3), torch.zeros(2 * W))
     assert seen == [(5,), (3, 5)]  # each rank's leaf, permuted by its view
+
+
+# ---------------------------------------------------------------------------
+# the eager Reducer with the block-quantized hook (`for_reducer`)
+# ---------------------------------------------------------------------------
+
+REDUCER_WORLD = 4
+# a small cap, so that the leaves below fill several buckets
+REDUCER_CAPS = dict(bucket_cap_mb=400 / 2 ** 20, first_bucket_bytes=256)
+
+
+def _bucket_grads(world, seed):
+    gen = np.random.default_rng(seed)
+    return {f"p{i}": (gen.standard_normal((world, 33 + 7 * i)) * (1 + i)).astype(np.float32)
+            for i in range(6)}
+
+
+@pytest.fixture
+def group4():
+    pg = tdx.init_process_group(world_size=REDUCER_WORLD, device="cpu")
+    yield pg
+    tdx.destroy_process_group()
+
+
+def _port_reducer(pg):
+    from pytorch_distributed_example_tpu_torch.parallel.reducer import Reducer
+
+    hook = comm_hooks.blockwise_quant_hook(bits=8).for_reducer(pg)
+    return Reducer(pg, comm_hook=hook, **REDUCER_CAPS), hook
+
+
+def test_reducer_refuses_gradient_as_bucket_view(group4):
+    """torch's flag makes the grads views of the buckets; the port's
+    reduce() returns new tensors, so True raises rather than being ignored."""
+    from pytorch_distributed_example_tpu_torch.parallel.reducer import Reducer
+
+    assert Reducer(group4, gradient_as_bucket_view=False).comm_hook is None
+    with pytest.raises(NotImplementedError, match="gradient_as_bucket_view"):
+        Reducer(group4, gradient_as_bucket_view=True)
+
+
+def _port_pass(red, grads):
+    out = red.reduce({k: torch.from_numpy(v) for k, v in grads.items()})
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def test_reducer_quant_hook_matches_the_reference_over_three_passes(world, group4):
+    """World 4, several buckets: each pass's reduced leaves and the carried
+    error feedback after 3 passes against the reference's Reducer, within
+    the codec's declared tolerance; every bucket goes through the group's
+    dispatch under the hook's name."""
+    import pytorch_distributed_example_tpu as jtdx
+    from pytorch_distributed_example_tpu.parallel.reducer import Reducer as JReducer
+
+    jg = jtdx.new_group(ranks=list(range(REDUCER_WORLD)))
+    jhook = jhooks.blockwise_quant_hook(bits=8).for_reducer(jg)
+    jred = JReducer(jg, comm_hook=jhook, **REDUCER_CAPS)
+    red, hook = _port_reducer(group4)
+    t0 = time.time()
+    for s in range(3):
+        grads = _bucket_grads(REDUCER_WORLD, s)
+        got = _port_pass(red, grads)
+        want = jax.device_get(jred.reduce(grads))
+        for k in grads:
+            _close_within_a_quantum(got[k], np.asarray(want[k]), (s, k))
+    assert red.stats["num_buckets"] == jred.stats["num_buckets"] >= 3
+    assert red._buckets_spec == jred._buckets_spec
+    assert sorted(hook._errors) == sorted(jhook._errors) == list(range(red.stats["num_buckets"]))
+    for b, err in hook._errors.items():
+        want = np.asarray(jax.device_get(jhook._errors[b]))
+        # a residual moves by at most one phase-1 quantum where the carried
+        # sum sat on a rounding boundary
+        np.testing.assert_allclose(err.numpy(), want, rtol=0,
+                                   atol=np.abs(want).max() * 2 + 1e-6, err_msg=str(b))
+        assert np.isclose(err.numpy(), want, rtol=1e-5, atol=1e-6).mean() >= 0.99
+    names = [e.op for e in global_recorder().entries()
+             if e.group == group4.group_name and e.time_created >= t0]
+    assert names.count("reduce_bucket[1]") == 3
+
+
+def test_reducer_quant_fault_at_bucket_1_then_retry_is_bitwise(group4):
+    """A `comm.quantize` fault at bucket 1 aborts the pass with the error
+    feedback untouched; the whole-pass retry gives the fault-free pass's
+    values bit for bit, pass after pass."""
+    from pytorch_distributed_example_tpu_torch import faults
+
+    steps = [_bucket_grads(REDUCER_WORLD, s) for s in range(4)]
+
+    def run(inject_at=None):
+        red, hook = _port_reducer(group4)
+        hist = []
+        for i, g in enumerate(steps):
+            if inject_at == i:
+                faults.install_plan([{"point": "comm.quantize", "action": "reset", "after": 2}],
+                                    export_env=False)
+            try:
+                out = _port_pass(red, g)
+            except ConnectionResetError:
+                faults.clear_plan()
+                assert not hook._pending or set(hook._pending) == {0}
+                out = _port_pass(red, g)  # whole-pass retry
+            faults.clear_plan()
+            hist.append(out)
+        return hist, hook
+
+    clean, h_clean = run()
+    faulted, h_fault = run(inject_at=2)
+    for a, b in zip(clean, faulted):
+        for k in a:
+            assert a[k].tobytes() == b[k].tobytes(), k
+    for b in h_clean._errors:
+        assert h_clean._errors[b].numpy().tobytes() == h_fault._errors[b].numpy().tobytes()
+
+
+def test_reducer_quant_fault_leaves_staged_state_uncommitted(group4):
+    from pytorch_distributed_example_tpu_torch import faults
+
+    hook = comm_hooks.blockwise_quant_hook().for_reducer(group4)
+    flat = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (REDUCER_WORLD, 256)).astype(np.float32))
+    backend = group4.backend_impl
+    out, work = hook(backend, flat, 0)
+    work.wait()
+    assert 0 in hook._pending and 0 not in hook._errors
+    hook.on_reduce_complete()
+    assert 0 in hook._errors and not hook._pending
+    committed = hook._errors[0].clone()
+    faults.install_plan([{"point": "comm.quantize", "action": "reset"}], export_env=False)
+    try:
+        with pytest.raises(ConnectionResetError):
+            hook(backend, flat, 0)
+    finally:
+        faults.clear_plan()
+    assert torch.equal(hook._errors[0], committed)
+    assert hook.wants_bucket_index and hook.__name__ == "blockwise_quant_hook_int8_reducer"

@@ -8,6 +8,7 @@ JAX nor the JAX package, so it runs where only PyTorch is installed:
 (`--noconftest` because the repository's conftest pins JAX to the CPU.)
 """
 
+import contextlib
 import importlib
 
 import numpy as np
@@ -18,6 +19,7 @@ from pytorch_distributed_example_tpu_torch.dtensor import DTensor
 from pytorch_distributed_example_tpu_torch.examples import lm
 from pytorch_distributed_example_tpu_torch.ops import dense_attention
 from pytorch_distributed_example_tpu_torch.parallel import context_parallel as tcp
+from pytorch_distributed_example_tpu_torch.utils.cpu_reference import cpu_reference
 
 tfa = importlib.import_module("pytorch_distributed_example_tpu_torch.ops.flash_attention")
 
@@ -166,8 +168,10 @@ def test_flash_attention_goes_through_the_kernels():
     for device in ("cpu", "cuda"):
         ts = [torch.tensor(x, device=device, requires_grad=True) for x in (q, k, v)]
         tfa.reset_launch_counts()
-        o = tfa.flash_attention(*ts, causal=True)
-        o.backward(torch.tensor(do, device=device))
+        # the CPU side: primed, and under one intra-op thread (utils/cpu_reference.py)
+        with cpu_reference(threads=1) if device == "cpu" else contextlib.nullcontext():
+            o = tfa.flash_attention(*ts, causal=True)
+            o.backward(torch.tensor(do, device=device))
         counts = dict(tfa.LAUNCHES)
         results.append([o.detach().cpu()] + [t.grad.cpu() for t in ts])
     assert counts == {"flash_fwd": 1, "flash_dkdv": 1, "flash_dq": 1}
@@ -836,3 +840,70 @@ def test_native_flight_recorder_dumps_on_the_card_machine():
     assert entries[0]["op"] == 'all"re\\duce'
     assert [e["state"] for e in entries[-3:]] == ["failed", "enqueued", "completed"]
     assert entries[0]["time_created"] == 1760000000.123456789
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trips_a_card_tree_bitwise(tmp_path):
+    """A bf16 / f32 / int tree on the card through save_checkpoint and
+    load_checkpoint: every leaf back on the card, in its dtype, bitwise."""
+    from pytorch_distributed_example_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"bf": torch.randn(64, 33, device="cuda", generator=gen).to(torch.bfloat16),
+            "f": torch.randn(1000, device="cuda", generator=gen),
+            "i": torch.randint(-9, 9, (5, 7), device="cuda", generator=gen, dtype=torch.int32),
+            "count": torch.tensor(3, dtype=torch.int64, device="cuda")}
+    path = save_checkpoint(str(tmp_path / "ck"), tree, step=4)
+    got, _, step, _ = load_checkpoint(path, {k: torch.empty_like(v) for k, v in tree.items()})
+    assert step == 4
+    for k, v in tree.items():
+        assert got[k].device == v.device and got[k].dtype == v.dtype, k
+        bits = (lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+        assert torch.equal(bits(got[k]), bits(v)), k
+
+
+@pytest.mark.cuda
+def test_grad_scaler_verdict_is_unanimous_on_the_card():
+    """One rank row's inf: the min over the rank dim and the group's MIN
+    all-reduce both make every rank skip."""
+    import pytorch_distributed_example_tpu_torch as tdx
+    from pytorch_distributed_example_tpu_torch import amp
+
+    _need_card()
+    pg = tdx.init_process_group(world_size=8)
+    try:
+        scaler = amp.GradScaler(init_scale=2.0 ** 16)
+        state = scaler.init("cuda")
+        grads = {"w": torch.ones(8, 4, 3, device="cuda"), "b": torch.ones(8, 3, device="cuda")}
+        grads["w"][5, 2, 1] = float("inf")
+        for kw in ({"axis_name": "dp"}, {"group": pg}):
+            out, finite = scaler.unscale(grads, state, **kw)
+            assert finite.device.type == "cuda" and not bool(finite), kw
+            assert float(scaler.update(state, finite).scale) == 2.0 ** 15
+        grads["w"][5, 2, 1] = 1.0
+        assert bool(scaler.unscale(grads, state, group=pg)[1])
+    finally:
+        tdx.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_dcp_reshards_2_ranks_to_1_on_the_card(tmp_path):
+    import pytorch_distributed_example_tpu_torch as tdx
+    from pytorch_distributed_example_tpu_torch.dtensor import Shard, distribute_tensor
+    from pytorch_distributed_example_tpu_torch.mesh import DeviceMesh
+
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    full = {"w": torch.randn(8, 6, device="cuda", generator=gen),
+            "v": torch.randn(16, device="cuda", generator=gen).to(torch.bfloat16)}
+    mesh2 = DeviceMesh(["cuda:0"] * 2, (2,), ("fsdp",))
+    mesh1 = DeviceMesh(["cuda:0"], (1,), ("fsdp",))
+    state = {k: distribute_tensor(v, mesh2, [Shard(0)]) for k, v in full.items()}
+    path = tdx.dcp_save(state, str(tmp_path / "two"))
+    specs = {"w": ("fsdp",), "v": ("fsdp",)}
+    got = tdx.dcp_load(tdx.resharded_template(state, mesh1, specs=specs), path)
+    for k, v in full.items():
+        assert got[k].device.type == "cuda" and got[k].device_mesh == mesh1
+        bits = (lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+        assert torch.equal(bits(got[k].full_tensor()), bits(v)), k

@@ -64,8 +64,9 @@ def test_port_imports_nothing_of_jax():
     # ops, models, examples, parallel, the c10d core, data, DDP, sharded
     # training, generation, serving on one card and across ranks and
     # pools, the planner's schedules, the ResNet and BERT workloads, the
-    # pipeline and the dry run, and their modules
-    assert int(count) >= 84
+    # pipeline and the dry run, checkpoints and the training utilities,
+    # and their modules
+    assert int(count) >= 91
     for name in ("ops.flash_attention", "parallel", "parallel.context_parallel",
                  "distributed", "store", "backends.stacked", "backends.process",
                  "examples.toy", "data.sampler", "data.loader", "models.convnet",
@@ -78,7 +79,9 @@ def test_port_imports_nothing_of_jax():
                  "plan", "plan.topology", "plan.schedules", "plan.transfer", "serve.router",
                  "serve.autoscale", "serve.elastic", "serve.disagg", "serve.disagg.migrate",
                  "serve.disagg.router", "optim", "utils.remat", "models.resnet", "models.bert",
-                 "examples.cifar", "parallel.comm_hooks", "parallel.pipeline", "dryrun"):
+                 "examples.cifar", "parallel.comm_hooks", "parallel.pipeline", "dryrun",
+                 "checkpoint", "checkpoint_sharded", "amp", "nn.utils", "parallel.join",
+                 "parallel.localsgd", "utils.cpu_reference"):
         assert f"pytorch_distributed_example_tpu_torch.{name}" in modules.split(), name
 
 
