@@ -230,11 +230,42 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    beside the stock pass, and a `comm.quantize` fault at bucket 1 with a
    whole-pass retry bitwise the fault-free pass. No flash kernel may
    launch.
-19. report: one JSON line of kernels (each Hopper kernel once per Pallas
+19. multiproc: the training parallelisms as process gangs that share
+   cuda:0 over gloo (`backend="cuda:gloo"`; nccl refuses two ranks on
+   one GPU), each rank a `python3 chip_smoke.py --worker PART RANK WORLD
+   PORT BACKEND` process, the files they exchange under `.multiproc_smoke/`
+   (removed after), each gang under a timeout: (a) CFG_1B dense at full
+   width and depth over fsdp 2 x tp 2 as 4 processes: the first step
+   against the single card on the same weights and tokens (|dloss| <=
+   1e-2, every gathered gradient's rms ratio <= 3e-2, the worst printed),
+   the three steps' losses within 1e-2 of `[fsdp_tp]`'s driver-mode ones,
+   a warm-up and 2 timed steps (the bytes each process hands gloo, the
+   host seconds inside the collectives, the backend's staged bytes and
+   seconds), one step with its launches counted (16 each of F, KV, Q a
+   process, wgmma; rank 0 under the profiler); (b) the ring (flash
+   block) at `[ring]`'s shape as 4 processes, output and gradients
+   against the driver-mode ring on the card under `RING_GRAD_TOL`,
+   process r launching F, KV and Q r + 1 times a call, its sends staged
+   through pinned memory; Ulysses (flash inside) against its driver-mode
+   form; (c) 1F1B of CFG_1B's 16 blocks at pp 4, M 8, a stage a process,
+   loss and every stage's gradients against driver mode's 1F1B (the bf16
+   tolerance above), each process's launches (2 F, 1 KV, 1 Q a block a
+   microbatch, wgmma) and the peak memory of its timed step, the process
+   holding its stage's blocks and the head's weights but no model; (d) `make_ep_moe` at 4
+   ep ranks and 8 experts, `ep_moe_check`'s shapes in float32 (TF32 off),
+   against driver mode (rtol 1e-4, atol 1e-5 of the largest entry); (e)
+   `examples/cifar.main(... --init-method ...)` at world 2 x 128 images
+   (ResNet-18, SyncBN, float32, `cudnn.deterministic`): the first step's
+   loss, batch statistics and params against driver mode at world 2
+   (rtol 1e-4, atol 1e-6); (f) (a)'s step at 4 layers as a world-1 nccl
+   gang against the single card.
+20. report: one JSON line of kernels (each Hopper kernel once per Pallas
    lowering it replaces, with its design, "wgmma" or "simt", and its
-   launches per phase, `serve_fleet`, `cifar`, `bert`, `dryrun`, `ckpt`
-   and `train_utils` among them), the card's name and power limit, then
-   the `ok` line.
+   launches per phase, `serve_fleet`, `cifar`, `bert`, `dryrun`, `ckpt`,
+   `train_utils`, `multiproc` ((a)'s and (c)'s gang processes' counted
+   launches, in the resident rows) and `multiproc_ring` ((b)'s, in the
+   streamed rows) among them), the card's name and power limit, then the
+   `ok` line.
 
 Every float32 card-vs-CPU check computes its CPU side under
 `utils/cpu_reference.py`'s `cpu_reference()`.
@@ -242,6 +273,7 @@ Every float32 card-vs-CPU check computes its CPU side under
 
 import contextlib
 import dataclasses
+import gc
 import importlib
 import io
 import json
@@ -261,6 +293,7 @@ import torch
 import pytorch_distributed_example_tpu_torch as tdx
 from pytorch_distributed_example_tpu_torch import bench, dryrun, optim
 from pytorch_distributed_example_tpu_torch import checkpoint_sharded as cs
+from pytorch_distributed_example_tpu_torch.backends import process as bp
 from pytorch_distributed_example_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from pytorch_distributed_example_tpu_torch.data import DataLoader, DistributedSampler, SyntheticMNIST
 from pytorch_distributed_example_tpu_torch.examples import cifar, lm, mnist, toy
@@ -273,7 +306,7 @@ from pytorch_distributed_example_tpu_torch.models import (
     convert_sync_batchnorm,
     transformer_sharding_rules,
 )
-from pytorch_distributed_example_tpu_torch.models.transformer import Block, rope_freqs
+from pytorch_distributed_example_tpu_torch.models.transformer import Block, RMSNorm, rope_freqs
 from pytorch_distributed_example_tpu_torch.ops import _build, dense_attention, quant
 from pytorch_distributed_example_tpu_torch.parallel import comm_hooks, fully_shard
 from pytorch_distributed_example_tpu_torch.parallel import pipeline as pp
@@ -329,7 +362,8 @@ REPLACES = {
 }
 # the phases that drive the port's main paths, by the regime they put the
 # kernels in
-PHASES = {"resident": ("slice", "fsdp_tp", "dryrun", "ckpt"), "streamed": ("ring", "long")}
+PHASES = {"resident": ("slice", "fsdp_tp", "dryrun", "ckpt", "multiproc"),
+          "streamed": ("ring", "long", "multiproc_ring")}
 
 
 class SmokeFailure(RuntimeError):
@@ -1393,6 +1427,9 @@ def sharded_first_step(argv, grads=True, dims=None):
     return mod, opt, next_tokens, args, n_params, loss
 
 
+SHARDED_LOSSES = {}  # argv -> the driver-mode losses of its first FSDP_TP_STEPS steps
+
+
 def sharded_train(argv, card, timed_steps, grads=True, dims=None):
     """`sharded_first_step`, then three steps with a finite, falling loss,
     `timed_steps` timed steps, and one profiled step whose launches are
@@ -1404,6 +1441,7 @@ def sharded_train(argv, card, timed_steps, grads=True, dims=None):
     for _ in range(FSDP_TP_STEPS - 1):
         losses.append(float(lm.train_step(mod, opt, next_tokens())))
     print(f"  losses of the first {FSDP_TP_STEPS} steps: {losses}")
+    SHARDED_LOSSES[tuple(argv)] = losses  # [multiproc] holds its gang to these
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           "the sharded trainer's loss is not finite and falling")
     # the step after the checked ones still ran ~40% slow on the H100
@@ -3810,10 +3848,613 @@ def train_utils_phase(card):
     return routes
 
 
+# multiproc mode: the training parallelisms as process gangs on cuda:0
+
+MP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".multiproc_smoke")
+MP_WORLD = 4
+MP_BACKEND = "cuda:gloo"  # gloo carries the CUDA tensors: nccl refuses two ranks on one GPU
+MP_WARMUP_STEPS, MP_TIMED_STEPS = 1, 2
+MP_NCCL_ARGV = SLICE_ARGV + ["--n-layers", "4"]  # (f): (a)'s width at 4 layers, a rank
+MP_CIFAR_WORLD = 2
+MP_CIFAR_TOL = dict(rtol=1e-4, atol=1e-6)
+MP_EP_TOL = dict(rtol=1e-4, atol_frac=1e-5)  # F32_TOL: float32 in another order
+# a gang's whole run, start-up and kernel load included (a hung gang fails)
+MP_TIMEOUT_S = {"fsdp_tp": 600, "ring": 300, "pipeline": 300, "ep": 240, "cifar": 300,
+                "nccl": 240}
+
+
+def mp_path(name):
+    return os.path.join(MP_DIR, name)
+
+
+def mp_gang(part, world=MP_WORLD, backend=MP_BACKEND):
+    """Run `mp_worker(part, ...)` as ranks 0..world-1 of one gang, each a
+    `python3 chip_smoke.py --worker ...` process on cuda:0. Prints rank 0's
+    report (every rank's output when one fails) and returns each rank's
+    JSON result. A rank that fails or a gang past its timeout fails the
+    phase; every process is ended either way."""
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    for r in range(world):
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(mp_path(f"{part}_{r}.json"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker", part,
+                               str(r), str(world), str(port), backend],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
+                              cwd=root) for r in range(world)]
+    outs, timed_out = [], False
+    try:
+        for p in procs:
+            left = max(1.0, MP_TIMEOUT_S[part] - (time.perf_counter() - t0))
+            try:
+                outs.append(p.communicate(timeout=left)[0].decode(errors="replace"))
+            except subprocess.TimeoutExpired:
+                timed_out = True
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    failed = timed_out or any(p.returncode for p in procs)
+    for r, text in enumerate(outs):
+        if r == 0 or failed:
+            for line in text.splitlines():
+                print(f"    [rank {r}] {line}" if failed else f"  {line}")
+    check(not timed_out, f"[multiproc] {part}: the gang hung past {MP_TIMEOUT_S[part]} s")
+    check(not failed, f"[multiproc] {part}: a rank failed (exit codes "
+          f"{[p.returncode for p in procs]})")
+    results = []
+    for r in range(world):
+        with open(mp_path(f"{part}_{r}.json")) as f:
+            results.append(json.load(f))
+    print(f"  {part}: gang of {world} over {backend} in {time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def mp_init(rank, world, port, backend):
+    tdx.init_process_group(backend=backend, init_method=f"tcp://127.0.0.1:{port}",
+                           rank=rank, world_size=world, timeout=MP_TIMEOUT_S["fsdp_tp"])
+
+
+def mp_stats():
+    """The c10d transport's counters since the last reset (this process)."""
+    return {"bytes": dict(bp.STATS["bytes"]), "seconds": dict(bp.STATS["seconds"]),
+            "staging_s": bp.STATS["staging_s"], "staged_bytes": bp.STATS["staged_bytes"]}
+
+
+def mp_timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+# -- (a) CFG_1B over fsdp 2 x tp 2 --------------------------------------------
+
+
+def mp_fsdp_tp_worker(rank, world):
+    """The trainer's FSDP step as rank `rank`: its shards, its data rank's
+    2 rows, the mesh's axis groups. The first step's gathered gradients
+    against the single card's (rank 0), three checked steps, warm-up and
+    timed steps, and one step with its launches counted (rank 0 under the
+    profiler)."""
+    args = lm.parse_args(FSDP_TP_ARGV)
+    mod, opt, next_tokens = lm.build(args, world=world)
+    check(mod.mesh.multiproc and mod.mesh.get_coordinate() is not None,
+          "the gang's trainer should run over a multiproc mesh")
+    q = mod.params["layers.0.attn.q_proj.weight"]._local
+    losses = [float(lm.train_step(mod, opt, next_tokens()))]
+    want = torch.load(mp_path("ref_grads.pt"), mmap=True) if rank == 0 else None
+    worst, worst_name = 0.0, None
+    for name, dt in mod.params.items():  # a collective: every rank, the same order
+        got = DTensor(dt._local.grad, dt.device_mesh, dt.placements).full_tensor()
+        if rank == 0:
+            r = rel_rms(got, want[name].to(got.device))
+            if r > worst:
+                worst, worst_name = r, name
+        del got
+    del want
+    for _ in range(FSDP_TP_STEPS - 1):
+        losses.append(float(lm.train_step(mod, opt, next_tokens())))
+    for _ in range(MP_WARMUP_STEPS):
+        lm.train_step(mod, opt, next_tokens())
+    torch.cuda.reset_peak_memory_stats()
+    bp.reset_stats()
+    step_s = []
+    for _ in range(MP_TIMED_STEPS):
+        batch = next_tokens()
+        loss, secs = mp_timed(lambda: lm.train_step(mod, opt, batch))
+        step_s.append(secs)
+    stats = mp_stats()
+    peak = torch.cuda.max_memory_allocated()
+    fa.reset_launch_counts()
+    batch = next_tokens()
+    if rank == 0:
+        print("[profile] rank 0's step under torch.profiler (the other ranks unprofiled)")
+        profile_step(lambda: lm.train_step(mod, opt, batch), sum(step_s) / len(step_s) * 1e3)
+    else:
+        lm.train_step(mod, opt, batch)
+    return {"losses": losses, "worst": worst, "worst_name": worst_name,
+            "step_s": step_s, "stats": stats, "peak": peak, "local_q": list(q.shape),
+            "launches": dict(fa.LAUNCHES), "routes": dict(fa.ROUTE_LAUNCHES),
+            "loss_finite": math.isfinite(float(loss))}
+
+
+def mp_driver_losses():
+    """The driver-mode [fsdp_tp] losses of the first FSDP_TP_STEPS steps, or
+    (when that phase did not run in this process) the same run here."""
+    if tuple(FSDP_TP_ARGV) in SHARDED_LOSSES:
+        return SHARDED_LOSSES[tuple(FSDP_TP_ARGV)]
+    mod, opt, next_tokens, _, _, first = sharded_first_step(FSDP_TP_ARGV, grads=False)
+    losses = [first] + [float(lm.train_step(mod, opt, next_tokens()))
+                        for _ in range(FSDP_TP_STEPS - 1)]
+    del mod, opt
+    torch.cuda.empty_cache()
+    return losses
+
+
+def mp_fsdp_tp(card):
+    """(a): the single card's first step on the same weights and tokens,
+    its gradients saved for rank 0; the gang; its checks."""
+    driver = mp_driver_losses()
+    model, _, next_tokens = lm.build(lm.parse_args([*FSDP_TP_ARGV, "--tp", "1"]), world=1)
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = next_tokens()
+    loss1 = lm.loss_fn(model(tokens), tokens)
+    loss1.backward()
+    torch.save({n: p.grad.cpu() for n, p in model.named_parameters()}, mp_path("ref_grads.pt"))
+    loss1 = float(loss1.detach())
+    del model
+    torch.cuda.empty_cache()
+    print(f"  (a) CFG_1B dense (vocab {cfg.vocab_size}, d {cfg.d_model}, {cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads, seq {lm.parse_args(FSDP_TP_ARGV).seq}, global batch "
+          f"{lm.parse_args(FSDP_TP_ARGV).batch_size}, {cfg.dtype}; {n_params / 1e6:.1f}M params) "
+          f"over fsdp 2 x tp 2 as {MP_WORLD} processes on cuda:0 over {MP_BACKEND}")
+    res = mp_gang("fsdp_tp")
+    os.remove(mp_path("ref_grads.pt"))
+    r0 = res[0]
+    losses = r0["losses"]
+    print(f"  first step against the single card on the same weights and tokens: loss "
+          f"{losses[0]:.5f} vs {loss1:.5f}; largest rms(grad diff)/rms(grad) {r0['worst']:.3e} "
+          f"({r0['worst_name']})")
+    check(abs(losses[0] - loss1) <= SHARDED_LOSS_TOL and r0["worst"] <= SHARDED_GRAD_RMS,
+          f"the gang's step disagrees with the single card (|dloss| <= {SHARDED_LOSS_TOL}, "
+          f"rms ratio <= {SHARDED_GRAD_RMS})")
+    gap = max(abs(a - b) for a, b in zip(losses, driver))
+    print(f"  losses of the first {FSDP_TP_STEPS} steps {losses} against driver mode's "
+          f"{driver}: largest |diff| {gap:.3e}")
+    check(all(r["losses"] == losses for r in res), "the ranks report different losses")
+    check(gap <= SHARDED_LOSS_TOL, "the gang's losses stray from driver mode's beyond 1e-2")
+    step = max(max(r["step_s"]) for r in res)
+    mean = sum(sum(r["step_s"]) for r in res) / sum(len(r["step_s"]) for r in res)
+    args = lm.parse_args(FSDP_TP_ARGV)
+    print(f"  step times (s) by rank {[r['step_s'] for r in res]}; mean step {mean * 1e3:.1f} "
+          f"ms (slowest {step * 1e3:.1f}), {args.batch_size * args.seq / mean:.0f} tokens/s; "
+          f"peak memory by rank {[round(r['peak'] / 2 ** 30, 2) for r in res]} GiB  [{card}]")
+    st = r0["stats"]
+    per_step = {k: v // MP_TIMED_STEPS for k, v in st["bytes"].items()}
+    coll_s = sum(st["seconds"].values()) / MP_TIMED_STEPS
+    print(f"  rank 0 a step: collective bytes handed to gloo {per_step} "
+          f"({sum(per_step.values()) / 2 ** 30:.2f} GiB), host seconds inside the collectives "
+          f"{coll_s:.3f} ({coll_s / mean:.1%} of the step; gloo's own device<->host copies "
+          f"included), staged through pinned memory by the backend {st['staged_bytes']} bytes "
+          f"in {st['staging_s']:.4f} s")
+    for r, rr in enumerate(res):
+        check(rr["local_q"][:2] == [1, 1], f"rank {r} should hold one shard: {rr['local_q']}")
+        check(rr["loss_finite"], "non-finite loss in a timed step")
+        check(rr["launches"] == {n: cfg.n_layers for n in REPLACES}
+              and rr["routes"] == want_routes(cfg.n_layers),
+              f"rank {r}: F, KV and Q should launch once a layer on the wgmma route: "
+              f"{rr['launches']} {rr['routes']}")
+    print(f"  launches in the counted step, each rank: {r0['launches']} ({r0['routes']})")
+    return sum_routes(res)
+
+
+def sum_routes(results):
+    out = {name: 0 for name in fa.ROUTE_LAUNCHES}
+    for r in results:
+        for k, v in r["routes"].items():
+            out[k] += v
+    return out
+
+
+# -- (b) the ring and Ulysses at world 4 ---------------------------------------
+
+
+def mp_ring_inputs():
+    W, Ls, B, H, D = MP_WORLD, RING_SHARD, 1, 16, 128
+    gen = torch.Generator(device="cuda").manual_seed(W * Ls)
+    return [torch.randn((B, W * Ls, H, D), device="cuda", generator=gen, dtype=torch.bfloat16)
+            for _ in range(4)]
+
+
+def mp_shards(x, W):
+    B, L, H, D = x.shape
+    return x.reshape(B, W, L // W, H, D).transpose(0, 1).contiguous()
+
+
+def mp_ulysses_attn(q, k, v, causal=True, scale=None):
+    from pytorch_distributed_example_tpu_torch.ops import flash_attention
+
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                           scale=scale)
+
+
+def mp_cp_call(fn, shards, do):
+    xs = [x.clone().requires_grad_() for x in shards]
+    o = fn(*xs)
+    o.backward(do)
+    return [o.detach()] + [x.grad for x in xs]
+
+
+def mp_ring_worker(rank, world):
+    mesh = tdx.init_device_mesh(("sp",), (world,))
+    mine = [mp_shards(x, world)[rank:rank + 1] for x in mp_ring_inputs()]
+    ring = lambda q, k, v: cp.ring_attention(q, k, v, causal=True, block_kernel="flash",  # noqa
+                                             axis_name="sp")
+    uly = lambda q, k, v: cp.ulysses_attention(q, k, v, attn_fn=mp_ulysses_attn,  # noqa
+                                               causal=True, axis_name="sp")
+    out = {}
+    with mesh:
+        mp_cp_call(ring, mine[:3], mine[3])  # warm-up
+        fa.reset_launch_counts()
+        bp.reset_stats()
+        got, secs = mp_timed(lambda: mp_cp_call(ring, mine[:3], mine[3]))
+        out["ring_launches"], out["routes"] = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
+        out["ring_s"], out["ring_stats"] = secs, mp_stats()
+        want = torch.load(mp_path(f"ring_{rank}.pt"))
+        out["ring"] = [compare(g, w.to(g.device), **(BF16_TOL if i == 0 else RING_GRAD_TOL))
+                       for i, (g, w) in enumerate(zip(got, want))]
+        got, secs = mp_timed(lambda: mp_cp_call(uly, mine[:3], mine[3]))
+        out["uly_s"] = secs
+        want = torch.load(mp_path(f"ulysses_{rank}.pt"))
+        out["ulysses"] = [compare(g, w.to(g.device), **(BF16_TOL if i == 0 else RING_GRAD_TOL))
+                          for i, (g, w) in enumerate(zip(got, want))]
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def mp_ring(card):
+    """(b): the driver-mode ring and Ulysses on the same card and inputs,
+    each shard's output and gradients saved; the gang; its checks."""
+    W = MP_WORLD
+    q, k, v, do = mp_ring_inputs()
+    stacked = [mp_shards(x, W) for x in (q, k, v, do)]
+    del q, k, v, do
+    drivers = {"ring": lambda a, b, c: cp.ring_attention(a, b, c, causal=True,
+                                                          block_kernel="flash"),
+               "ulysses": lambda a, b, c: cp.ulysses_attention(a, b, c, attn_fn=mp_ulysses_attn,
+                                                               causal=True)}
+    for name, fn in drivers.items():
+        got = mp_cp_call(fn, stacked[:3], stacked[3])
+        for r in range(W):
+            torch.save([t[r:r + 1].cpu() for t in got], mp_path(f"{name}_{r}.pt"))
+        del got
+    del stacked
+    torch.cuda.empty_cache()
+    print(f"  (b) the ring (flash block) and Ulysses, {W} shards of {RING_SHARD} (B 1, H 16, "
+          f"D 128, bf16, causal) as {W} processes, against driver mode on the card")
+    res = mp_gang("ring")
+    for r, rr in enumerate(res):
+        names = ("o", "dq", "dk", "dv")
+        text = ", ".join(f"{n} {e:.2e} ({ok})" for n, (e, _, ok) in zip(names, rr["ring"]))
+        utext = ", ".join(f"{n} {e:.2e} ({ok})" for n, (e, _, ok) in zip(names, rr["ulysses"]))
+        st = rr["ring_stats"]
+        print(f"  rank {r}: ring max |diff| {text}; launches {rr['ring_launches']}; "
+              f"{rr['ring_s'] * 1e3:.1f} ms a call (forward and backward), "
+              f"{sum(st['bytes'].values()) / 2 ** 20:.0f} MiB sent in "
+              f"{sum(st['seconds'].values()):.3f} s, {st['staged_bytes'] / 2 ** 20:.0f} MiB "
+              f"staged in {st['staging_s']:.3f} s; Ulysses max |diff| {utext}, "
+              f"{rr['uly_s'] * 1e3:.1f} ms; peak {rr['peak'] / 2 ** 30:.2f} GiB  [{card}]")
+        check(all(ok for _, _, ok in rr["ring"]) and all(ok for _, _, ok in rr["ulysses"]),
+              f"rank {r}: the gang's ring or Ulysses disagrees with driver mode")
+        check(rr["ring_launches"] == {n: r + 1 for n in REPLACES},
+              f"rank {r} should launch each of F, KV and Q {r + 1} times a ring call (the "
+              f"causal skip): {rr['ring_launches']}")
+        check(st["staged_bytes"] > 0, "the ring's sends should be staged through host memory")
+    for r in range(W):
+        for name in drivers:
+            os.remove(mp_path(f"{name}_{r}.pt"))
+    return sum_routes(res)
+
+
+# -- (c) the 1F1B pipeline of CFG_1B's blocks at pp 4 ---------------------------
+
+
+def mp_pipeline_setup(M):
+    """The config, stage function, head loss, stacked block params, hidden
+    states and tokens of [dryrun]'s pipeline check. The model is not kept:
+    the head loss holds only the final norm's and the LM head's weights."""
+    args = lm.parse_args(PIPE_ARGV)
+    cfg = lm.config_for(args)
+    L, S = args.seq, PIPE_STAGES
+    per = cfg.n_layers // S
+    model = TransformerLM(cfg, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(0))
+    gen = np.random.default_rng(0)
+    data = np.cumsum(gen.integers(1, 7, 200_000)) % cfg.vocab_size
+    starts = gen.integers(0, len(data) - L, PIPE_MICRO_BIG)
+    tokens = torch.from_numpy(np.stack([data[s_:s_ + L] for s_ in starts])).to(
+        "cuda", torch.int64).view(PIPE_MICRO_BIG, 1, L)[:M]
+    with torch.no_grad():
+        hidden = model.tok_embed(tokens).to(cfg.dtype)
+    norm_w, head_w = model.final_norm.weight.detach(), model.lm_head.weight.detach()
+    blocks = stacked_blocks(model, per)
+    del model
+    norm = RMSNorm(cfg.d_model, cfg.norm_eps, device="meta")
+
+    def head_loss(y, t):
+        h = torch.func.functional_call(norm, {"weight": norm_w}, (y,))
+        return lm.loss_fn(torch.nn.functional.linear(h, head_w.to(cfg.dtype)).float(), t)
+
+    return cfg, block_stage_fn(cfg, per, L), head_loss, blocks, hidden, tokens
+
+
+def mp_pipeline_worker(rank, world):
+    cfg, stage, head_loss, params, hidden, tokens = mp_pipeline_setup(PIPE_MICRO)
+    mine = {k: v[rank:rank + 1].clone() for k, v in params.items()}  # not a view of all
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = tdx.init_device_mesh(("pp",), (world,))
+    f1b = pp.make_pipeline_train_fn(stage, head_loss, mesh, schedule="1f1b")
+    f1b(mine, hidden, tokens)  # warm-up
+    # the peak of the timed step over what the process holds: its stage's
+    # blocks, the microbatches' hidden states and tokens, the head's weights
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    bp.reset_stats()
+    (loss, grads), secs = mp_timed(lambda: f1b(mine, hidden, tokens))
+    want_loss, want = torch.load(mp_path(f"pp_{rank}.pt"))
+    worst = max((rel_rms(g, want[k].to(g.device)), k) for k, g in grads.items())
+    return {"loss": float(loss), "want_loss": want_loss, "worst": worst, "step_s": secs,
+            "peak": torch.cuda.max_memory_allocated(), "held": held, "stats": mp_stats(),
+            "launches": dict(fa.LAUNCHES), "routes": dict(fa.ROUTE_LAUNCHES)}
+
+
+def mp_pipeline(card):
+    """(c): the driver-mode 1F1B on the same card, each stage's gradients
+    saved; the gang, a stage a process; its checks."""
+    M, S = PIPE_MICRO, PIPE_STAGES
+    cfg, stage, head_loss, params, hidden, tokens = mp_pipeline_setup(M)
+    mesh = tdx.DeviceMesh(["cuda"] * S, (S,), ("pp",))
+    loss, grads = pp.make_pipeline_train_fn(stage, head_loss, mesh, schedule="1f1b")(
+        params, hidden, tokens)
+    for s in range(S):
+        torch.save((float(loss), {k: g[s].cpu() for k, g in grads.items()}),
+                   mp_path(f"pp_{s}.pt"))
+    del params, grads, hidden
+    torch.cuda.empty_cache()
+    print(f"  (c) 1F1B of CFG_1B's {cfg.n_layers} blocks at pp {S}, M {M} microbatches of 1 x "
+          f"{tokens.shape[-1]} tokens, bf16, as {S} processes (a stage each), against driver "
+          f"mode's 1F1B on the card")
+    res = mp_gang("pipeline")
+    per = cfg.n_layers // S
+    want = {"flash_fwd": 2 * per * M, "flash_dkdv": per * M, "flash_dq": per * M}
+    want_r = {**{k: 0 for k in fa.ROUTE_LAUNCHES}, **{f"{k}:wgmma": n for k, n in want.items()}}
+    for r, rr in enumerate(res):
+        st = rr["stats"]
+        print(f"  stage {r}: loss {rr['loss']:.5f} vs {rr['want_loss']:.5f}; largest rms(grad "
+              f"diff)/rms(grad) {rr['worst'][0]:.3e} ({rr['worst'][1]}); step "
+              f"{rr['step_s'] * 1e3:.1f} ms; peak memory {rr['peak'] / 2 ** 30:.2f} GiB "
+              f"({rr['held'] / 2 ** 30:.2f} GiB held before the step); "
+              f"launches {rr['launches']}; {sum(st['bytes'].values()) / 2 ** 20:.0f} MiB "
+              f"sent, staged in {st['staging_s']:.3f} s  [{card}]")
+        check(abs(rr["loss"] - rr["want_loss"]) <= SHARDED_LOSS_TOL
+              and rr["worst"][0] <= SHARDED_GRAD_RMS,
+              f"stage {r}: the gang's 1F1B disagrees with driver mode's (|dloss| <= "
+              f"{SHARDED_LOSS_TOL}, rms ratio <= {SHARDED_GRAD_RMS})")
+        check(rr["launches"] == want and rr["routes"] == want_r,
+              f"stage {r}: each of its {per} blocks should launch F twice (forward and "
+              f"recompute), KV and Q once a microbatch, on the wgmma route: {rr['launches']} "
+              f"{rr['routes']}")
+    for s in range(S):
+        os.remove(mp_path(f"pp_{s}.pt"))
+    return sum_routes(res)
+
+
+# -- (d) make_ep_moe at 4 ep ranks ---------------------------------------------
+
+
+def mp_ep_inputs(T_=4096, D=2048, F_=5504, E=EP_EXPERTS):
+    """ep_moe_check's shapes in float32 (routing is discrete)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(T_, D, device="cuda", generator=gen)
+    up = torch.randn(E, D, F_, device="cuda", generator=gen) / math.sqrt(D)
+    down = torch.randn(E, F_, D, device="cuda", generator=gen) / math.sqrt(F_)
+    router = torch.randn(D, E, device="cuda", generator=gen) / math.sqrt(D)
+    ct = torch.randn(T_, D, device="cuda", generator=gen)
+    return x, up, down, router, ct
+
+
+def mp_ep_run(mesh):
+    """(y, aux, the router's gradient of sum(y * ct) + aux) of make_ep_moe."""
+    x, up, down, router, ct = mp_ep_inputs()
+    router.requires_grad_()
+    y, aux = ep.make_ep_moe(mesh, "ep")(x, up, down, router)
+    ((y * ct).sum() + aux).backward()
+    return y.detach(), float(aux.detach()), router.grad
+
+
+def mp_ep_worker(rank, world):
+    mesh = tdx.init_device_mesh(("ep",), (world,))
+    (y, aux, grad), secs = mp_timed(lambda: mp_ep_run(mesh))
+    g = DistTensor.from_process_local(grad, mesh.get_group("ep"))
+    tdx.all_reduce(g, group=mesh.get_group("ep"))  # each process's tokens' share
+    want_y, want_aux, want_g = torch.load(mp_path("ep.pt"))
+    return {"y": compare(y, want_y.to(y.device), **MP_EP_TOL), "aux": abs(aux - want_aux),
+            "grad": compare(g.tensor[0], want_g.to(y.device), **MP_EP_TOL), "s": secs}
+
+
+def mp_ep(card):
+    mesh = tdx.DeviceMesh(["cuda"] * EP_WORLD, (EP_WORLD,), ("ep",))
+    y, aux, grad = mp_ep_run(mesh)
+    torch.save((y.cpu(), aux, grad.cpu()), mp_path("ep.pt"))
+    del y, grad
+    torch.cuda.empty_cache()
+    print(f"  (d) make_ep_moe at {EP_WORLD} ep ranks, {EP_EXPERTS} experts, ep_moe_check's "
+          f"shapes in float32 (TF32 off), as {EP_WORLD} processes against driver mode")
+    res = mp_gang("ep")
+    for r, rr in enumerate(res):
+        print(f"  rank {r}: y max |diff| {rr['y'][0]:.3e}, |daux| {rr['aux']:.3e}, the "
+              f"router's summed gradient max |diff| {rr['grad'][0]:.3e}; {rr['s'] * 1e3:.1f} ms")
+        check(rr["y"][2] and rr["grad"][2] and rr["aux"] <= 1e-6,
+              f"rank {r}: the gang's make_ep_moe disagrees with driver mode (rtol 1e-4, atol "
+              f"1e-5 of the largest entry; |daux| <= 1e-6)")
+    os.remove(mp_path("ep.pt"))
+
+
+# -- (e) ResNet-18 SyncBN through examples/cifar.main --------------------------
+
+
+def mp_cifar_argv(world):
+    return ["--world-size", str(world), "--epochs", "1", "--batch-size", str(CIFAR_BATCH),
+            "--train-size", str(world * CIFAR_BATCH), "--test-size", "64"]
+
+
+def mp_cifar_worker(rank, world, port, backend):
+    torch.backends.cudnn.deterministic = True
+    out = cifar.main(mp_cifar_argv(world) + ["--backend", backend, "--init-method",
+                                            f"tcp://127.0.0.1:{port}", "--rank", str(rank)])
+    if rank == 0:
+        torch.save(({k: v.cpu() for k, v in out["params"].items()},
+                    {k: v.cpu() for k, v in out["stats"].items()}), mp_path("cifar.pt"))
+    return {"losses": out["losses"]}
+
+
+def mp_cifar(card):
+    """(e): one step of the example at world 2, driver mode here, then the
+    gang through `--init-method`; float32, cuDNN's deterministic
+    algorithms."""
+    W = MP_CIFAR_WORLD
+    torch.backends.cudnn.deterministic = True
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            want = cifar.main(mp_cifar_argv(W))
+        print(f"  (e) ResNet-18 SyncBN, world {W} x {CIFAR_BATCH} images, one step of "
+              f"`examples/cifar.main(... --init-method ...)` as {W} processes against driver "
+              f"mode at world {W} (float32, cudnn.deterministic)")
+        res = mp_gang("cifar", world=W)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    params, stats = torch.load(mp_path("cifar.pt"))
+    os.remove(mp_path("cifar.pt"))
+    loss, want_loss = res[0]["losses"][0], want["losses"][0]
+
+    def worst(got, ref):
+        return max(float(((got[k] - ref[k].cpu()).abs()
+                          / (MP_CIFAR_TOL["atol"] + MP_CIFAR_TOL["rtol"] * ref[k].cpu().abs())
+                          ).max()) for k in ref)
+
+    wp, ws = worst(params, want["params"]), worst(stats, want["stats"])
+    print(f"  first step: loss {loss:.6f} vs {want_loss:.6f}; the largest |diff| over its "
+          f"tolerance (rtol 1e-4, atol 1e-6): params {wp:.3f}, batch stats {ws:.3f}")
+    check(res[0]["losses"] == res[1]["losses"], "the cifar ranks report different losses")
+    check(abs(loss - want_loss) <= MP_CIFAR_TOL["atol"] + MP_CIFAR_TOL["rtol"] * abs(want_loss)
+          and wp <= 1 and ws <= 1,
+          "the SyncBN gang's first step disagrees with driver mode (rtol 1e-4, atol 1e-6)")
+
+
+# -- (f) a world-1 nccl gang of (a)'s step at 4 layers ---------------------------
+
+
+def mp_nccl_worker(rank, world):
+    import torch.distributed as tdist
+
+    args = lm.parse_args(MP_NCCL_ARGV)
+    model, _, next_tokens = lm.build(args, world=1)
+    tokens = next_tokens()
+    with torch.no_grad():
+        single = float(lm.loss_fn(model(tokens), tokens))
+    mod = lm.shard(model, args.lr, 1, 1)
+    opt = mod.step.init_opt_state(mod.params)
+    bp.reset_stats()
+    losses = [float(lm.train_step(mod, opt, tokens))]
+    losses += [float(lm.train_step(mod, opt, next_tokens())) for _ in range(2)]
+    return {"single": single, "losses": losses, "backend": str(tdist.get_backend()),
+            "multiproc": mod.mesh.multiproc, "ops": sorted(mp_stats()["bytes"])}
+
+
+def mp_nccl(card):
+    res = mp_gang("nccl", world=1, backend="nccl")[0]
+    print(f"  (f) a world-1 nccl gang of (a)'s step at 4 layers: torch backend "
+          f"{res['backend']}, collectives {res['ops']}; first loss {res['losses'][0]:.5f} vs "
+          f"{res['single']:.5f} on the single card; losses {res['losses']}")
+    check(res["backend"] == "nccl" and res["multiproc"] and "all_reduce" in res["ops"],
+          "the world-1 gang should run the multiproc step over nccl")
+    check(abs(res["losses"][0] - res["single"]) <= SHARDED_LOSS_TOL
+          and all(math.isfinite(x) for x in res["losses"]),
+          "the world-1 nccl gang's step disagrees with the single card")
+
+
+MP_WORKERS = {"fsdp_tp": mp_fsdp_tp_worker, "ring": mp_ring_worker,
+              "pipeline": mp_pipeline_worker, "ep": mp_ep_worker, "nccl": mp_nccl_worker}
+
+
+def mp_worker(argv):
+    """`chip_smoke.py --worker PART RANK WORLD PORT BACKEND`: one rank of a
+    [multiproc] gang; writes its result as JSON for the phase."""
+    part, rank, world, port, backend = argv[0], int(argv[1]), int(argv[2]), int(argv[3]), argv[4]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if part == "cifar":  # the example brings its gang up itself
+        res = mp_cifar_worker(rank, world, port, backend)
+    else:
+        mp_init(rank, world, port, backend)
+        try:
+            res = MP_WORKERS[part](rank, world)
+        finally:
+            tdx.destroy_process_group()
+    with open(mp_path(f"{part}_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def multiproc_phase(card):
+    """The training parallelisms as process gangs that share cuda:0, over
+    gloo ("cuda:gloo"): (a) CFG_1B over fsdp 2 x tp 2, (b) the ring and
+    Ulysses, (c) 1F1B at pp 4, (d) make_ep_moe, (e) SyncBN through the
+    CIFAR example, (f) a world-1 nccl gang. Returns the gangs' counted
+    flash launches by route, by the regime each part puts the kernels in:
+    (a)'s and (c)'s under "multiproc" (resident), (b)'s ring under
+    "multiproc_ring" (streamed)."""
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    os.makedirs(MP_DIR)
+    launches = {key: {name: 0 for name in fa.ROUTE_LAUNCHES}
+                for key in ("multiproc", "multiproc_ring")}
+    parts = (("multiproc", mp_fsdp_tp), ("multiproc_ring", mp_ring), ("multiproc", mp_pipeline),
+             (None, mp_ep), (None, mp_cifar), (None, mp_nccl))
+    try:
+        for key, part in parts:
+            t0 = time.perf_counter()
+            got = part(card)
+            if key is not None:
+                for k, v in got.items():
+                    launches[key][k] += v
+            torch.cuda.empty_cache()
+            print(f"  {part.__name__} in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(MP_DIR, ignore_errors=True)
+    print(f"  counted flash launches by regime: {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--worker"]:  # one rank of a [multiproc] gang
+        return mp_worker(sys.argv[2:])
 
     # 1. card
     t_start = time.perf_counter()
@@ -3946,7 +4587,13 @@ def main():
     phase_launches["train_utils"] = train_utils_phase(card)
     print(f"  train_utils in {time.perf_counter() - t0:.1f} s")
 
-    # 19. report
+    # 19. the training parallelisms in multiproc mode: process gangs on cuda:0
+    t0 = time.perf_counter()
+    print("[multiproc]")
+    phase_launches.update(multiproc_phase(card))
+    print(f"  multiproc in {time.perf_counter() - t0:.1f} s")
+
+    # 20. report
     kernels = []
     for name, lowerings in REPLACES.items():
         for regime, replaces in lowerings.items():

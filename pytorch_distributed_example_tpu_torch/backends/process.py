@@ -20,12 +20,28 @@ semantics of `backends/stacked.py` and the same dtypes:
   the reference does;
 * the driver-mode permute becomes isend/irecv pairs.
 
+gloo carries CUDA tensors too (the `"cuda:gloo"` backend: processes that
+share one card). Its collectives copy a CUDA row to host memory and back
+on their own streams, but its send and recv read the row's pointer as
+host memory, so `GLOO_CUDA_STAGED` names the ops whose CUDA rows this
+backend stages itself through pinned host memory: the device-to-host
+copy is synchronized before the send, the received row goes back on the
+current stream. The table is fixed, not found by catching an error.
+
 The collectives run synchronously; the `TensorWork` then records an event
 on the current stream, which nccl's stream has been joined to.
+
+`STATS` counts, for the process, the bytes each op hands its transport
+(this process's input rows), the host seconds inside each op's
+torch.distributed calls (which block until done, so on a card they
+include gloo's own host copies) and the seconds spent staging;
+`reset_stats()` zeroes them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Any, Sequence, Tuple
 
 import torch
@@ -47,6 +63,26 @@ _NATIVE_OPS = {
 }
 
 
+# ops whose CUDA rows gloo cannot carry: ProcessGroupGloo's send/recv hand
+# the tensor's pointer to gloo's host buffers as it is
+GLOO_CUDA_STAGED = frozenset({"permute"})
+
+STATS = {"bytes": {}, "seconds": {}, "staging_s": 0.0, "staged_bytes": 0}
+
+
+def reset_stats() -> None:
+    STATS.update(bytes={}, seconds={}, staging_s=0.0, staged_bytes=0)
+
+
+@contextlib.contextmanager
+def _count(op: str, t: torch.Tensor):
+    """Count `t`'s bytes and the block's host seconds under `op`."""
+    STATS["bytes"][op] = STATS["bytes"].get(op, 0) + t.numel() * t.element_size()
+    t0 = time.perf_counter()
+    yield
+    STATS["seconds"][op] = STATS["seconds"].get(op, 0.0) + time.perf_counter() - t0
+
+
 def wire(t: torch.Tensor) -> torch.Tensor:
     """What goes on the wire: bool travels as its bytes."""
     return t.view(torch.uint8) if t.dtype == torch.bool else t
@@ -61,6 +97,24 @@ class ProcessBackend(Backend):
                  torch_group):
         super().__init__(mesh.flattened("_ranks"), rank, world_size, timeout)
         self.torch_group = torch_group
+        gloo_cuda = mesh.device.type == "cuda" and "gloo" in str(tdist.get_backend(torch_group))
+        self.staged = GLOO_CUDA_STAGED if gloo_cuda else frozenset()
+
+    def _to_host(self, row: torch.Tensor) -> torch.Tensor:
+        """A pinned host copy of a CUDA row, complete before it is sent."""
+        t0 = time.perf_counter()
+        host = torch.empty(row.shape, dtype=row.dtype, pin_memory=True)
+        host.copy_(row, non_blocking=True)
+        torch.cuda.current_stream(row.device).synchronize()
+        STATS["staging_s"] += time.perf_counter() - t0
+        STATS["staged_bytes"] += row.numel() * row.element_size()
+        return host
+
+    def _from_host(self, dst: torch.Tensor, host: torch.Tensor) -> None:
+        t0 = time.perf_counter()
+        dst.copy_(host, non_blocking=True)
+        STATS["staging_s"] += time.perf_counter() - t0
+        STATS["staged_bytes"] += host.numel() * host.element_size()
 
     def _global(self, group_rank: int) -> int:
         return tdist.get_global_rank(self.torch_group, group_rank)
@@ -73,8 +127,9 @@ class ProcessBackend(Backend):
         """Every rank's row, stacked: (W, *row.shape)."""
         out = torch.empty((self.world_size,) + tuple(row.shape), dtype=row.dtype,
                           device=row.device)
-        tdist.all_gather(list(wire(out).unbind(0)), wire(row.contiguous()),
-                         group=self.torch_group)
+        with _count("all_gather", row):
+            tdist.all_gather(list(wire(out).unbind(0)), wire(row.contiguous()),
+                             group=self.torch_group)
         return out
 
     def _reduced(self, row: torch.Tensor, op) -> torch.Tensor:
@@ -86,7 +141,8 @@ class ProcessBackend(Backend):
             y = premul_operand(row, op.factor)
         else:
             y = row.clone()
-        tdist.all_reduce(y, op=_NATIVE_OPS[base], group=self.torch_group)
+        with _count("all_reduce", y):
+            tdist.all_reduce(y, op=_NATIVE_OPS[base], group=self.torch_group)
         if base == ReduceOp.AVG:
             y = y.to(avg_dtype(row.dtype)) / self.world_size
         return y.to(row.dtype) if isinstance(op, _PremulSum) else y
@@ -97,7 +153,8 @@ class ProcessBackend(Backend):
 
     def broadcast(self, x, src: int) -> Tuple[Any, Work]:
         out = x.clone()
-        tdist.broadcast(wire(out), src=self._global(src), group=self.torch_group)
+        with _count("broadcast", out):
+            tdist.broadcast(wire(out), src=self._global(src), group=self.torch_group)
         return self._work(out, OpType.BROADCAST, "broadcast")
 
     def reduce(self, x, dst: int, op: Any = ReduceOp.SUM) -> Tuple[Any, Work]:
@@ -129,24 +186,33 @@ class ProcessBackend(Backend):
     def alltoall(self, x) -> Tuple[Any, Work]:
         # x: (1, W, *s); chunk j goes to rank j, chunk i of the output came from rank i
         out = torch.empty_like(x)
-        tdist.all_to_all_single(wire(out[0]), wire(x[0].contiguous()),
-                                group=self.torch_group)
+        with _count("all_to_all", x):
+            tdist.all_to_all_single(wire(out[0]), wire(x[0].contiguous()),
+                                    group=self.torch_group)
         return self._work(out, OpType.ALLTOALL, "all_to_all")
 
     def permute(self, x, perm: Sequence[Tuple[int, int]]) -> Tuple[Any, Work]:
         out, row = x.clone(), x[0].contiguous()
-        reqs = []
+        staged = "permute" in self.staged
+        reqs, recv, sent = [], None, None
         for s, d in perm:
             s, d = int(s), int(d)
             if s == d == self.rank:
                 continue  # a rank sending to itself keeps its row
             if s == self.rank:
-                reqs.append(tdist.isend(wire(row), dst=self._global(d), group=self.torch_group))
+                buf = self._to_host(row) if staged else row
+                sent = buf
+                reqs.append(tdist.isend(wire(buf), dst=self._global(d), group=self.torch_group))
             if d == self.rank:
-                reqs.append(tdist.irecv(wire(out[0]), src=self._global(s),
+                recv = (torch.empty(row.shape, dtype=row.dtype, pin_memory=True) if staged
+                        else out[0])
+                reqs.append(tdist.irecv(wire(recv), src=self._global(s),
                                         group=self.torch_group))
-        for req in reqs:
-            req.wait()
+        with _count("permute", sent if sent is not None else row[:0]):
+            for req in reqs:
+                req.wait()
+        if staged and recv is not None:
+            self._from_host(out[0], recv)
         return self._work(out, OpType.SEND, "permute")
 
     def barrier(self) -> Work:

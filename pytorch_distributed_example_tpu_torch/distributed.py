@@ -21,8 +21,10 @@ Two execution modes share this API, as in the reference:
   and torch.distributed's rendezvous (`_TorchStore`); each process holds
   its row as a `(1, *shape)` DistTensor and collectives go through
   torch.distributed (`backends/process.py`): gloo for CPU tensors, nccl
-  for CUDA tensors. Point-to-point ops are torch.distributed's send and
-  recv.
+  for CUDA tensors, or gloo for CUDA tensors too when the backend is
+  given in torch's device form, `"cuda:gloo"` (processes that share one
+  card: nccl refuses two ranks on one GPU). Point-to-point ops are
+  torch.distributed's send and recv.
 
 Not ported yet, with their place in ROADMAP.md: the collective planner
 behind `plan_args` (the parameter is accepted and ignored) and the direct
@@ -312,6 +314,9 @@ class _WorldState:
     # multiproc: the adapter torch.distributed holds; kept referenced here,
     # since torch keeps only its C++ half alive
     torch_store: Optional["_TorchStore"] = None
+    # multiproc: the transport of CUDA tensors ("nccl", or "gloo" when the
+    # backend was given as "cuda:gloo")
+    cuda_transport: str = "nccl"
 
 
 _world = _WorldState()
@@ -403,7 +408,28 @@ def _card(rank: int) -> torch.device:
 
 
 def _torch_backend(device: torch.device) -> str:
-    return "nccl" if device.type == "cuda" else "gloo"
+    """torch.distributed's backend for a group of this process's tensors.
+    gloo carrying CUDA tensors keeps a CPU half for the rows it stages
+    through host memory (`backends/process.py`)."""
+    if device.type != "cuda":
+        return "gloo"
+    return "cpu:gloo,cuda:gloo" if _world.cuda_transport == "gloo" else "nccl"
+
+
+def _split_backend(backend: str) -> Tuple[str, Optional[str]]:
+    """(registered backend name, CUDA transport or None) of a backend
+    string; torch's device form "cuda:gloo" (or "cpu:gloo,cuda:gloo")
+    names the transport of CUDA tensors."""
+    if ":" not in backend:
+        return backend, None
+    try:
+        pairs = dict(part.split(":") for part in backend.split(","))
+    except ValueError:
+        raise ValueError(f"backend {backend!r}: expected device:backend pairs") from None
+    cuda = pairs.get("cuda")
+    if cuda not in ("gloo", "nccl") or set(pairs.values()) - {"gloo", "nccl"}:
+        raise ValueError(f"backend {backend!r}: CUDA tensors travel by gloo or nccl")
+    return cuda, cuda
 
 
 def init_process_group(
@@ -425,6 +451,10 @@ def init_process_group(
     strings "xla", "gloo" and "nccl" name the same collective backend, so
     the reference's stock CLI (`--backend gloo`) runs unchanged.
 
+    `backend="cuda:gloo"` (torch's device form) carries CUDA tensors by
+    gloo in multiproc mode, for processes that share one card; nccl, the
+    default for CUDA tensors, refuses two ranks on one GPU.
+
     Multiproc mode is asked for by an `init_method`, by a `store` with a
     `rank`, or by a launcher's RANK/WORLD_SIZE (then `env://`); otherwise
     this process drives every rank. `device` is where this process's
@@ -445,7 +475,7 @@ def init_process_group(
             "multiproc mode builds its own from the port's store"
         )
 
-    backend = (backend or "xla").lower()
+    backend, cuda_transport = _split_backend((backend or "xla").lower())
     _backends.creator_of(backend)  # an unknown backend raises before any setup
     tsec = _timeout_seconds(timeout)
     multiproc = init_method is not None or (store is not None and rank >= 0) or (
@@ -464,6 +494,7 @@ def init_process_group(
         dev = torch.device(device) if device is not None else _card(rank)
         _world.mode = "multiproc"
         _world.process_rank = rank
+        _world.cuda_transport = cuda_transport or "nccl"
     else:
         if rank not in (-1, 0):
             raise ValueError(
@@ -967,6 +998,24 @@ def all_to_all(tensor, group=None, async_op: bool = False):
                             async_op=async_op)
     res = DistTensor(out, g)
     return (res, work) if async_op else res
+
+
+def permute(tensor, perm, group=None, async_op: bool = False):
+    """Move rows between ranks: for each (src, dst) pair of `perm`, rank
+    dst's row becomes rank src's (the reference's `ppermute`); a rank no
+    pair sends to keeps its row. In place on the DistTensor. Multiproc
+    mode runs it as isend/irecv pairs, so every rank of the group calls
+    it with the same pairs, a rank with nothing to send or receive too."""
+    g = _resolve(group)
+    dt = _as_dist(tensor, g)
+    perm = [(int(s), int(d)) for s, d in perm]
+    for s_, d_ in perm:
+        g._check_member(s_)
+        g._check_member(d_)
+    out, work = g._dispatch("permute", dt.tensor,
+                            lambda: g.backend_impl.permute(dt.tensor, perm),
+                            detail=f"perm={perm}", async_op=async_op)
+    return _finish(dt, out, work, async_op)
 
 
 def barrier(group=None, async_op: bool = False, device_ids=None):

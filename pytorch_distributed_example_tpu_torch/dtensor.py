@@ -22,6 +22,16 @@ the result's sharding back from XLA's propagation, the port keeps the
 left operand's placements when the result has its shape and replicates it
 otherwise.
 
+In multiproc mode (a multiproc mesh, `mesh.py`) a DTensor's local is
+this process's own shard, its stack dims all of size 1.
+`distribute_tensor` keeps this process's chunk of a full tensor that
+every process holds (the same value, e.g. from one seed: torch would
+scatter rank 0's), `full_tensor` all-gathers the Shard axes and
+all-reduces the Partial ones over the mesh's axis groups (the
+differentiable collectives of `nn.functional`; as torch's, its backward
+hands each process its own slice of the cotangent), and `redistribute`
+and the arithmetic go through it.
+
 `redistribute_tree` moves leaves across meshes shard to shard, and
 `redistribute_for_serving` takes a trainer's params (e.g. over
 ("fsdp", "tp")) to the tensor-parallel serve layout over ("tp",).
@@ -100,8 +110,10 @@ def _normalize(placements, mesh: DeviceMesh, ndim: Optional[int] = None) -> Tupl
 
 
 def stack_shape(mesh: DeviceMesh, placements) -> Tuple[int, ...]:
-    """The leading dims a DTensor's local stack has for these placements."""
-    return tuple(1 if isinstance(p, Replicate) else n for p, n in zip(placements, mesh.shape))
+    """The leading dims a DTensor's local stack has for these placements
+    (all 1 in multiproc mode: this process's shard)."""
+    return tuple(1 if isinstance(p, Replicate) else n
+                 for p, n in zip(placements, mesh.local_shape))
 
 
 def spec_to_placements(spec, mesh: DeviceMesh) -> Tuple:
@@ -175,7 +187,7 @@ class DTensor:
         n_stacks = sum(not isinstance(p, Replicate) for p in placements)
         placements = _normalize(placements, mesh, ndim=local.dim() - n_stacks)
         i = 0
-        for p, n in zip(placements, mesh.shape):
+        for p, n in zip(placements, mesh.local_shape):
             if isinstance(p, Replicate):
                 local = local.unsqueeze(i)
             elif local.shape[i] != n:
@@ -195,6 +207,8 @@ class DTensor:
         leading dim per Partial axis) when some placement is Partial; the
         global value when all are Replicate; else every rank's shard, in
         flat mesh order (c10d rank order)."""
+        if self._mesh.multiproc:  # this process's shard (or pending addend)
+            return self._local.reshape(self.local_shape)
         partial = any(isinstance(p, Partial) for p in self._placements)
         if partial:
             if any(isinstance(p, Shard) for p in self._placements):
@@ -207,21 +221,61 @@ class DTensor:
             return self._local.reshape(self.local_shape)
         return [self.rank_local(idx) for idx in _positions(self._mesh.shape)]
 
-    def full_tensor(self) -> torch.Tensor:
+    def full_tensor(self, data_axes: Sequence[str] = (), keep: Sequence[str] = ()
+                    ) -> torch.Tensor:
         """The global value (torch `full_tensor`): Partial addends reduced,
-        shards concatenated. Differentiable."""
-        a = self._local
+        shards concatenated. Differentiable.
+
+        `keep` names mesh axes left as they are: their rank dims lead the
+        result, in mesh order, over the value gathered along the other
+        axes (a tp rank's part of a weight, say). `data_axes` matters over
+        a multiproc mesh only, for a forward over this process's data
+        rank: there the processes of a data axis compute different things,
+        so its gather keeps its rank dim (backward: reduce_scatter of their
+        cotangents) and a value replicated over it is `replicate`d first,
+        on the shard (backward: all_reduce); over any other axis the
+        processes compute the same thing, and the replica forms apply. In
+        driver mode one graph holds every rank and sums their cotangents
+        itself."""
         nstack = len(self._mesh.shape)
-        # reduce the Partial axes, then join the Shard axes, last axis first
-        for i in reversed(range(nstack)):
-            p = self._placements[i]
-            if isinstance(p, Partial):
-                a = fold(p.reduce_op)(a.movedim(i, 0)).unsqueeze(i)
-        for i in reversed(range(nstack)):
-            p = self._placements[i]
-            if isinstance(p, Shard):
-                a = torch.cat(a.unbind(i), dim=nstack - 1 + p.dim).unsqueeze(i)
-        return a.reshape(self.shape)
+        names = self._mesh.axis_names
+        drop = tuple(i for i in range(nstack) if names[i] not in keep)
+        a = self._full_multiproc(drop, data_axes) if self._mesh.multiproc else self._local
+        if not self._mesh.multiproc:
+            # reduce the Partial axes, then join the Shard axes, last axis first
+            for i in reversed(drop):
+                p = self._placements[i]
+                if isinstance(p, Partial):
+                    a = fold(p.reduce_op)(a.movedim(i, 0)).unsqueeze(i)
+            for i in reversed(drop):
+                p = self._placements[i]
+                if isinstance(p, Shard):
+                    a = torch.cat(a.unbind(i), dim=nstack - 1 + p.dim).unsqueeze(i)
+        if not keep:
+            return a.reshape(self.shape)
+        return a.squeeze(drop) if drop else a
+
+    def _full_multiproc(self, drop, data_axes) -> torch.Tensor:
+        from .nn import functional as nnf
+
+        a, names = self._local, self._mesh.axis_names
+        with self._mesh:
+            for i in reversed(drop):
+                if isinstance(self._placements[i], Replicate) and names[i] in data_axes:
+                    a = nnf.replicate(a.squeeze(i), names[i], 1, axes=names)
+            for i in reversed(drop):
+                p = self._placements[i]
+                if isinstance(p, Partial):
+                    if names[i] in data_axes:
+                        raise ValueError(f"a pending {p} over the data axis {names[i]!r}")
+                    a = nnf.all_reduce(a, p.reduce_op, names[i], axes=names,
+                                       replica=True).unsqueeze(i)
+            for i in reversed(drop):
+                p, data = self._placements[i], names[i] in data_axes
+                if isinstance(p, Shard):
+                    a = nnf.all_gather(a, names[i], p.dim, axes=names, replica=not data)
+                    a = a if data else a.unsqueeze(i)
+        return a
 
     def to_global(self) -> torch.Tensor:
         """The global value; refuses pending Partial reductions."""
@@ -294,6 +348,11 @@ def distribute_tensor(tensor, device_mesh: DeviceMesh, placements) -> DTensor:
             raise ValueError(f"dim {p.dim} of size {t.shape[p.dim]} not divisible by mesh "
                              f"axis {ax!r} size {n}")
     nstack = len(mesh.shape)
+    if mesh.multiproc:  # this process's chunk of every Shard axis
+        for i, (p, n) in enumerate(zip(placements, mesh.shape)):
+            if isinstance(p, Shard):
+                a = a.chunk(n, p.dim)[mesh.get_coordinate()[i]]
+        return DTensor(a.reshape((1,) * nstack + tuple(a.shape)).clone(), mesh, placements)
     a = a.reshape((1,) * nstack + tuple(t.shape))
     for i, (p, n) in enumerate(zip(placements, mesh.shape)):
         if isinstance(p, Shard):
@@ -346,6 +405,8 @@ def _move(x, mesh: DeviceMesh, placements) -> DTensor:
     if not isinstance(x, DTensor):
         return distribute_tensor(x, mesh, placements)
     src = x.device_mesh
+    if src.multiproc or mesh.multiproc:  # through the global value, this process's chunk
+        return distribute_tensor(x.full_tensor(), mesh, placements)
     kept = [i for i, ax in enumerate(src.axis_names) if ax in mesh.axis_names]
     if [src.axis_names[i] for i in kept] != list(mesh.axis_names) or \
             [src.shape[i] for i in kept] != list(mesh.shape):

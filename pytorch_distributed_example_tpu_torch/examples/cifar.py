@@ -11,13 +11,18 @@ averaged over the ranks inside it (`models/resnet.py`), the gradients and
 the loss reduced by the port's c10d AVG all-reduce, the running statistics
 taken from the synced forward.
 
-Driver mode only: one process drives every rank, on `cuda:0`, or on the
-CPU with `--cpu`; `--world-size -1` means 8 ranks on the card and 2 with
-`--cpu`. Multiproc SyncBatchNorm is not ported, so `--init-method`
-raises. It runs on the card unless `--cpu` is given, and raises without
-one.
+Driver mode: one process drives every rank, on `cuda:0`, or on the CPU
+with `--cpu`; `--world-size -1` means 8 ranks on the card and 2 with
+`--cpu`. Multiproc mode (`--init-method`, with `--rank` and
+`--world-size`): one process a rank, each loading its own rank's
+batches; the norms' statistics are all-reduced over the gang inside the
+forward (`models/resnet.py`). Processes that share one card pass
+`--backend cuda:gloo` (nccl refuses two ranks on one GPU). It runs on the
+card unless `--cpu` is given, and raises without one.
 
 Run:  python -m pytorch_distributed_example_tpu_torch.examples.cifar --epochs 2 --batch-size 128
+      python -m pytorch_distributed_example_tpu_torch.examples.cifar --cpu \
+          --init-method tcp://127.0.0.1:29512 --rank R --world-size 2   (each R)
 """
 
 from __future__ import annotations
@@ -35,7 +40,9 @@ import pytorch_distributed_example_tpu_torch as tdx
 from pytorch_distributed_example_tpu_torch import distributed as dist
 from pytorch_distributed_example_tpu_torch import optim
 from pytorch_distributed_example_tpu_torch.data import DistributedSampler
+from pytorch_distributed_example_tpu_torch.mesh import DeviceMesh
 from pytorch_distributed_example_tpu_torch.models import ResNet18, convert_sync_batchnorm
+from pytorch_distributed_example_tpu_torch.nn.functional import RANKS
 from pytorch_distributed_example_tpu_torch.tensor import DistTensor
 from pytorch_distributed_example_tpu_torch.types import ReduceOp
 
@@ -53,21 +60,14 @@ def synthetic_cifar(n: int, seed: int):
     return x, y
 
 
-def _check_driver(model) -> None:
-    if dist._world.mode != "driver" and model.bn_axis_name is not None:
-        raise NotImplementedError(
-            "SyncBatchNorm in multiproc mode is not ported (ROADMAP): run the ranks in "
-            "driver mode")
-
-
 def make_train_step(model, optimizer, group=None):
     """`step(params, stats, opt_state, x, y) -> (params, stats, opt_state,
     loss)`: params and stats (the running buffers) dicts of tensors on the
     group's device; x (global batch, 32, 32, 3) NHWC and y int64 labels,
     rank-major; loss the mean over ranks."""
     g = dist._resolve(group)
-    _check_driver(model)
     n_local = len(dist._local_rows(g))
+    ranks_mesh = DeviceMesh.from_group(g, RANKS)  # SyncBN's ranks (multiproc: the group)
 
     def objective(params, stats, x, y):
         logits, new = functional_call(model, {**params, **stats}, (x,), {"train": True})
@@ -78,7 +78,8 @@ def make_train_step(model, optimizer, group=None):
     def step(params, stats, opt_state, x, y):
         xs = x.reshape((n_local, -1) + tuple(x.shape[1:]))
         ys = y.reshape(n_local, -1)
-        grads, (losses, new) = per_rank(params, stats, xs, ys)
+        with ranks_mesh:
+            grads, (losses, new) = per_rank(params, stats, xs, ys)
         names = list(params)
         flat = DistTensor.wrap(torch.cat([grads[n].reshape(n_local, -1) for n in names], 1), g)
         dist.all_reduce(flat, ReduceOp.AVG, g)
@@ -131,7 +132,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser()
     p.add_argument("--backend", default="xla")
     p.add_argument("--init-method", default=None,
-                   help="multiproc mode (not ported for SyncBatchNorm: raises)")
+                   help="multiproc mode: this process is rank --rank of a gang of "
+                        "--world-size that meets at this URL")
     p.add_argument("--world-size", type=int, default=-1)
     p.add_argument("--rank", type=int, default=-1)
     p.add_argument("--epochs", type=int, default=2)
@@ -148,21 +150,23 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> dict:
     args = parse_args(argv)
-    if args.init_method is not None:
-        raise NotImplementedError(
-            "SyncBatchNorm in multiproc mode is not ported (ROADMAP): omit --init-method "
-            "to drive every rank from this process")
     if not args.cpu and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --cpu to run the ranks on the CPU")
     if not args.cpu:
         # float32 as the reference computes it: no TF32 in the convolutions or matmuls
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    world = args.world_size if args.world_size != -1 else (CPU_RANKS if args.cpu else CARD_RANKS)
-    pg = tdx.init_process_group(backend=args.backend, world_size=world,
-                                device="cpu" if args.cpu else None)
+    device = "cpu" if args.cpu else None
+    if args.init_method is not None:  # multiproc: the gang's world size and this rank
+        pg = tdx.init_process_group(backend=args.backend, init_method=args.init_method,
+                                    world_size=args.world_size, rank=args.rank, device=device)
+    else:
+        world = args.world_size if args.world_size != -1 else (
+            CPU_RANKS if args.cpu else CARD_RANKS)
+        pg = tdx.init_process_group(backend=args.backend, world_size=world, device=device)
     try:
         W, device = tdx.get_world_size(), pg.device
+        local = dist._local_rows(pg)  # the ranks whose batches this process loads
         print(f"backend={tdx.get_backend()} world_size={W} device={device}")
         dtype = torch.bfloat16 if args.bf16 else torch.float32
         model = build(device, dtype)
@@ -175,7 +179,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         xtr, ytr = synthetic_cifar(args.train_size, 0)
         xte, yte = synthetic_cifar(args.test_size, 1)
         samplers = [DistributedSampler(range(len(xtr)), num_replicas=W, rank=r, shuffle=True)
-                    for r in range(W)]
+                    for r in local]
         losses, epochs = [], []
         for epoch in range(1, args.epochs + 1):
             for s in samplers:
@@ -194,13 +198,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 train_loss += losses[-1]
             dt = time.perf_counter() - t0
             n_eval = len(xte) // W * W
-            correct = evaluate(params, stats, torch.from_numpy(xte[:n_eval]).to(device, dtype),
-                               torch.from_numpy(yte[:n_eval]).to(device).long())
+            per = n_eval // W
+            rows = np.concatenate([np.arange(r * per, (r + 1) * per) for r in local])
+            correct = evaluate(params, stats, torch.from_numpy(xte[rows]).to(device, dtype),
+                               torch.from_numpy(yte[rows]).to(device).long())
             acc = float(correct) / n_eval
             sps = steps * args.batch_size * W / dt
+            where = ("every rank on one device" if len(local) == W
+                     else "one rank a process")
             print(f"Epoch: {epoch}/{args.epochs}, train loss: {train_loss / max(steps, 1):.4f}, "
-                  f"test acc: {acc * 100:.2f}%, {sps:.0f} samples/s ({sps:.0f}/device: "
-                  f"every rank on one device)")
+                  f"test acc: {acc * 100:.2f}%, {sps:.0f} samples/s "
+                  f"({sps * len(local) / W:.0f}/device: {where})")
             epochs.append({"train_loss": train_loss / max(steps, 1), "test_acc": acc,
                            "samples_per_s": sps})
         return {"losses": losses, "epochs": epochs, "params": params, "stats": stats}

@@ -20,7 +20,9 @@ fsdp = W // tp: `fully_shard` by `transformer_sharding_rules("tp",
 of ranks in driver mode, all of them on the one device: the
 TDX_EXAMPLES_CPU_DEVICES variable (default 2), the count the reference
 forces its host devices to under --cpu; here it is read on the card as
-well. At W = 1 the step is the single-card one. `--n-experts` switches
+well. At W = 1 the step is the single-card one. `shard` also runs in a
+multiproc gang (one process a rank), as `chip_smoke.py`'s `[multiproc]`
+phase drives it. `--n-experts` switches
 every MLP to the MoE.
 """
 
@@ -36,7 +38,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..mesh import DeviceMesh
+from .. import distributed as dist
+from ..mesh import DeviceMesh, init_device_mesh
 from ..models import TransformerConfig, TransformerLM, transformer_sharding_rules
 from ..parallel.fsdp import FSDPModule, fully_shard
 
@@ -135,11 +138,16 @@ def shard(model, lr: float, world: int, tp: int) -> FSDPModule:
     """`model` fully sharded over an ("fsdp", "tp") mesh of `world` ranks on
     its device, as the reference's trainer wraps it, with its train step
     as `.step` (AdamW). The model's own copy of the weights moves to the
-    meta device: the shards are the weights from here on."""
+    meta device: the shards are the weights from here on. In a multiproc
+    gang of `world` processes the mesh is the gang's (`init_device_mesh`):
+    each process keeps its own shards and takes its data rank's rows."""
     if world % tp:
         raise ValueError(f"--tp {tp} does not divide the {world} ranks")
     device = next(model.parameters()).device
-    mesh = DeviceMesh([device] * world, (world // tp, tp), ("fsdp", "tp"))
+    if dist.is_initialized() and dist._world.mode == "multiproc":
+        mesh = init_device_mesh(("fsdp", "tp"), (world // tp, tp))  # one rank a process
+    else:
+        mesh = DeviceMesh([device] * world, (world // tp, tp), ("fsdp", "tp"))
     mod = fully_shard(model, None, mesh, axis="fsdp",
                       rules=transformer_sharding_rules("tp", "fsdp"), data_axes=("fsdp",))
     model.to("meta")

@@ -31,8 +31,11 @@ statistics (mean, mean of squares) are averaged over that dim by
 `nn.functional.all_reduce` (the port's c10d fold) inside a
 `torch.autograd.Function` whose `vmap` rule sees all ranks at once; its
 backward averages the cotangents over the ranks the same way, the
-transpose of the reference's `pmean` under `shard_map`. Multiproc SyncBN
-is not ported (`examples/cifar.py` raises; ROADMAP).
+transpose of the reference's `pmean` under `shard_map`. In multiproc mode
+the step enters `DeviceMesh.from_group(group, "_ranks")` around its rank
+vmap, which holds this process's one rank, and the same rule all-reduces
+the statistics (and, in the backward, the cotangents) over that group,
+inside the forward.
 """
 
 from __future__ import annotations
@@ -48,13 +51,14 @@ from ..types import ReduceOp
 from .convnet import lecun_normal_
 from .transformer import resolve_device
 
-_SYNC_AXIS = "_ranks"
+_SYNC_AXIS = dfn.RANKS
 
 
 class _RankMean(torch.autograd.Function):
     """The mean over the ranks of the step's rank vmap. Its `vmap` rule
-    folds the rank dim through the port's c10d fold; its backward is
-    itself (the transpose of a mean over ranks)."""
+    folds the rank dim through `nn.functional.all_reduce` (the fold in
+    driver mode, the step's group's all_reduce in multiproc mode); its
+    backward is itself (the transpose of a mean over ranks)."""
 
     @staticmethod
     def forward(x):

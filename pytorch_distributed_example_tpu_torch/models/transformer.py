@@ -16,7 +16,7 @@ reference's (in, out) kernels across.
 is kept on the module as `aux` (the reference sows it, and its trainer's
 loss leaves it out). `sharding_rules` is the reference's 2-D Megatron +
 ZeRO layout on the port's names, and `sharded_forward` runs the model
-over that layout in driver mode (below).
+over that layout, in driver mode or over a multiproc mesh (below).
 
 `forward(tokens, decode=True, cache=...)` is the KV-cache path of the
 reference's `Attention._decode` / `_decode_paged` (:153-364): the cache is
@@ -469,7 +469,7 @@ def sharding_rules(tp_axis: str = "tp", fsdp_axis: Optional[str] = "fsdp",
 
 
 # ---------------------------------------------------------------------------
-# the model over an ("fsdp", "tp") mesh, in driver mode
+# the model over an ("fsdp", "tp") mesh, in driver or multiproc mode
 # ---------------------------------------------------------------------------
 
 
@@ -479,33 +479,28 @@ def _rms(x, w, eps):
     return (y * w).to(x.dtype)
 
 
-def _gathered(p, tp_dim: Optional[int], dtype, fsdp_axis: str, tp_axis: str, T: int):
-    """A parameter as its tp ranks compute with it: gathered over ``fsdp``
-    (the differentiable all_gather, one replica: its backward scatters the
-    fsdp ranks' summed gradient, FSDP's reduce_scatter) and cast to
-    `dtype`; then (T, *its tp rank's part of dim `tp_dim`), or the whole
-    tensor once where `tp_dim` is None. A dim the layout left whole
-    (`spec_for` drops an axis that does not divide it) is split here."""
-    from ..dtensor import Partial, Replicate, Shard
+def _gathered(p, tp_dim: Optional[int], dtype, tp_axis: str, T: int):
+    """A parameter as its tp ranks compute with it: cast to `dtype` and
+    gathered over the data axes (``dp``, ``fsdp``) by
+    `DTensor.full_tensor` (one replica in driver mode: the all_gather's
+    backward scatters the fsdp ranks' summed gradient, FSDP's
+    reduce_scatter; over a multiproc mesh the forms that sum the data
+    processes' cotangents); then (T, *its tp rank's part of dim `tp_dim`),
+    or the whole tensor once where `tp_dim` is None. A dim the layout
+    left whole (`spec_for` drops an axis that does not divide it) is split
+    here. Over a multiproc mesh the leading tp dim is this process's tp
+    rank (size 1). The mesh's last axis is ``tp``."""
+    from ..dtensor import DTensor, Partial, Replicate, Shard
 
-    if len(p.placements) == 1:  # a ("tp",) mesh: nothing to gather over fsdp
-        pf, pt = Replicate(), p.placements[0]
-        a = p._local.to(dtype).unsqueeze(0)
-    elif len(p.placements) == 3:  # ("dp", "fsdp", "tp"): one replica over dp
-        if not isinstance(p.placements[0], Replicate):
-            raise ValueError(f"a parameter placed {p.placements[0]} over dp; the data-parallel "
-                             "axis replicates")
-        pf, pt = p.placements[1:]
-        a = p._local.to(dtype).squeeze(0)  # (F or 1, T or 1, *local)
-    else:
-        pf, pt = p.placements
-        a = p._local.to(dtype)  # (F or 1, T or 1, *local)
-    if isinstance(pf, Partial) or isinstance(pt, Partial):
+    mesh = p.device_mesh
+    if len(p.placements) == 3 and not isinstance(p.placements[0], Replicate):
+        raise ValueError(f"a parameter placed {p.placements[0]} over dp; the data-parallel "
+                         "axis replicates")
+    if any(isinstance(q, Partial) for q in p.placements):
         raise ValueError("a parameter with a pending Partial placement")
-    if isinstance(pf, Shard):
-        a = nnf.all_gather(a, fsdp_axis, pf.dim, axes=(fsdp_axis, tp_axis), replica=True)
-    else:
-        a = a.squeeze(0)
+    a = DTensor(p._local.to(dtype), mesh, p.placements).full_tensor(
+        data_axes=mesh.axis_names[:-1], keep=mesh.axis_names[-1:])  # (T or 1, *its tp part)
+    pt = p.placements[-1]
     if isinstance(pt, Shard) and pt.dim == tp_dim:
         return a
     if isinstance(pt, Shard):  # sharded over tp on another dim: gather it whole
@@ -517,14 +512,21 @@ def _gathered(p, tp_dim: Optional[int], dtype, fsdp_axis: str, tp_axis: str, T: 
     if a.shape[tp_dim] % T:
         raise ValueError(f"dim {tp_dim} of size {a.shape[tp_dim]} does not split over "
                          f"{T} tp ranks")
-    return a.unflatten(tp_dim, (T, -1)).movedim(tp_dim, 0)
+    a = a.unflatten(tp_dim, (T, -1)).movedim(tp_dim, 0)
+    if mesh.multiproc:  # this process's tp rank
+        i = mesh.axis_index(tp_axis)
+        a = a[i:i + 1]
+    return a
 
 
 def stacked_forward(cfg: TransformerConfig, params, tokens, mesh, fsdp_axis: str = "fsdp",
                     tp_axis: str = "tp"):
     """The model over a (``fsdp``, ``tp``) mesh, or one with a leading
-    data axis (``dp``; `FSDPModule` decides that it is one), in driver
-    mode: every rank's work in one autograd graph on the mesh's device.
+    data axis (``dp``; `FSDPModule` decides that it is one): in driver
+    mode every rank's work in one autograd graph on the mesh's device; over
+    a multiproc mesh (`mesh.py`) this process's rank's work, its rank dims
+    of size 1 (one data rank's rows, one tp rank's heads), the collectives
+    those of the mesh's axis groups.
 
     `params` maps the port's parameter names to `DTensor`s (any layout;
     `sharding_rules` is the reference's; over dp they replicate, one copy
@@ -541,28 +543,53 @@ def stacked_forward(cfg: TransformerConfig, params, tokens, mesh, fsdp_axis: str
     the rows of every matmul, and into B*H of attention, so F, KV and Q
     launch once a layer for all ranks. The MoE routes the global batch's tokens in
     order (the reference's trainer routes them all under GSPMD), its
-    experts' hidden dim split over ``tp``. Returns (logits (F, B, L, V)
-    float32, the MoE layers' aux losses)."""
-    from ..parallel import tensor_parallel as tp
-    from ..parallel.expert_parallel import (_topk_routing, capacity_for, combine, dispatch)
-
+    experts' hidden dim split over ``tp``; over a multiproc mesh each
+    process gathers every data rank's tokens (dp-major) to route them,
+    and keeps its own rows of the output. Returns (logits (F, B, L, V)
+    float32 over the F data ranks this process holds, the MoE layers' aux
+    losses)."""
     names = tuple(mesh.axis_names)
     if len(names) not in (2, 3) or names[-2:] != (fsdp_axis, tp_axis):
         raise ValueError(f"stacked_forward wants a ([dp,] {fsdp_axis!r}, {tp_axis!r}) mesh, "
                          f"got {mesh.axis_names}")
-    if tokens.dim() != 3 or tokens.shape[0] != math.prod(mesh.shape[:-1]):
+    if tokens.dim() != 3 or tokens.shape[0] != math.prod(mesh.local_shape[:-1]):
         raise ValueError(f"tokens {tuple(tokens.shape)} should be (data ranks, batch, seq)")
-    T = mesh.shape[-1]
+    T, Tl = mesh.shape[-1], mesh.local_shape[-1]
     H, KV, Dh, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_model
     if H % T or KV % T:
         raise ValueError(f"{H} heads and {KV} kv heads must split over {T} tp ranks")
     H_l, KV_l = H // T, KV // T
+
+    def w(name, tp_dim, dtype=cfg.dtype):
+        return _gathered(params[name], tp_dim, dtype, tp_axis, T)
+
+    with mesh:
+        return _stacked_body(cfg, w, tokens, tp_axis, Tl, H_l, KV_l, mesh)
+
+
+def _all_data_rows(h, mesh):
+    """(every data rank's rows of h, dp-major, and the slice of them this
+    process holds): h itself in driver mode; over a multiproc mesh the
+    all_gathers of the data axes, whose backward sums the processes'
+    cotangents."""
+    if not mesh.multiproc:
+        return h, slice(None)
+    n = h.shape[0]
+    for ax in reversed(mesh.axis_names[:-1]):  # the inner axis (fsdp) first
+        h = nnf.all_gather(h.unsqueeze(0), ax, 0, axes=(ax,)).squeeze(0)
+    d = mesh.flat_index(mesh.axis_names[:-1])
+    return h, slice(d * n, (d + 1) * n)
+
+
+def _stacked_body(cfg, w, tokens, tp_axis, T, H_l, KV_l, mesh):
+    """`stacked_forward`'s layers; T is the tp ranks this process holds."""
+    from ..parallel import tensor_parallel as tp
+    from ..parallel.expert_parallel import (_topk_routing, capacity_for, combine, dispatch)
+
+    H, KV, Dh, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_model
     Fb, B, L = tokens.shape
     N = Fb * B * L
     dt, f32 = cfg.dtype, torch.float32
-
-    def w(name, tp_dim, dtype=dt):
-        return _gathered(params[name], tp_dim, dtype, fsdp_axis, tp_axis, T)
 
     def column(x, weight):  # x (N, in) replica, weight (T, out_l, in) -> (T, N, out_l)
         return tp.column_parallel(x, weight.transpose(-1, -2), tp_axis)
@@ -592,15 +619,16 @@ def stacked_forward(cfg: TransformerConfig, params, tokens, mesh, fsdp_axis: str
         h = _rms(x, w(pre + "mlp_norm.weight", None, f32), cfg.norm_eps).reshape(N, D)
         if cfg.n_experts > 0:
             E = cfg.n_experts
-            logits = h.float() @ w(pre + "mlp.router", None, f32)
-            C = capacity_for(N, E, cfg.moe_capacity_factor, cfg.moe_top_k)
+            hg, mine = _all_data_rows(h, mesh)  # the global batch's tokens, in order
+            logits = hg.float() @ w(pre + "mlp.router", None, f32)
+            C = capacity_for(hg.shape[0], E, cfg.moe_capacity_factor, cfg.moe_top_k)
             expert, gate, pos, keep, a = _topk_routing(logits, E, C, cfg.moe_top_k)
             aux.append(a)
-            buf = dispatch(h, expert, pos, keep, E, C)  # (E, C, D) replica
+            buf = dispatch(hg, expert, pos, keep, E, C)  # (E, C, D) replica
             up = tp.column_parallel(buf, w(pre + "mlp.experts_up", 2), tp_axis)
             y = tp.row_parallel(F.gelu(up, approximate="tanh"), w(pre + "mlp.experts_down", 1),
                                 tp_axis)
-            y = combine(y, expert, pos, gate, keep).to(dt)
+            y = combine(y, expert, pos, gate, keep).to(dt)[mine]
         else:
             a = F.silu(column(h, w(pre + "mlp.gate_proj.weight", 0))) * column(
                 h, w(pre + "mlp.up_proj.weight", 0))
@@ -703,8 +731,8 @@ class TensorParallelDecoder:
                 t = distribute_tensor(t.detach(), mesh, spec_to_placements(spec, mesh))
             elif t.device_mesh != mesh:
                 raise ValueError(f"{name} lies on {t.device_mesh}, not on the serve mesh")
-            self.w[name] = _gathered(t, tp_dim, torch.float32 if f32 else cfg.dtype, "fsdp",
-                                     tp_axis, T).detach()
+            self.w[name] = _gathered(t, tp_dim, torch.float32 if f32 else cfg.dtype, tp_axis,
+                                     T).detach()
 
     @torch.no_grad()
     def __call__(self, tokens, decode: bool = True, positions=None, block_tables=None,

@@ -1,12 +1,12 @@
-"""Parallelism of the port: data parallelism (DDP with ZeRO weight-update
-sharding, its Reducer and comm hooks: compression, block-quantized and
-PowerSGD) over the c10d core, in driver and
-multiproc mode; and, in driver mode (the ranks' shards stacked on one
-device), context parallelism (ring attention and Ulysses), sharding rules,
-FSDP (ZeRO-3) with ZeRO-2 and ZeRO-1, tensor parallelism, expert
-parallelism and pipeline parallelism (GPipe, 1F1B, interleaved); Join
-for uneven inputs and post-local SGD with periodic and hierarchical model
-averaging."""
+"""Parallelism of the port, in driver mode (the ranks' shards stacked on
+one device) and in multiproc mode (one process a rank, through the c10d
+core): data parallelism (DDP with ZeRO weight-update sharding, its
+Reducer and comm hooks: compression, block-quantized and PowerSGD),
+context parallelism (ring attention and Ulysses), sharding rules, FSDP
+(ZeRO-3) with ZeRO-2 and ZeRO-1, tensor parallelism, expert parallelism
+and pipeline parallelism (GPipe, 1F1B, interleaved); Join for uneven
+inputs and post-local SGD with periodic and hierarchical model
+averaging (`HierarchicalModelAverager` in driver mode)."""
 
 from . import comm_hooks  # noqa: F401
 from .comm_hooks import (  # noqa: F401

@@ -51,6 +51,8 @@ from torch.func import functional_call, grad_and_value, vmap
 from torch.utils import _pytree as pytree
 
 from .. import distributed as dist
+from ..mesh import DeviceMesh
+from ..nn.functional import RANKS
 from ..numerics import numerics_contract
 from ..optim import apply_updates
 from ..tensor import DistTensor
@@ -312,8 +314,15 @@ def make_ddp_train_step(
         return out if with_aux else (out, ())
 
     obj = remat_lib.checkpoint_wrapper(objective) if remat else objective
-    per_rank = vmap(grad_and_value(obj, has_aux=True),
-                    in_dims=(None, 0, 0, 0 if has_rng else None))
+    per_rank_vmap = vmap(grad_and_value(obj, has_aux=True),
+                         in_dims=(None, 0, 0, 0 if has_rng else None))
+    # the rank vmap's reductions (`nn.functional.rank_all_reduce`) resolve
+    # their ranks to this group in multiproc mode
+    ranks_mesh = DeviceMesh.from_group(g, RANKS)
+
+    def per_rank(*args):
+        with ranks_mesh:
+            return per_rank_vmap(*args)
     generators: Dict[int, torch.Generator] = {}
     layouts: Dict[tuple, zero.ShardLayout] = {}
 

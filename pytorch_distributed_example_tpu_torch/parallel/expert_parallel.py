@@ -19,7 +19,10 @@ top-k routing of the Switch/GShard family):
 in driver mode: each rank routes its own tokens with its own capacity,
 the buffers go to their experts' ranks and back by the differentiable
 `nn.functional.all_to_all` (a fold over the rank dim), and the aux loss is
-the ranks' mean, as the reference's `shard_map` form.
+the ranks' mean, as the reference's `shard_map` form. Over a multiproc
+mesh each process is one ep rank: it routes its own tokens, runs its own
+experts, the buffers travel by the all_to_all of the ep group, and the
+output is all-gathered, so the call and its result are driver mode's.
 """
 
 from __future__ import annotations
@@ -116,17 +119,23 @@ def moe_mlp(x, w_up, w_down, router_w, axis_name: Optional[str] = None,
 
 def make_ep_moe(mesh: DeviceMesh, axis_name: str = "ep", capacity_factor: float = 1.25,
                 k: int = 1, act: Optional[Callable] = None):
-    """The ep-sharded MoE in driver mode: fn(x (T, D), w_up (E, D, F),
+    """The ep-sharded MoE: fn(x (T, D), w_up (E, D, F),
     w_down (E, F, D), router_w (D, E)) -> (y (T, D), aux). Tokens and
     experts split over the ``ep`` ranks (contiguous blocks, rank-major);
     each rank routes its T/ep tokens over all E experts with capacity
     from its own count, its buffers of expert e go to rank e // (E/ep) by
     an all_to_all and the outputs come back by another; aux is the
-    ranks' mean."""
+    ranks' mean. Over a multiproc mesh this process's rank takes its
+    tokens and experts out of the same global arguments, and the result,
+    all-gathered, is the same global one."""
     act = act or _gelu
     if axis_name not in mesh.axis_names or len(mesh.shape) != 1:
         raise ValueError(f"make_ep_moe wants a 1-D mesh over {axis_name!r}, got {mesh}")
-    ep = mesh.shape[0]
+    ep, Wl = mesh.shape[0], mesh.local_shape[0]
+    lo = mesh.axis_index(axis_name) or 0  # the first ep rank this process holds
+
+    def mine(t):  # this process's ranks' blocks of a rank-major (ep, ...) tensor
+        return t if Wl == ep else t[lo:lo + Wl]
 
     def fn(x, w_up, w_down, router_w):
         T, D = x.shape
@@ -134,23 +143,29 @@ def make_ep_moe(mesh: DeviceMesh, axis_name: str = "ep", capacity_factor: float 
         if T % ep or E % ep:
             raise ValueError(f"{T} tokens and {E} experts must split over {ep} ranks")
         E_l, T_l = E // ep, T // ep
-        xs = x.reshape(ep, T_l, D)
-        logits = xs.float() @ router_w.float()  # (ep, T_l, E)
+        xs = mine(x.reshape(ep, T_l, D))
+        logits = xs.float() @ router_w.float()  # (Wl, T_l, E)
         C = capacity_for(T_l, E, capacity_factor, k)
         expert, gate, position, keep, aux = _topk_routing(logits, E, C, k)
         buf = torch.stack([dispatch(xs[r], expert[r], position[r], keep[r], E, C)
-                           for r in range(ep)])  # (ep, E, C, D)
+                           for r in range(Wl)])  # (Wl, E, C, D)
         # dispatch: rank r's buffers of expert group g go to rank g
-        buf = nnf.all_to_all(buf.reshape(ep, ep, E_l, C, D), axis_name, 0, 0)
-        tokens = buf.transpose(1, 2).reshape(ep, E_l, ep * C, D)  # by local expert
-        h = act(torch.einsum("recd,redf->recf", tokens, w_up.reshape(ep, E_l, D, -1)))
-        y = torch.einsum("recf,refd->recd", h, w_down.reshape(ep, E_l, -1, D))
-        y = y.reshape(ep, E_l, ep, C, D).transpose(1, 2)  # (rank, src, E_l, C, D)
+        buf = nnf.all_to_all(buf.reshape(Wl, ep, E_l, C, D), axis_name, 0, 0)
+        tokens = buf.transpose(1, 2).reshape(Wl, E_l, ep * C, D)  # by local expert
+        h = act(torch.einsum("recd,redf->recf", tokens, mine(w_up.reshape(ep, E_l, D, -1))))
+        y = torch.einsum("recf,refd->recd", h, mine(w_down.reshape(ep, E_l, -1, D)))
+        y = y.reshape(Wl, E_l, ep, C, D).transpose(1, 2)  # (rank, src, E_l, C, D)
         # combine: the outputs go back to the tokens' ranks
-        y = nnf.all_to_all(y, axis_name, 0, 0).reshape(ep, E, C, D)
+        y = nnf.all_to_all(y, axis_name, 0, 0).reshape(Wl, E, C, D)
         out = torch.stack([combine(y[r], expert[r], position[r], gate[r], keep[r])
-                           for r in range(ep)])
+                           for r in range(Wl)])
         aux = nnf.all_reduce(aux, ReduceOp.AVG, axis_name, replica=True)
+        if Wl != ep:  # every process's tokens, in rank order
+            return nnf.all_gather(out.to(x.dtype), axis_name, 0, replica=True), aux
         return out.reshape(T, D).to(x.dtype), aux
 
-    return fn
+    def run(*args):
+        with mesh:
+            return fn(*args)
+
+    return run

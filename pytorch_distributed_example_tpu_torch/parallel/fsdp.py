@@ -26,6 +26,16 @@ reduce-scattered, optimizer state sharded; a stateless `comm_hook`
 reduces them in its place), `shard_optimizer_only` (ZeRO-1: the
 optimizer state's layout).
 
+Over a multiproc mesh (`mesh.py`: one process a rank) the same steps run
+each process's rank: the global batch is split by this process's data
+coordinate, the parameters are this process's shards, the collectives
+those of the mesh's axis groups (`nn.functional`'s multiproc mode). A
+process backpropagates its data rank's share of the global mean (its
+loss / the data ranks); the gathers over the data axes sum the
+processes' cotangents back into each shard (reduce_scatter, or all_reduce
+for a weight the data axes replicate), and the loss returned is the
+data ranks' mean, all-reduced.
+
 Dropout (`has_rng=True`) takes the DDP step's form (`parallel/ddp.py`):
 `rng_fn(generator, batch)` draws one data rank's random inputs (its
 masks) from the `torch.Generator` the step takes as its fifth argument,
@@ -79,13 +89,42 @@ def _split(x, n: int):
     return x.reshape(n, x.shape[0] // n, *x.shape[1:])
 
 
-def gathered_apply(module: torch.nn.Module):
+def _data_rows(mesh: DeviceMesh, present: Sequence[str], n: int) -> range:
+    """The data ranks whose rows this process holds: all n in driver mode,
+    its own (flat over `present`, dp-major) over a multiproc mesh."""
+    if not mesh.multiproc:
+        return range(n)
+    d = mesh.flat_index(present)
+    return range(d, d + 1)
+
+
+def _take(x, rows: range):
+    return x if len(rows) == x.shape[0] else x[rows.start:rows.stop]
+
+
+def _data_mean(values, mesh: DeviceMesh, present: Sequence[str]):
+    """The mean of the data ranks' values (n_local,): over a multiproc mesh
+    this process's value, AVG all-reduced over each data axis in turn."""
+    if not mesh.multiproc:
+        return values.mean()
+    v = values.reshape((1,) * len(present))
+    with mesh:
+        for a in present:
+            v = nnf.all_reduce(v, ReduceOp.AVG, a, axes=tuple(present))
+    return v.reshape(())
+
+
+def gathered_apply(module: torch.nn.Module, data_axes: Sequence[str] = ("dp", "fsdp")):
     """apply(params, xs[, masks]): `module` on its gathered parameters,
     over the data ranks' rows xs (n, b, ...) -> (n, b, ...); `masks` (n,
     b, ...), the ranks' random inputs, go in as the module's second
-    argument."""
+    argument. Over a multiproc mesh the rows are this process's data
+    rank's, and the gathers sum the cotangents over `data_axes`."""
+    def full_of(v):
+        return v.full_tensor(data_axes) if isinstance(v, DTensor) else v
+
     def apply(params, xs, *masks):
-        full = {k: v.full_tensor() if isinstance(v, DTensor) else v for k, v in params.items()}
+        full = {k: full_of(v) for k, v in params.items()}
         args = (xs, *masks)
         out = functional_call(module, full, tuple(a.flatten(0, 1) for a in args))
         return out.unflatten(0, xs.shape[:2])
@@ -127,11 +166,11 @@ class FSDPModule:
         if stacked:
             self.apply = lambda p, xs: module.sharded_forward(p, xs, mesh, axis, names[-1])
         else:
-            self.apply = gathered_apply(module)
+            self.apply = gathered_apply(module, self.data_axes)
 
     def __call__(self, x):
-        _, n = _data_ranks(self.mesh, self.data_axes)
-        out = self.apply(self.params, _split(x, n))
+        present, n = _data_ranks(self.mesh, self.data_axes)
+        out = self.apply(self.params, _take(_split(x, n), _data_rows(self.mesh, present, n)))
         return out.flatten(0, 1)
 
     def make_train_step(self, optimizer, loss_fn: Callable, has_rng: bool = False,
@@ -143,7 +182,8 @@ class FSDPModule:
                                     shard_weight_update=shard_weight_update)
 
     def gather_params(self) -> Dict[str, torch.Tensor]:
-        """Full (unsharded) params on the host: the rank-0 checkpoint's."""
+        """Full (unsharded) params on the host: the rank-0 checkpoint's (a
+        collective over a multiproc mesh: every process calls it)."""
         return {k: v.full_tensor().detach().cpu() for k, v in self.params.items()}
 
     def state_dict(self, optimizer=None) -> dict:
@@ -260,24 +300,29 @@ def make_fsdp_train_step(apply_fn: Callable, loss_fn: Callable, optimizer, mesh:
     ranks' masks (n, ...) drawn by `rng_fn` (the module docstring)."""
     _check_rng(has_rng, rng_fn)
     sharded_update = _check_swu(shard_weight_update)
-    _, n = _data_ranks(mesh, data_axes)
+    present, n = _data_ranks(mesh, data_axes)
+    rows = _data_rows(mesh, present, n)
 
     def step(params, opt_state, x, y, *generator):
         if len(generator) != has_rng:
             raise TypeError("the step takes a torch.Generator fifth exactly when has_rng=True")
-        xs, ys = _split(x, n), _split(y, n)
-        masks = (_draw_masks(rng_fn, generator[0], n, xs.shape[1]),) if has_rng else ()
+        xs, ys = _take(_split(x, n), rows), _take(_split(y, n), rows)
+        masks = ((pytree.tree_map(lambda m: _take(m, rows),
+                                  _draw_masks(rng_fn, generator[0], n, xs.shape[1])),)
+                 if has_rng else ())
         for dt in params.values():
             dt._local.grad = None
-        out = checkpoint(apply_fn, params, xs, *masks, use_reentrant=False) if remat else \
-            apply_fn(params, xs, *masks)
-        loss = _mean_loss(loss_fn, out, ys)
-        loss.backward()
+        with mesh:
+            out = checkpoint(apply_fn, params, xs, *masks, use_reentrant=False) if remat else \
+                apply_fn(params, xs, *masks)
+            loss = _mean_loss(loss_fn, out, ys)
+            # a process backpropagates its data ranks' share of the global mean
+            (loss * (len(rows) / n)).backward()
         if isinstance(opt_state, ReplicatedUpdate):
             opt_state.step(params)
         else:
             opt_state.step()
-        return params, opt_state, loss.detach()
+        return params, opt_state, _data_mean(loss.detach().reshape(1), mesh, present)
 
     def init_opt_state(params):
         if sharded_update:
@@ -292,27 +337,31 @@ def make_fsdp_train_step(apply_fn: Callable, loss_fn: Callable, optimizer, mesh:
 
 class Zero2State:
     """ZeRO-2's optimizer state: the optimizer over each param's update
-    shards, `shards[name]` (W, n/W, ...) where dim 0 splits over the axis,
-    else the whole param (1, ...)."""
+    shards, `shards[name]` (W, n/W, ...) where dim 0 splits over the axis
+    (the names in `sharded`; over a multiproc mesh (1, n/W, ...), this
+    process's shard), else the whole param (1, ...)."""
 
     def __init__(self, optimizer, params: Mapping[str, torch.Tensor], mesh: DeviceMesh,
                  axis: str, sharded: bool):
         W = mesh.axis_size(axis)
-        self.shards = {}
+        self.shards, self.sharded = {}, set()
         for k, p in params.items():
             if not p.is_floating_point():
                 continue
             spec = shd.spec_for("zero", tuple(p.shape), shd.fsdp_rules(axis), mesh)
-            if sharded and spec:
-                self.shards[k] = torch.nn.Parameter(
-                    torch.stack(p.detach().chunk(W, 0)).clone())
+            if sharded and spec and W > 1:
+                chunks = p.detach().chunk(W, 0)
+                if mesh.multiproc:
+                    chunks = chunks[mesh.axis_index(axis):mesh.axis_index(axis) + 1]
+                self.shards[k] = torch.nn.Parameter(torch.stack(chunks).clone())
+                self.sharded.add(k)
             else:
                 self.shards[k] = torch.nn.Parameter(p.detach().clone().unsqueeze(0))
         self.optimizer = optimizer(list(self.shards.values()))
         # each shard stack as the DTensor it is, for memstats
         self.layout = {}
         for k, shard in self.shards.items():
-            placements = [Shard(0) if a == axis and shard.shape[0] > 1 else Replicate()
+            placements = [Shard(0) if a == axis and k in self.sharded else Replicate()
                           for a in mesh.axis_names]
             stack = [shard.shape[0] if a == axis else 1 for a in mesh.axis_names]
             local = shard.view(*stack, *shard.shape[1:])
@@ -328,11 +377,14 @@ def _full(p):
 
 
 def _axis_group(mesh: DeviceMesh, axis: str):
-    """A driver-mode process group of the c10d core over the ranks of
-    `axis`, on the mesh's device: what a comm hook reduces over."""
+    """The process group of the c10d core over the ranks of `axis`, what a
+    comm hook reduces over: the multiproc mesh's own, else a driver-mode
+    group on the mesh's device."""
     from ..backends.stacked import StackedBackend
     from ..distributed import ProcessGroup
 
+    if mesh.multiproc:
+        return mesh.get_group(axis)
     W = mesh.axis_size(axis)
     flat = DeviceMesh([mesh.device] * W, (W,), (axis,))
     return ProcessGroup(flat, list(range(W)), "xla", StackedBackend(flat, 0, W), None,
@@ -406,8 +458,9 @@ def make_zero2_train_step(apply_fn: Callable, loss_fn: Callable, optimizer, mesh
                              f"{tuple(mesh.axis_names)}")
         group = _axis_group(mesh, axis)
     W = mesh.axis_size(axis)
-    sizes = [mesh.axis_size(a) for a in present]
+    sizes = [mesh.local_size(a) for a in present]
     others = [a for a in present if a != axis]
+    rows = _data_rows(mesh, present, n)
 
     def reduced(g, sharded: bool):
         """(n, *shape) data ranks' gradients -> each rank's shard of their
@@ -430,36 +483,37 @@ def make_zero2_train_step(apply_fn: Callable, loss_fn: Callable, optimizer, mesh
         names = list(opt_state.shards)
         fwd = (lambda *a: checkpoint(apply_fn, *a, use_reentrant=False)) if remat else apply_fn
         losses, grads = [], []
-        for d in range(n):  # each data rank's own gradient
+        for d in rows:  # each data rank's own gradient
             leaves = {k: v.detach().requires_grad_(k in opt_state.shards)
                       for k, v in full.items()}
             rank_masks = (pytree.tree_map(lambda m: m[d], masks),) if has_rng else ()
             loss = loss_fn(fwd(leaves, xs[d], *rank_masks), ys[d])
             grads.append(torch.autograd.grad(loss, [leaves[k] for k in names]))
             losses.append(loss.detach())
-        with torch.no_grad():
+        with torch.no_grad(), mesh:
             stacked = {k: torch.stack([gd[i] for gd in grads]) for i, k in enumerate(names)}
             if comm_hook is not None:
                 means = _hook_reduce(comm_hook, stacked, group)  # (W, *shape), each the mean
             for k in names:
                 shard = opt_state.shards[k]
-                sharded = shard.shape[0] == W and W > 1
+                sharded = k in opt_state.sharded
                 if comm_hook is None:
                     shard.grad = reduced(stacked[k], sharded)
                 elif sharded:  # each rank keeps its own shard of the mean
-                    shard.grad = torch.stack([means[k][r].chunk(W, 0)[r] for r in range(W)])
+                    shard.grad = torch.stack([means[k][i].chunk(W, 0)[r] for i, r in
+                                              enumerate(nnf.rank_ids(axis, W).tolist())])
                 else:
                     shard.grad = means[k][:1]
         opt_state.optimizer.step()
-        with torch.no_grad():
+        with torch.no_grad(), mesh:
             for k, shard in opt_state.shards.items():
-                new = (nnf.all_gather(shard, axis, 0, replica=True) if shard.shape[0] == W
-                       and W > 1 else shard[0])
+                new = (nnf.all_gather(shard, axis, 0, replica=True) if k in opt_state.sharded
+                       else shard[0])
                 target = params[k]
                 if isinstance(target, DTensor):
                     target = target._local.view(target.local_shape)
                 target.copy_(new)
-        return params, opt_state, torch.stack(losses).mean()
+        return params, opt_state, _data_mean(torch.stack(losses), mesh, present)
 
     def init_opt_state(params):
         return Zero2State(optimizer, {k: _full(v) for k, v in params.items()}, mesh, axis,

@@ -1,4 +1,4 @@
-"""Tensor parallelism: Megatron column/row sharding, in driver mode.
+"""Tensor parallelism: Megatron column/row sharding, in both modes.
 
 The port of the reference's `parallel/tensor_parallel.py`. A TP style is a
 layout of a layer's weight over the ``tp`` mesh axis: column-parallel
@@ -13,8 +13,11 @@ form of `nn.functional`). A column-parallel matmul gives every tp rank the
 replica (`nn.functional.replicate`: backward all_reduce), a row-parallel
 one all-reduces the ranks' partial products (`all_reduce(replica=True)`:
 backward copy). The reference routes its reductions through the traced
-planner seam (`plan/traced.py`); the port's use the fold of
-`nn.functional` until the planner is ported (ROADMAP).
+planner seam (`plan/traced.py`); the port's use `nn.functional` until
+the planner is ported (ROADMAP). Inside an entered multiproc mesh each
+process is one tp rank: the leading tp dim has size 1, and the seams'
+reductions are collectives of the tp group (`nn.functional`'s multiproc
+mode); the row-parallel partials stay float32 through the all-reduce.
 
 `shard_kv_pool`, `kv_pool_spec` and `replicate_tree` place the serve
 engine's paged KV pool and slot lanes over a driver-mode ``tp`` mesh.
@@ -29,6 +32,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from .. import mesh as _mesh
 from ..dtensor import Replicate, distribute_tensor, spec_to_placements
 from ..mesh import DeviceMesh
 from ..nn import functional as nnf
@@ -132,14 +136,15 @@ class _ColumnParallel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, axis):
         ctx.save_for_backward(x, w)
-        ctx.axis = axis
+        ctx.axis, ctx.scope = axis, _mesh.scope()
         return torch.matmul(x.unsqueeze(0), w)
 
     @staticmethod
     def backward(ctx, ct):
         x, w = ctx.saved_tensors
         partial = _bmm_f32(ct, w.transpose(-1, -2))
-        dx = nnf.all_reduce(partial, ReduceOp.SUM, ctx.axis, replica=True).to(x.dtype)
+        with _mesh.restored(ctx.scope):  # the forward's tp group
+            dx = nnf.all_reduce(partial, ReduceOp.SUM, ctx.axis, replica=True).to(x.dtype)
         dw = torch.matmul(x.unsqueeze(0).transpose(-1, -2), ct)
         return dx, dw, None
 
@@ -235,10 +240,13 @@ def vocab_parallel_cross_entropy(local_logits, targets, axis: str = "tp",
     losses (targets' shape); positions equal to `ignore_index` give 0 loss
     and 0 gradient."""
     T, V_local = local_logits.shape[0], local_logits.shape[-1]
-    m = local_logits.detach().amax(-1).amax(0)  # the stability shift, no gradient
+    if _mesh.axis_binding(axis) is None:
+        m = local_logits.detach().amax(-1).amax(0)  # the stability shift, no gradient
+    else:
+        m = nnf.all_reduce(local_logits.detach().amax(-1), ReduceOp.MAX, axis, replica=True)
     z = nnf.all_reduce(torch.exp(local_logits - m.unsqueeze(-1)).sum(-1), ReduceOp.SUM, axis,
                        replica=True)
-    offset = (torch.arange(T, device=targets.device) * V_local).reshape(
+    offset = (nnf.rank_ids(axis, T, targets.device) * V_local).reshape(
         (T,) + (1,) * targets.dim())
     local_idx = targets.unsqueeze(0) - offset
     in_shard = (local_idx >= 0) & (local_idx < V_local)

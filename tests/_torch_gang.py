@@ -44,3 +44,42 @@ def gang_port() -> int:
 
 def gang_env() -> dict:
     return {**worker_env(), "OMP_NUM_THREADS": "1"}
+
+
+def run_gang(module: str, tmp_path, world: int, extra_env=None, timeout: float = 120.0,
+             args=()):
+    """Run `module`'s `gang(rank, world, *args)` as ranks 0..world-1 of one
+    gloo gang on the CPU (`tests/_torch_mp_worker.py`). Returns (return
+    codes, outputs, results by rank: each rank's pickled dict, or None)."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    from tests._mp_util import REPO
+
+    port = gang_port()
+    env = {**gang_env(), **(extra_env or {})}
+    outs = [os.path.join(str(tmp_path), f"{module.rsplit('.', 1)[-1]}_{world}_{r}.pkl")
+            for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-m", "tests._torch_mp_worker", module, str(r),
+                               str(world), str(port), outs[r], *map(str, args)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, cwd=REPO)
+             for r in range(world)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=timeout)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for path in outs:
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                results.append(pickle.load(f))
+        else:
+            results.append(None)
+    return [p.returncode for p in procs], texts, results

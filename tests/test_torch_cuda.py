@@ -907,3 +907,131 @@ def test_dcp_reshards_2_ranks_to_1_on_the_card(tmp_path):
         assert got[k].device.type == "cuda" and got[k].device_mesh == mesh1
         bits = (lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
         assert torch.equal(bits(got[k].full_tensor()), bits(v)), k
+
+
+# -- multiproc mode on the card: a "cuda:gloo" gang on cuda:0 ------------------
+
+_GANG_CASES = ("all_reduce_sum", "all_reduce_avg", "all_reduce_bf16", "all_gather",
+               "reduce_scatter", "all_to_all", "broadcast", "ppermute", "replica_all_reduce")
+
+_GANG_COMMON = '''
+import numpy as np
+import torch
+from pytorch_distributed_example_tpu_torch.nn import functional as TF
+
+CASES = {
+    "all_reduce_sum": lambda x: TF.all_reduce(x, "SUM", "dp"),
+    "all_reduce_avg": lambda x: TF.all_reduce(x, "AVG", "dp"),
+    "all_reduce_bf16": lambda x: TF.all_reduce(x.bfloat16(), "SUM", "dp").float(),
+    "all_gather": lambda x: TF.all_gather(x, "dp", 0),
+    "reduce_scatter": lambda x: TF.reduce_scatter(x, "dp", 0),
+    "all_to_all": lambda x: TF.all_to_all(x, "dp", 0, 1),
+    "broadcast": lambda x: TF.broadcast(x, 1, "dp"),
+    "ppermute": lambda x: TF.ppermute(x, "dp", [(0, 1), (1, 0)]),
+    "replica_all_reduce": lambda x: TF.all_reduce(x, "SUM", "dp", replica=True),
+}
+
+
+def run(x_rows):
+    """{case: (y, dx)} of each case on these rows, d(sum(y * y))."""
+    out = {}
+    for name, fn in CASES.items():
+        x = torch.tensor(x_rows, device="cuda", requires_grad=True)
+        y = fn(x)
+        (y * y).sum().backward()
+        out[name] = (y.detach().cpu().numpy(), x.grad.cpu().numpy())
+    return out
+
+
+X = np.random.default_rng(0).standard_normal((2, 64, 32)).astype(np.float32)
+'''
+
+_GANG_WORKER = _GANG_COMMON + '''
+import pickle, sys
+rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+import pytorch_distributed_example_tpu_torch as tdx
+from pytorch_distributed_example_tpu_torch.backends import process as bp
+
+tdx.init_process_group(backend="cuda:gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                       world_size=2, timeout=120)
+mesh = tdx.init_device_mesh(("dp",), (2,))
+with mesh:
+    res = run(X[rank:rank + 1])
+res["_device"] = str(mesh.device)
+res["_staged"] = bp.STATS["staged_bytes"]
+tdx.destroy_process_group()
+with open(out, "wb") as f:
+    pickle.dump(res, f)
+'''
+
+
+@pytest.mark.cuda
+def test_cuda_gloo_gang_is_driver_mode_bitwise(tmp_path):
+    """Two processes on cuda:0 over gloo ("cuda:gloo"), each holding its
+    rank's row: every differentiable collective's value and gradient are
+    driver mode's at world 2 on the card, bit for bit (every sum is of two
+    terms); the ring shift's rows went through pinned host memory."""
+    import os
+    import pickle
+    import socket
+    import subprocess
+    import sys
+
+    _need_card()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "worker.py"
+    script.write_text(_GANG_WORKER)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(port),
+                               str(tmp_path / f"r{r}.pkl")], env=env, cwd=repo,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{out}"
+    gang = []
+    for r in range(2):
+        with open(tmp_path / f"r{r}.pkl", "rb") as f:
+            gang.append(pickle.load(f))
+    ns = {}
+    exec(_GANG_COMMON, ns)
+    driver = ns["run"](ns["X"])
+    for r, res in enumerate(gang):
+        assert res["_device"] == "cuda:0" and res["_staged"] > 0
+        for name in _GANG_CASES:
+            (y, dx), (wy, wdx) = res[name], driver[name]
+            if name == "replica_all_reduce":  # one replica: the whole value
+                np.testing.assert_array_equal(y, wy, err_msg=name)
+            else:
+                np.testing.assert_array_equal(y, wy[r:r + 1], err_msg=f"{name} rank {r}")
+            np.testing.assert_array_equal(dx, wdx[r:r + 1], err_msg=f"{name} d rank {r}")
+
+
+@pytest.mark.cuda
+def test_gloo_takes_the_cuda_rows_the_backend_does_not_stage():
+    """The staging table is what gloo does: every collective that
+    `ProcessBackend` hands gloo unstaged (all but the ops of
+    `GLOO_CUDA_STAGED`) takes CUDA tensors on cuda:0 and gives the right
+    values (`tests/_torch_gloo_probe.py`)."""
+    import importlib.util
+    import os
+
+    from pytorch_distributed_example_tpu_torch.backends import process as bp
+
+    _need_card()
+    spec = importlib.util.spec_from_file_location(
+        "_torch_gloo_probe", os.path.join(os.path.dirname(__file__), "_torch_gloo_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    assert bp.GLOO_CUDA_STAGED == {"permute"}  # the probe's send_recv: staged
+    got = probe.probe(probe.COLLECTIVES)
+    assert got == {op: "ok" for op in probe.COLLECTIVES}, got
