@@ -142,8 +142,13 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    the bimodal burst (tokens/s against one engine, rebinds), and a
    mid-flight `remove_replica` on the determinism construct, sealed into
    HashStore, whose greedy tokens must equal one unscaled engine's (the
-   colocated run of the disagg construct). No flash kernel launches in
-   the phase.
+   colocated run of the disagg construct). The MoE's tensor-parallel
+   decode at MOE_ARGV's shape (d 2048, 4 layers, 8 experts, top-1) at tp
+   2 against the single-card engine: float32 (TF32 off) prefill logits
+   within rms 1e-4, bf16 within rms 3e-2, and so each decode step's
+   logits with the single card's greedy tokens fed in (8 prompts of 48
+   tokens, 32 steps); the bimodal burst's first 16 greedy streams' match
+   reported. No flash kernel launches in the phase.
 14. cifar: the BASELINE's ResNet-18/CIFAR-10 workload, after
    `[serve_fleet]`, TF32 still off: ResNet-18 at full width (11.2M params)
    with SyncBatchNorm through `examples/cifar.py`'s train step, driver
@@ -258,14 +263,50 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    (ResNet-18, SyncBN, float32, `cudnn.deterministic`): the first step's
    loss, batch statistics and params against driver mode at world 2
    (rtol 1e-4, atol 1e-6); (f) (a)'s step at 4 layers as a world-1 nccl
-   gang against the single card.
-20. report: one JSON line of kernels (each Hopper kernel once per Pallas
+   gang against the single card; (g) CFG_1B (max_seq_len 2048, bf16)
+   served at tp 2 as 2 processes, a `ServeEngine(mesh=init_device_mesh(
+   ("tp",), (2,)))` a process: the bimodal burst's first 16 requests, the
+   two processes' tokens the same; in float32 (TF32 off, float pool) the
+   greedy streams token for token the driver-mode tp 2 engine's in the
+   same call; in bf16 (float and int8 pools) the prefill logits (2 x 128)
+   within rms 3e-2 of driver mode's and the streams' match reported; each
+   decode step's logits with driver mode's greedy tokens fed in (8
+   prompts of 48 tokens, 32 steps, every pool) within rms 3e-2 of driver
+   mode's (float32 1e-5); a steady 8-slot bf16 decode step a process
+   by CUDA events, on the host clock and inside the collectives, and its
+   launches under the profiler.
+20. planner: the collective planner and the p2p plane, after
+   `[multiproc]`. (a) Driver mode at world 8 on cuda:0: a probe cache
+   holding only a TPU's topology key must warn and be probed fresh; every
+   candidate of all_reduce, all_gather and reduce_scatter timed by
+   `plan.probe.probe_driver` (CUDA events) from 64 KiB to 64 MiB a rank
+   in float32 and bf16, each argmin beside `c10d_bound_bytes`' HBM bound;
+   the float32 table persisted and a second planner reading every choice
+   from it without probing; each schedule against the stock collective
+   at 1 MiB a rank (gathers bitwise; float32 rtol 1e-5, atol 1e-6 of the
+   max; bf16 2^-6 and 2^-5), and the two-rank geometry through the
+   dispatch seam bitwise. (b) `[fsdp_tp]`'s dense CFG_1B step with
+   `TDX_COLLECTIVE_PLANNER=1` and `TDX_PLANNER_FORCE` ring, then rhd (its
+   tp sums through `plan.traced`): first step against the single card,
+   losses within 1e-2 of the stock step's, step ms beside the stock's,
+   16 launches each of F, KV and Q in its profiled step. (c) DDP-MNIST's
+   3 steps at world 8 through `planner_hook` (probed, then forced ring)
+   against the stock step under `cudnn.deterministic` (rtol 1e-5). (d)
+   Gangs on cuda:0 over "cuda:gloo": a 256 MiB bf16 CUDA tensor between 2
+   processes through the p2p plane and through torch.distributed's
+   staged gloo send (GB/s each, the plane's frames counted: a listener
+   that published "none" fails); ring, rhd and hier all-reduces of 64
+   MiB a rank over the plane at world 4 against gloo's all_reduce and
+   bitwise against their re-execution; a skewed `TDX_PLANNER_FORCE` at
+   world 2 (the bandwidth gang) must fail `plan.traced.prepare` on both
+   processes naming eqn #1.
+21. report: one JSON line of kernels (each Hopper kernel once per Pallas
    lowering it replaces, with its design, "wgmma" or "simt", and its
    launches per phase, `serve_fleet`, `cifar`, `bert`, `dryrun`, `ckpt`,
    `train_utils`, `multiproc` ((a)'s and (c)'s gang processes' counted
-   launches, in the resident rows) and `multiproc_ring` ((b)'s, in the
-   streamed rows) among them), the card's name and power limit, then the
-   `ok` line.
+   launches, in the resident rows), `multiproc_ring` ((b)'s, in the
+   streamed rows) and `planner` ((b)'s two profiled steps) among them),
+   the card's name and power limit, then the `ok` line.
 
 Every float32 card-vs-CPU check computes its CPU side under
 `utils/cpu_reference.py`'s `cpu_reference()`.
@@ -291,7 +332,7 @@ import numpy as np
 import torch
 
 import pytorch_distributed_example_tpu_torch as tdx
-from pytorch_distributed_example_tpu_torch import bench, dryrun, optim
+from pytorch_distributed_example_tpu_torch import bench, dryrun, optim, p2p
 from pytorch_distributed_example_tpu_torch import checkpoint_sharded as cs
 from pytorch_distributed_example_tpu_torch.backends import process as bp
 from pytorch_distributed_example_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
@@ -362,7 +403,7 @@ REPLACES = {
 }
 # the phases that drive the port's main paths, by the regime they put the
 # kernels in
-PHASES = {"resident": ("slice", "fsdp_tp", "dryrun", "ckpt", "multiproc"),
+PHASES = {"resident": ("slice", "fsdp_tp", "dryrun", "ckpt", "multiproc", "planner"),
           "streamed": ("ring", "long", "multiproc_ring")}
 
 
@@ -1428,6 +1469,7 @@ def sharded_first_step(argv, grads=True, dims=None):
 
 
 SHARDED_LOSSES = {}  # argv -> the driver-mode losses of its first FSDP_TP_STEPS steps
+SHARDED_STEP_MS = {}  # argv -> the mean of its last timed steps, ms
 
 
 def sharded_train(argv, card, timed_steps, grads=True, dims=None):
@@ -1459,6 +1501,7 @@ def sharded_train(argv, card, timed_steps, grads=True, dims=None):
     check(math.isfinite(float(loss)), "non-finite loss in a timed step")
     peak = torch.cuda.max_memory_allocated()
     mean_s = sum(step_s) / len(step_s)
+    SHARDED_STEP_MS[tuple(argv)] = mean_s * 1e3
     model_flops = ((6.0 * n_params + 12.0 * cfg.n_layers * cfg.d_model * args.seq)
                    * args.batch_size * args.seq)
     mem = mod.step.memory_report(mod.params, opt)
@@ -1907,6 +1950,56 @@ def engine_prefill_logits(eng, toks):
     return torch.stack(out)
 
 
+SERVE_FORCED = (8, 48, 32)  # prompts x tokens, decode steps of the teacher-forced check
+
+
+def forced_tokens():
+    B, L, _ = SERVE_FORCED
+    return np.random.default_rng(3).integers(0, 32000, (B, L)).astype(np.int32)
+
+
+def forced_decode(eng, streams=None):
+    """SERVE_FORCED's prompts prefilled through `eng`'s paged prefill
+    program, then decoded together, a step at a time, through the engine's
+    own decode forward: fed `streams` (B, steps), another engine's tokens
+    (teacher forcing), or without them each step's greedy argmax. Returns
+    (the tokens fed, (B, steps) int64 on the host; each step's logits,
+    (steps, B, V) float32)."""
+    B, L, steps = SERVE_FORCED
+    fwd = eng.decoder or eng.model
+    slots, first = [], []
+    for row in forced_tokens():
+        slot = eng.cache.allocate()
+        check(eng.cache.ensure_blocks(slot, L - 1 + steps), "forced decode: pool too small")
+        _, logits = eng._prefill_chunk(eng.cache.tree, row[None],
+                                       eng.cache.block_tables[slot:slot + 1], 0)
+        slots.append(slot)
+        first.append(logits[L - 1].float())
+    dev = first[0].device
+    bt = torch.as_tensor(eng.cache.block_tables[slots], device=dev)
+    pos = torch.full((B,), L, dtype=torch.int32, device=dev)
+    tok = torch.stack(first).argmax(-1)
+    fed, out = [], []
+    with torch.no_grad():
+        for t in range(steps):
+            if streams is not None:
+                tok = torch.as_tensor(streams[:, t], device=dev)
+            fed.append(tok.cpu())
+            logits = fwd(tok[:, None].long(), decode=True, positions=pos, block_tables=bt,
+                         cache=eng.cache.tree)[:, -1].float()
+            out.append(logits)
+            tok = logits.argmax(-1)
+            pos = pos + 1
+    for slot in slots:
+        eng.cache.free(slot)
+    return torch.stack(fed, 1).numpy(), torch.stack(out)
+
+
+def forced_rms(got, want):
+    """Each decode step's rms(diff)/rms: a list over the steps."""
+    return [rel_rms(g, w) for g, w in zip(got, want)]
+
+
 def fleet_bimodal(model, card, mesh=None):
     """The [serve] phase's bimodal burst (48 requests, 8 slots, unchunked)
     through a tp 1 or a tp `mesh` engine: tok/s, TTFT and TPOT p50/p99,
@@ -2080,6 +2173,64 @@ def fleet_tp(model, card):
     fleet_tp_profile(model, card)
     fleet_redistribute(model, card, single, toks)
     return rate1
+
+
+MOE_TP_REQUESTS = 16
+MOE_TP_F32_RMS = 1e-4  # float32 (TF32 off): the tp ranks' partial sums in another order
+
+
+def fleet_moe_tp(card):
+    """The MoE's tensor-parallel decode at MOE_ARGV's shape (d 2048, 4
+    layers, 8 experts, top-1) in driver mode at tp 2, against the
+    single-card engine on the same weights: the prefill logits through the
+    paged programs, float32 (TF32 off) within MOE_TP_F32_RMS and bf16
+    within SERVE_RMS_TOL; the greedy streams of the bimodal burst's first
+    MOE_TP_REQUESTS requests, whose match is reported (the tp ranks' sums
+    in another order can flip a near-tie, as 1 of 857 float32 tokens did
+    on the H100, and in bf16 move a token to another expert); and each
+    step's logits of the single card's greedy streams fed to the tp 2
+    engine (`forced_decode`), within the prefill gate's limit."""
+    from pytorch_distributed_example_tpu_torch.serve import ServeEngine
+
+    B, L = SERVE_GATE
+    toks = np.random.default_rng(1).integers(0, 32000, (B, L)).astype(np.int32)
+    kw = dict(slots=B, block_size=SERVE_BLOCK, min_bucket=8)
+    for bf16 in (False, True):
+        argv = MOE_ARGV if bf16 else [a for a in MOE_ARGV if a != "--bf16"]
+        model = TransformerLM(lm.config_for(lm.parse_args(argv)), device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(0))
+        name = "bf16" if bf16 else "float32"
+        single = engine_prefill_logits(ServeEngine(model, **kw), toks)
+        tp2 = engine_prefill_logits(ServeEngine(model, mesh=tp_mesh(FLEET_TP), **kw), toks)
+        r, tol = rel_rms(tp2, single), (SERVE_RMS_TOL if bf16 else MOE_TP_F32_RMS)
+        del single, tp2
+        fkw = dict(slots=SERVE_FORCED[0], block_size=SERVE_BLOCK, min_bucket=8)
+        streams, want = forced_decode(ServeEngine(model, **fkw))
+        _, got = forced_decode(ServeEngine(model, mesh=tp_mesh(FLEET_TP), **fkw), streams)
+        steps = forced_rms(got, want)
+        del got, want
+        outs = []
+        for mesh in (None, tp_mesh(FLEET_TP)):
+            eng, wall = serve_run(model, bimodal_traffic(MOE_TP_REQUESTS), slots=SERVE_SLOTS,
+                                  block_size=SERVE_BLOCK, min_bucket=8, mesh=mesh)
+            outs.append((completions(eng), wall))
+            del eng
+        same, total, reqs = match_rate(outs[0][0], outs[1][0])
+        print(f"  MoE tp {FLEET_TP} decode ({name}, {model.cfg.n_experts} experts, "
+              f"{model.cfg.n_layers} layers, d {model.cfg.d_model}): prefill logits vs the "
+              f"single card rms(diff)/rms {r:.4e} (<= {tol:g}); {same} of {total} greedy "
+              f"tokens equal, {reqs} of {MOE_TP_REQUESTS} requests whole; {outs[0][1]:.3f} s "
+              f"at tp 1, {outs[1][1]:.3f} s at tp {FLEET_TP}  [{card}]")
+        print(f"  MoE tp {FLEET_TP} decode ({name}), the single card's greedy tokens fed to "
+              f"{SERVE_FORCED[0]} slots for {SERVE_FORCED[2]} steps: each step's logits "
+              f"rms(diff)/rms at most {max(steps):.4e} (mean {sum(steps) / len(steps):.4e}, "
+              f"<= {tol:g})")
+        check(r <= tol, f"the MoE's tp decode logits stray from the single card ({name})")
+        check(max(steps) <= tol, f"the MoE's tp decode-step logits stray from the single "
+              f"card's ({name})")
+        check(len(outs[1][0]) == MOE_TP_REQUESTS, "the MoE's tp 2 engine lost requests")
+        del model
+        torch.cuda.empty_cache()
 
 
 def disagg_traffic():
@@ -2349,11 +2500,14 @@ def serve_fleet_phase(card):
     t0 = time.perf_counter()
     fleet_router(model, card, rate1, unscaled)
     print(f"  router in {time.perf_counter() - t0:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fleet_moe_tp(card)
+    print(f"  MoE tp decode in {time.perf_counter() - t0:.1f} s")
     routes = dict(fa.ROUTE_LAUNCHES)
     print(f"  flash launches on the serve_fleet path: {dict(fa.LAUNCHES)}")
     check(sum(fa.LAUNCHES.values()) == 0, "a flash kernel launched on the serve_fleet path")
-    del model
-    torch.cuda.empty_cache()
     return routes
 
 
@@ -3853,14 +4007,16 @@ def train_utils_phase(card):
 MP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".multiproc_smoke")
 MP_WORLD = 4
 MP_BACKEND = "cuda:gloo"  # gloo carries the CUDA tensors: nccl refuses two ranks on one GPU
-MP_WARMUP_STEPS, MP_TIMED_STEPS = 1, 2
+# (a)'s three checked steps warm the timed one up (the whole ran past
+# 1000 s with [planner] at 1 warm-up and 2 timed steps)
+MP_WARMUP_STEPS, MP_TIMED_STEPS = 0, 1
 MP_NCCL_ARGV = SLICE_ARGV + ["--n-layers", "4"]  # (f): (a)'s width at 4 layers, a rank
 MP_CIFAR_WORLD = 2
 MP_CIFAR_TOL = dict(rtol=1e-4, atol=1e-6)
 MP_EP_TOL = dict(rtol=1e-4, atol_frac=1e-5)  # F32_TOL: float32 in another order
 # a gang's whole run, start-up and kernel load included (a hung gang fails)
 MP_TIMEOUT_S = {"fsdp_tp": 600, "ring": 300, "pipeline": 300, "ep": 240, "cifar": 300,
-                "nccl": 240}
+                "nccl": 240, "serve_tp": 400, "plane": 240, "plan_exec": 300}
 
 
 def mp_path(name):
@@ -3923,10 +4079,16 @@ def mp_init(rank, world, port, backend):
                            rank=rank, world_size=world, timeout=MP_TIMEOUT_S["fsdp_tp"])
 
 
+def mp_reset_stats():
+    bp.reset_stats()
+    p2p.reset_stats()
+
+
 def mp_stats():
-    """The c10d transport's counters since the last reset (this process)."""
+    """The c10d transport's counters since the last reset (this process),
+    with the p2p plane's staging of the CUDA rows it sent."""
     return {"bytes": dict(bp.STATS["bytes"]), "seconds": dict(bp.STATS["seconds"]),
-            "staging_s": bp.STATS["staging_s"], "staged_bytes": bp.STATS["staged_bytes"]}
+            "staging_s": p2p.STAGING["seconds"], "staged_bytes": p2p.STAGING["bytes"]}
 
 
 def mp_timed(fn):
@@ -3967,7 +4129,7 @@ def mp_fsdp_tp_worker(rank, world):
     for _ in range(MP_WARMUP_STEPS):
         lm.train_step(mod, opt, next_tokens())
     torch.cuda.reset_peak_memory_stats()
-    bp.reset_stats()
+    mp_reset_stats()
     step_s = []
     for _ in range(MP_TIMED_STEPS):
         batch = next_tokens()
@@ -4046,8 +4208,8 @@ def mp_fsdp_tp(card):
     print(f"  rank 0 a step: collective bytes handed to gloo {per_step} "
           f"({sum(per_step.values()) / 2 ** 30:.2f} GiB), host seconds inside the collectives "
           f"{coll_s:.3f} ({coll_s / mean:.1%} of the step; gloo's own device<->host copies "
-          f"included), staged through pinned memory by the backend {st['staged_bytes']} bytes "
-          f"in {st['staging_s']:.4f} s")
+          f"included), staged through pinned memory by the p2p plane's sends "
+          f"{st['staged_bytes']} bytes in {st['staging_s']:.4f} s")
     for r, rr in enumerate(res):
         check(rr["local_q"][:2] == [1, 1], f"rank {r} should hold one shard: {rr['local_q']}")
         check(rr["loss_finite"], "non-finite loss in a timed step")
@@ -4107,7 +4269,7 @@ def mp_ring_worker(rank, world):
     with mesh:
         mp_cp_call(ring, mine[:3], mine[3])  # warm-up
         fa.reset_launch_counts()
-        bp.reset_stats()
+        mp_reset_stats()
         got, secs = mp_timed(lambda: mp_cp_call(ring, mine[:3], mine[3]))
         out["ring_launches"], out["routes"] = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
         out["ring_s"], out["ring_stats"] = secs, mp_stats()
@@ -4213,7 +4375,7 @@ def mp_pipeline_worker(rank, world):
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
-    bp.reset_stats()
+    mp_reset_stats()
     (loss, grads), secs = mp_timed(lambda: f1b(mine, hidden, tokens))
     want_loss, want = torch.load(mp_path(f"pp_{rank}.pt"))
     worst = max((rel_rms(g, want[k].to(g.device)), k) for k, g in grads.items())
@@ -4378,7 +4540,7 @@ def mp_nccl_worker(rank, world):
         single = float(lm.loss_fn(model(tokens), tokens))
     mod = lm.shard(model, args.lr, 1, 1)
     opt = mod.step.init_opt_state(mod.params)
-    bp.reset_stats()
+    mp_reset_stats()
     losses = [float(lm.train_step(mod, opt, tokens))]
     losses += [float(lm.train_step(mod, opt, next_tokens())) for _ in range(2)]
     return {"single": single, "losses": losses, "backend": str(tdist.get_backend()),
@@ -4397,8 +4559,573 @@ def mp_nccl(card):
           "the world-1 nccl gang's step disagrees with the single card")
 
 
+# -- (g) CFG_1B tensor-parallel serving at tp 2 as a gang ----------------------
+
+MP_SERVE_REQUESTS = 16
+MP_SERVE_GATE = (2, 128)  # prompts x tokens of the gang's prefill-logits gate
+MP_SERVE_F32_RMS = 1e-5  # float32 (TF32 off): the same sums in another kernel's order
+MP_SERVE_FORCED_RMS = {"bf16": SERVE_RMS_TOL, "float32": MP_SERVE_F32_RMS}
+MP_SERVE_RUNS = (("bf16", SERVE_ARGV, (False, True)),
+                 ("float32", [a for a in SERVE_ARGV if a != "--bf16"], (False,)))
+
+
+def mp_serve_gate_tokens():
+    B, L = MP_SERVE_GATE
+    return np.random.default_rng(1).integers(0, 32000, (B, L)).astype(np.int32)
+
+
+def mp_serve_model(argv):
+    return TransformerLM(lm.config_for(lm.parse_args(argv)), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
+
+
+def mp_serve_tp_worker(rank, world):
+    """One tp rank's engine over the gang's ("tp", 2) mesh: for CFG_1B in
+    bf16 (float and int8 pools) and in float32 (float pool), the bimodal
+    burst, the prefill logits of MP_SERVE_GATE, and each decode step's
+    logits with driver mode's greedy tokens fed in (`forced_decode`),
+    against driver mode's (saved by the phase); then one steady 8-slot
+    bf16 decode step timed
+    (CUDA events over 10 engine steps, the host's ms inside the
+    collectives) and its kernel launches counted under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_distributed_example_tpu_torch.serve import ServeEngine
+
+    mesh = tdx.init_device_mesh(("tp",), (world,))
+    out = {}
+    for name, argv, pools in MP_SERVE_RUNS:
+        model = mp_serve_model(argv)
+        for quant in pools:
+            eng, wall = serve_run(model, bimodal_traffic(MP_SERVE_REQUESTS), slots=SERVE_SLOTS,
+                                  block_size=SERVE_BLOCK, min_bucket=8, mesh=mesh,
+                                  kv_quant=quant)
+            out[f"{name}_{int(quant)}"] = {"tokens": completions(eng), "wall": wall}
+            out["pool_local"] = list(eng.cache.tree["layers_0"]["attn"]["k"]._local.shape)
+            del eng
+        got = engine_prefill_logits(ServeEngine(model, slots=MP_SERVE_GATE[0],
+                                                block_size=SERVE_BLOCK, min_bucket=8,
+                                                mesh=mesh), mp_serve_gate_tokens())
+        want = torch.load(mp_path(f"serve_tp_{name}.pt")).cuda()
+        out[f"{name}_logits"] = [rel_rms(got, want), float((got - want).abs().max())]
+        del got, want
+        for quant in pools:
+            streams, want = torch.load(mp_path(f"serve_tp_forced_{name}_{int(quant)}.pt"))
+            _, got = forced_decode(ServeEngine(model, slots=SERVE_FORCED[0],
+                                               block_size=SERVE_BLOCK, min_bucket=8, mesh=mesh,
+                                               kv_quant=quant), streams)
+            out[f"{name}_{int(quant)}"]["forced"] = forced_rms(got, want.cuda())
+            del got, want
+        if name == "bf16":
+            keep = model
+        else:
+            del model
+    model = keep
+    eng = ServeEngine(model, slots=SERVE_SLOTS, block_size=SERVE_BLOCK, min_bucket=8, mesh=mesh)
+    gen = np.random.default_rng(2)
+    for i in range(SERVE_SLOTS):
+        eng.submit(gen.integers(0, 32000, 48).astype(np.int32), 200, rid=f"p{i}", seed=i)
+    for _ in range(6):
+        eng.step()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    mp_reset_stats()
+    sync()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(10):
+        eng.step()
+    end.record()
+    sync()
+    out["host_ms"] = (time.perf_counter() - t0) * 1e3 / 10
+    out["ev_ms"] = start.elapsed_time(end) / 10
+    out["coll_ms"] = sum(bp.STATS["seconds"].values()) * 1e3 / 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        sync()
+    out["launches"] = sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not e.is_user_annotation and e.self_device_time_total > 0)
+    out["decoding"] = len(eng._decoding)
+    return out
+
+
+def mp_serve_tp(card):
+    """(g): CFG_1B at tp 2 as 2 processes, one engine a process, against
+    the driver-mode tp 2 engine on the same card, weights and traffic:
+    every process emits the same tokens; in float32 (TF32 off) they are
+    the driver-mode engine's token for token; in bf16 the streams' match
+    is reported, since the driver-mode engine batches the tp ranks' `down`
+    projection, whose bf16 bits differ from a rank's alone, and the
+    prefill logits and each decode step's logits, driver mode's greedy
+    tokens fed to both pools (`forced_decode`), are held to
+    SERVE_RMS_TOL."""
+    from pytorch_distributed_example_tpu_torch.serve import ServeEngine
+
+    want = {}
+    for name, argv, pools in MP_SERVE_RUNS:
+        model = mp_serve_model(argv)
+        for quant in pools:
+            eng, wall = serve_run(model, bimodal_traffic(MP_SERVE_REQUESTS), slots=SERVE_SLOTS,
+                                  block_size=SERVE_BLOCK, min_bucket=8, mesh=tp_mesh(2),
+                                  kv_quant=quant)
+            want[f"{name}_{int(quant)}"] = {str(k): v for k, v in completions(eng).items()}
+            print(f"  driver-mode tp 2, {name}, {'int8' if quant else 'float'} pool: "
+                  f"{MP_SERVE_REQUESTS} requests in {wall:.3f} s  [{card}]")
+            del eng
+            streams, logits = forced_decode(ServeEngine(
+                model, slots=SERVE_FORCED[0], block_size=SERVE_BLOCK, min_bucket=8,
+                mesh=tp_mesh(2), kv_quant=quant))
+            torch.save((torch.from_numpy(streams), logits.cpu()),
+                       mp_path(f"serve_tp_forced_{name}_{int(quant)}.pt"))
+            del logits
+        torch.save(engine_prefill_logits(
+            ServeEngine(model, slots=MP_SERVE_GATE[0], block_size=SERVE_BLOCK, min_bucket=8,
+                        mesh=tp_mesh(2)), mp_serve_gate_tokens()).cpu(),
+            mp_path(f"serve_tp_{name}.pt"))
+        del model
+        torch.cuda.empty_cache()
+    print(f"  (g) CFG_1B serving at tp 2 as 2 processes (a tp rank each, its KV-head shard of "
+          f"the pool, the lanes replicated), {MP_SERVE_REQUESTS} requests of the bimodal burst, "
+          f"bf16 (float and int8 pools) and float32, against the driver-mode tp 2 engine")
+    res = mp_gang("serve_tp", world=2)
+    for key in want:
+        check(res[0][key]["tokens"] == res[1][key]["tokens"],
+              f"the gang's two processes emitted different tokens ({key})")
+    for r, rr in enumerate(res):
+        for key, w in want.items():
+            got = rr[key]["tokens"]
+            same, total, reqs = match_rate(w, got)
+            print(f"  rank {r}, {key.replace('_0', ', float pool').replace('_1', ', int8 pool')}: "
+                  f"{same} of {total} greedy tokens equal the driver-mode engine's, {reqs} of "
+                  f"{len(w)} requests whole; {rr[key]['wall']:.3f} s")
+            if key.startswith("float32"):
+                check(got == w, f"rank {r}: the float32 gang's greedy streams differ from "
+                      "driver mode's")
+            steps, tol = rr[key]["forced"], MP_SERVE_FORCED_RMS[key.split("_")[0]]
+            print(f"  rank {r}, {key.replace('_0', ', float pool').replace('_1', ', int8 pool')}: "
+                  f"driver mode's greedy tokens fed to {SERVE_FORCED[0]} slots for "
+                  f"{SERVE_FORCED[2]} steps, each step's logits rms(diff)/rms at most "
+                  f"{max(steps):.4e} (mean {sum(steps) / len(steps):.4e}, <= {tol:g})")
+            check(max(steps) <= tol, f"rank {r}: the gang's decode-step logits stray from "
+                  f"driver mode's ({key})")
+        for name, tol in (("bf16", SERVE_RMS_TOL), ("float32", MP_SERVE_F32_RMS)):
+            r_, m_ = rr[f"{name}_logits"]
+            print(f"  rank {r}, {name}: prefill logits of {MP_SERVE_GATE[0]} x "
+                  f"{MP_SERVE_GATE[1]} against driver mode's rms(diff)/rms {r_:.4e} (<= {tol:g}),"
+                  f" max |diff| {m_:.4e}")
+            check(r_ <= tol, f"rank {r}: the gang's {name} logits stray from driver mode's")
+        print(f"  rank {r}: 8-slot bf16 decode step {rr['ev_ms']:.4f} ms by CUDA events, "
+              f"{rr['host_ms']:.4f} ms on the host, {rr['coll_ms']:.4f} ms of it inside the "
+              f"collectives; {rr['launches']} kernel launches; pool shard "
+              f"{rr['pool_local']}  [{card}]")
+        check(rr["decoding"] == SERVE_SLOTS, "the gang's profiled engine is not at 8 slots")
+
+
+# -- [planner]: the collective planner and the p2p plane ------------------------
+
+PLAN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".planner_smoke")
+PLAN_WORLD = 8
+PLAN_OPS = ("all_reduce", "all_gather", "reduce_scatter")
+PLAN_BUCKETS = tuple((64 << 10) << (2 * i) for i in range(6))  # 64 KiB .. 64 MiB a rank
+PLAN_CHECK_BYTES = 1 << 20  # a rank, for the planned-against-stock checks
+# a planned reduction sums in another order than the stock fold: float32
+# within rtol 1e-5, bf16 (rounded at every partial sum) within 2^-6 and
+# 2^-5 of the largest entry; gathers are data movement, bitwise
+PLAN_TOL = {torch.float32: dict(rtol=1e-5, atol_frac=1e-6),
+            torch.bfloat16: dict(rtol=2 ** -6, atol_frac=2 ** -5)}
+PLANE_BW_BYTES, PLANE_BW_REPS = 256 << 20, 3
+PLAN_EXEC_WORLD, PLAN_EXEC_BYTES = 4, 64 << 20
+PLAN_SKEW_TIMEOUT_S = 60.0
+PLAN_TIMED_STEPS = 1
+
+
+@contextlib.contextmanager
+def planner_env(**env):
+    """The planner's environment for the block (None unsets a name)."""
+    saved = {k: os.environ.get(k) for k in env}
+    try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def plan_inputs(op, W, nbytes, dtype, seed=0):
+    """A rank-stacked payload of `nbytes` a rank: (W, n), or (W, W, n/W)
+    for reduce_scatter."""
+    n = nbytes // dtype.itemsize
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn(W, n, device="cuda", generator=gen).to(dtype)
+    return x.reshape(W, W, n // W) if op == "reduce_scatter" else x
+
+
+def plan_stock(op, x, group=None):
+    """The stock collective on the stacked x (the planner off)."""
+    dt = DistTensor.wrap(x.clone(), group)
+    if op == "all_reduce":
+        tdx.all_reduce(dt, group=group)
+        return dt.tensor
+    return getattr(tdx, op)(dt, group=group).tensor
+
+
+def planner_probe(card):
+    """(a) The probe table on cuda:0, driver mode at world 8; the cache a
+    second planner reads without probing; every schedule against the
+    stock collective."""
+    import logging
+
+    from pytorch_distributed_example_tpu_torch import plan
+    from pytorch_distributed_example_tpu_torch.plan import driver as pdrv, probe as pprobe
+    from pytorch_distributed_example_tpu_torch.plan.planner import CollectivePlanner
+
+    cache_file = os.path.join(PLAN_DIR, "probe_cache.json")
+    # a table measured on another platform (a TPU's topology key) is in
+    # the file: this gang must not read it, but warn and probe fresh
+    pprobe.ProbeCache(cache_file).update(f"w{PLAN_WORLD}/h{PLAN_WORLD}/tpu", "all_reduce",
+                                         PLAN_BUCKETS[0], {"onepass": 1.0, "ring": 2.0})
+    warned = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    log = logging.getLogger(pprobe.__name__)
+    handler = Catch(logging.WARNING)
+    log.addHandler(handler)
+    pg = tdx.init_process_group(world_size=PLAN_WORLD)
+    try:
+        with planner_env(TDX_PLANNER_PROBE_CACHE=cache_file):
+            pl = plan.planner_for_group(pg)
+            topo = pl.topology.key()
+            alg, source = pl.choose("all_reduce", PLAN_BUCKETS[0])
+            print(f"  topology {topo}; a cache holding only a TPU's key: "
+                  f"{len([w for w in warned if 'do not apply' in w])} stale-topology "
+                  f"warning(s), choice ({alg}, {source})")
+            check(source == "probe" and any("do not apply" in w for w in warned),
+                  "a probe cache of another topology must warn and be probed fresh")
+            winners = {}
+            for op in PLAN_OPS:
+                cands = pl.candidates(op)
+                for dtype in (torch.float32, torch.bfloat16):
+                    for b in PLAN_BUCKETS:
+                        t = pprobe.probe_driver(pg.mesh, pdrv.AXIS, PLAN_WORLD, op, cands, b,
+                                                dtype=dtype)
+                        best = min(t, key=t.get)
+                        if dtype == torch.float32:
+                            pl.cache.update(topo, op, b, t)
+                            winners[(op, b)] = best
+                        bound = c10d_bound_bytes(op, PLAN_WORLD, b) / HBM_BYTES_S * 1e3
+                        print(f"  {op} {str(dtype)[6:]} {b >> 10} KiB a rank: "
+                              + ", ".join(f"{a} {v * 1e3:.4f} ms" for a, v in t.items())
+                              + f"; argmin {best} ({t[best] * 1e3 / bound:.2f}x the HBM "
+                              f"bound {bound:.4f} ms)  [{card}]")
+            fresh = CollectivePlanner(
+                pl.topology, mesh=pg.mesh, axis=pdrv.AXIS, cache=pprobe.ProbeCache(cache_file),
+                probe_fn=lambda *a: (_ for _ in ()).throw(SmokeFailure("probed again")))
+            read = {k: fresh.choose(k[0], k[1]) for k in winners}
+            check(all(read[k] == (winners[k], "cache") for k in winners),
+                  f"a second planner should read every choice from the cache: {read}")
+            print(f"  a second planner read all {len(read)} float32 choices from "
+                  f"{os.path.relpath(cache_file)} and probed nothing")
+            worst = {}
+            for op in PLAN_OPS:
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = plan_inputs(op, PLAN_WORLD, PLAN_CHECK_BYTES, dtype)
+                    want = plan_stock(op, x)
+                    for alg in pl.candidates(op)[1:]:
+                        got = pdrv.compiled_body(op, alg, PLAN_WORLD)(x)
+                        if op == "all_gather":
+                            ok = torch.equal(got, want)
+                            err = 0.0 if ok else float("inf")
+                        else:
+                            err, _, ok = compare(got, want, **PLAN_TOL[dtype])
+                        worst[(op, alg, str(dtype)[6:])] = err
+                        check(ok, f"{op} {alg} {dtype} differs from the stock collective")
+            print(f"  planned against stock at {PLAN_CHECK_BYTES >> 20} MiB a rank, world "
+                  f"{PLAN_WORLD} (gathers bitwise, sums under {tol_text_plan()}): max |diff| "
+                  + ", ".join(f"{'/'.join(k)} {v:.3e}" for k, v in worst.items()))
+            sub = tdx.new_group([0, 1])
+            bitwise = {}
+            for op, alg in (("all_reduce", "ring"), ("all_reduce", "rhd"),
+                            ("reduce_scatter", "ring"), ("all_gather", "ring")):
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = plan_inputs(op, 2, PLAN_CHECK_BYTES, dtype, seed=3)
+                    plan.enable_for_group(sub, False)
+                    want = plan_stock(op, x, sub)
+                    plan.enable_for_group(sub, True)
+                    with planner_env(TDX_PLANNER_FORCE=alg):
+                        got = plan_stock(op, x, sub)
+                    check(plan.planner_for_group(sub).last_choice[1] == alg,
+                          f"the dispatch seam did not take {alg}")
+                    bitwise[f"{op}/{alg}/{str(dtype)[6:]}"] = torch.equal(got, want)
+            print(f"  the two-rank geometry through the dispatch seam, bitwise the stock "
+                  f"collective: {bitwise}")
+            check(all(bitwise.values()), "a two-rank planned collective is not bitwise stock")
+    finally:
+        log.removeHandler(handler)
+        tdx.destroy_process_group()
+
+
+def tol_text_plan():
+    return "; ".join(f"{str(d)[6:]} rtol {t['rtol']:g}, atol {t['atol_frac']:g} of the max"
+                     for d, t in PLAN_TOL.items())
+
+
+def planner_fsdp_tp(card):
+    """(b) CFG_1B over fsdp 2 x tp 2 with the planner on, its tp sums
+    forced to the ring and then to rhd (`plan.traced`), against the stock
+    step's losses of [fsdp_tp]; returns the profiled steps' routes."""
+    from pytorch_distributed_example_tpu_torch.plan import driver as pdrv, traced
+
+    key = tuple(FSDP_TP_ARGV)
+    stock_losses, stock_ms = SHARDED_LOSSES[key], SHARDED_STEP_MS[key]
+    total = {name: 0 for name in fa.ROUTE_LAUNCHES}
+    bodies = []
+
+    def counted(real):
+        def body_for(*a, **k):
+            bodies.append(a[:2])
+            return real(*a, **k)
+        return body_for
+
+    try:
+        for alg in ("ring", "rhd"):
+            print(f"  TDX_COLLECTIVE_PLANNER=1 TDX_PLANNER_FORCE={alg}:")
+            bodies.clear()
+            traced.reset()
+            with planner_env(TDX_COLLECTIVE_PLANNER="1", TDX_PLANNER_FORCE=alg), \
+                    patched(pdrv, "body_for", counted):
+                routes, _ = sharded_train(FSDP_TP_ARGV, card, PLAN_TIMED_STEPS)
+            losses = SHARDED_LOSSES[key]
+            diff = max(abs(a - b) for a, b in zip(losses, stock_losses))
+            print(f"  {alg}: losses {losses} vs the stock step's {stock_losses} (max |diff| "
+                  f"{diff:.3e}); step {SHARDED_STEP_MS[key]:.2f} ms vs stock {stock_ms:.2f} ms; "
+                  f"{len(bodies)} planned tp sums  [{card}]")
+            check(diff <= SHARDED_LOSS_TOL, f"the {alg} step's losses stray from the stock step")
+            check(("all_reduce", alg) in bodies, f"the tp sums did not take {alg}")
+            for k, v in routes.items():
+                total[k] += v
+    finally:
+        SHARDED_LOSSES[key], SHARDED_STEP_MS[key] = stock_losses, stock_ms
+        traced.reset()
+    return total
+
+
+def planner_mnist(card):
+    """(c) DDP-MNIST at world 8 with the planner on: `plan.ddp_comm_hook`
+    makes the step's default hook `planner_hook` (each leaf's mean through
+    `plan.traced`, its buckets prepared on the host), unforced (probed)
+    and forced to the ring, against the stock step under
+    cudnn.deterministic."""
+    hooks = []
+
+    def counted(real):
+        def planner_hook(*a, **k):
+            hooks.append(1)
+            return real(*a, **k)
+        return planner_hook
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        stock, _ = mnist_ddp_run("cuda", "auto", False)
+        for force in (None, "ring"):
+            with planner_env(TDX_COLLECTIVE_PLANNER="1", TDX_PLANNER_FORCE=force,
+                             TDX_PLANNER_PROBE_CACHE=os.path.join(PLAN_DIR, "mnist.json")), \
+                    patched(comm_hooks, "planner_hook", counted):
+                hooks.clear()
+                got, _ = mnist_ddp_run("cuda", "auto", False)
+            err = float(((got - stock).abs() / stock.abs()).max())
+            print(f"  {MNIST_CHECK_STEPS} DDP-MNIST steps at world {MNIST_WORLD} through "
+                  f"planner_hook ({force or 'probed'}): losses {got.tolist()} vs stock "
+                  f"{stock.tolist()}, max rel err {err:.3e} (limit {MNIST_LOSS_RTOL:g})")
+            check(hooks and err <= MNIST_LOSS_RTOL,
+                  "the planner's DDP hook disagrees with the stock step")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def mp_plane_bw_worker(rank, world):
+    """A 256 MiB bf16 CUDA tensor from rank 0 to rank 1, PLANE_BW_REPS times
+    through the p2p plane, then through torch.distributed's gloo send of a
+    pinned host copy; the receiver's seconds each."""
+    import torch.distributed as tdist
+
+    from pytorch_distributed_example_tpu_torch import distributed as dist
+
+    gen = torch.Generator("cuda").manual_seed(11)
+    x = torch.randn(PLANE_BW_BYTES // 2, device="cuda", generator=gen).to(torch.bfloat16)
+    plane, pg = dist._p2p_plane, dist._get_default_group()
+    out = {"listening": plane.listening, "plane_s": [], "gloo_s": []}
+    buf = torch.empty_like(x)
+    for _ in range(PLANE_BW_REPS):
+        tdx.barrier()
+        sync()
+        t0 = time.perf_counter()
+        if rank == 0:
+            tdx.send(x, 1)
+        else:
+            tdx.recv(buf, 0)
+        sync()
+        out["plane_s"].append(time.perf_counter() - t0)
+    out["equal"] = bool(torch.equal(buf, x)) if rank == 1 else True
+    host = torch.empty(x.shape, dtype=torch.int16, pin_memory=True)
+    for _ in range(PLANE_BW_REPS):
+        tdx.barrier()
+        sync()
+        t0 = time.perf_counter()
+        if rank == 0:
+            staged = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            staged.copy_(x)
+            tdist.send(staged.view(torch.int16), 1, group=pg.torch_group)
+        else:
+            tdist.recv(host, 0, group=pg.torch_group)
+            buf.copy_(host.view(torch.bfloat16))
+        sync()
+        out["gloo_s"].append(time.perf_counter() - t0)
+    out["gloo_equal"] = bool(torch.equal(buf, x)) if rank == 1 else True
+    out["frames"] = [plane.frames_sent, plane.frames_received]
+    out["bytes"] = [plane.bytes_sent, plane.bytes_received]
+    return out
+
+
+def mp_plan_exec_worker(rank, world):
+    """ring, rhd and hier all-reduces of 64 MiB a rank over the p2p plane
+    (the planner's multiproc plane, forced; `TDX_TOPOLOGY` gives two hosts
+    so hier has leaders), each against the stock gloo all_reduce and
+    against itself re-executed; a group a schedule, so each agrees its own
+    choice."""
+    from pytorch_distributed_example_tpu_torch import distributed as dist
+    from pytorch_distributed_example_tpu_torch import plan
+
+    os.environ.update(TDX_PLANNER_PROBE_CACHE="", TDX_TOPOLOGY="0,0,1,1")
+    gen = torch.Generator("cuda").manual_seed(100 + rank)
+    x = torch.randn(1, PLAN_EXEC_BYTES // 4, device="cuda", generator=gen)
+    stock = DistTensor.wrap(x.clone(), dist._get_default_group())
+    sync()
+    t0 = time.perf_counter()
+    tdx.all_reduce(stock)
+    sync()
+    out = {"stock_s": time.perf_counter() - t0}
+    for alg in ("ring", "rhd", "hier"):
+        g = tdx.new_group(list(range(world)))
+        plan.enable_for_group(g, True)
+        os.environ["TDX_PLANNER_FORCE"] = alg
+        runs, secs = [], []
+        for _ in range(2):
+            dt = DistTensor.wrap(x.clone(), g)
+            sync()
+            t0 = time.perf_counter()
+            tdx.all_reduce(dt, group=g)
+            sync()
+            secs.append(time.perf_counter() - t0)
+            runs.append(dt.tensor)
+        out[alg] = {"choice": list(plan.planner_for_group(g).last_choice),
+                    "again": bool(torch.equal(runs[0], runs[1])),
+                    "vs_stock": compare(runs[0], stock.tensor, **PLAN_TOL[torch.float32]),
+                    "digest": int(runs[0].view(torch.int32).long().sum()), "s": secs}
+    out["frames"] = dist._p2p_plane.frames_sent
+    return out
+
+
+def mp_plane_worker(rank, world):
+    """The world-2 gang of [planner] (d): the plane's bandwidth, then the
+    skewed force."""
+    out = mp_plane_bw_worker(rank, world)
+    out["skew"] = mp_plan_skew_worker(rank, world)
+    return out
+
+
+def mp_plan_skew_worker(rank, world):
+    """A skewed TDX_PLANNER_FORCE (ring on rank 0, rhd on rank 1): prepare()
+    must fail on both ranks, naming the first divergent eqn."""
+    from pytorch_distributed_example_tpu_torch import distributed as dist
+    from pytorch_distributed_example_tpu_torch.plan import traced
+    from pytorch_distributed_example_tpu_torch.schedule import ProgramScheduleMismatchError
+
+    os.environ.update(TDX_COLLECTIVE_PLANNER="1", TDX_PLANNER_PROBE_CACHE="",
+                      TDX_PLANNER_FORCE=("ring", "rhd")[rank])
+    t0 = time.perf_counter()
+    try:
+        traced.prepare(dist._get_default_group(), [("all_reduce", 1 << 20, "avg")],
+                       timeout=PLAN_SKEW_TIMEOUT_S)
+        return {"mismatch": None, "s": time.perf_counter() - t0}
+    except ProgramScheduleMismatchError as e:
+        return {"mismatch": str(e), "s": time.perf_counter() - t0}
+
+
+def planner_gangs(card):
+    """(d) Gangs sharing cuda:0 over "cuda:gloo": the plane's bandwidth, the
+    executor's schedules, a skewed force."""
+    res = mp_gang("plane", world=2)
+    skew = [r["skew"] for r in res]
+    gb = PLANE_BW_BYTES / 1e9
+    recv = res[1]
+    plane, gloo = min(recv["plane_s"]), min(recv["gloo_s"])
+    print(f"  plane: {PLANE_BW_BYTES >> 20} MiB bf16 CUDA tensor rank 0 -> 1 over the p2p "
+          f"plane: {recv['plane_s']} s, best {gb / plane:.3f} GB/s; the same through "
+          f"torch.distributed's staged gloo send: {recv['gloo_s']} s, best "
+          f"{gb / gloo:.3f} GB/s; frames sent {res[0]['frames'][0]} "
+          f"({res[0]['bytes'][0]} bytes), received {recv['frames'][1]}  [{card}]")
+    check(res[0]["listening"] and recv["listening"], "a plane is not listening")
+    check(res[0]["frames"][0] >= PLANE_BW_REPS and recv["frames"][1] >= PLANE_BW_REPS,
+          "the plane carried no frames: a listener published \"none\"")
+    check(recv["equal"] and recv["gloo_equal"], "the received tensor differs from the sent one")
+    res = mp_gang("plan_exec", world=PLAN_EXEC_WORLD)
+    for alg in ("ring", "rhd", "hier"):
+        digests = {r[alg]["digest"] for r in res}
+        for r, rr in enumerate(res):
+            got = rr[alg]
+            print(f"  rank {r} {alg}: {PLAN_EXEC_BYTES >> 20} MiB a rank over the plane in "
+                  f"{got['s']} s (stock gloo all_reduce {rr['stock_s']:.4f} s); against "
+                  f"stock max |diff| {got['vs_stock'][0]:.3e} ({got['vs_stock'][2]}); "
+                  f"re-executed bitwise {got['again']}  [{card}]")
+            check(got["choice"] == ["all_reduce", alg, "force"], f"rank {r} did not run {alg}")
+            check(got["again"] and got["vs_stock"][2], f"rank {r}: {alg} is not bitwise "
+                  "re-executable or strays from the stock all_reduce")
+        check(len(digests) == 1, f"{alg}: the ranks hold different results")
+    check(all(r["frames"] > 0 for r in res), "the executor sent no frames over the plane")
+    for r, rr in enumerate(skew):
+        print(f"  skewed force, rank {r}: {('raised in %.2f s: ' % rr['s'])}"
+              f"{(rr['mismatch'] or 'no error')[:160]}")
+        check(rr["mismatch"] is not None and "#1" in rr["mismatch"]
+              and rr["s"] < PLAN_SKEW_TIMEOUT_S,
+              f"rank {r}: a skewed force must fail prepare() naming eqn #1")
+
+
+def planner_phase(card):
+    """The collective planner and the p2p plane: (a) the probe table, (b)
+    the planner's fsdp 2 x tp 2 step, (c) DDP-MNIST through the planner's
+    hook, (d) the gangs. Returns (b)'s launches by route."""
+    shutil.rmtree(PLAN_DIR, ignore_errors=True)
+    os.makedirs(PLAN_DIR)
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    os.makedirs(MP_DIR)
+    try:
+        for part in (planner_probe, planner_fsdp_tp, planner_mnist, planner_gangs):
+            t0 = time.perf_counter()
+            got = part(card)
+            if part is planner_fsdp_tp:
+                routes = got
+            torch.cuda.empty_cache()
+            print(f"  {part.__name__} in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(PLAN_DIR, ignore_errors=True)
+        shutil.rmtree(MP_DIR, ignore_errors=True)
+    return routes
+
+
 MP_WORKERS = {"fsdp_tp": mp_fsdp_tp_worker, "ring": mp_ring_worker,
-              "pipeline": mp_pipeline_worker, "ep": mp_ep_worker, "nccl": mp_nccl_worker}
+              "pipeline": mp_pipeline_worker, "ep": mp_ep_worker, "nccl": mp_nccl_worker,
+              "serve_tp": mp_serve_tp_worker, "plane": mp_plane_worker,
+              "plan_exec": mp_plan_exec_worker}
 
 
 def mp_worker(argv):
@@ -4424,7 +5151,8 @@ def multiproc_phase(card):
     """The training parallelisms as process gangs that share cuda:0, over
     gloo ("cuda:gloo"): (a) CFG_1B over fsdp 2 x tp 2, (b) the ring and
     Ulysses, (c) 1F1B at pp 4, (d) make_ep_moe, (e) SyncBN through the
-    CIFAR example, (f) a world-1 nccl gang. Returns the gangs' counted
+    CIFAR example, (f) a world-1 nccl gang, (g) CFG_1B tensor-parallel
+    serving at tp 2, an engine a process. Returns the gangs' counted
     flash launches by route, by the regime each part puts the kernels in:
     (a)'s and (c)'s under "multiproc" (resident), (b)'s ring under
     "multiproc_ring" (streamed)."""
@@ -4433,7 +5161,7 @@ def multiproc_phase(card):
     launches = {key: {name: 0 for name in fa.ROUTE_LAUNCHES}
                 for key in ("multiproc", "multiproc_ring")}
     parts = (("multiproc", mp_fsdp_tp), ("multiproc_ring", mp_ring), ("multiproc", mp_pipeline),
-             (None, mp_ep), (None, mp_cifar), (None, mp_nccl))
+             (None, mp_ep), (None, mp_cifar), (None, mp_nccl), (None, mp_serve_tp))
     try:
         for key, part in parts:
             t0 = time.perf_counter()
@@ -4593,7 +5321,13 @@ def main():
     phase_launches.update(multiproc_phase(card))
     print(f"  multiproc in {time.perf_counter() - t0:.1f} s")
 
-    # 20. report
+    # 20. the collective planner and the p2p plane
+    t0 = time.perf_counter()
+    print("[planner]")
+    phase_launches["planner"] = planner_phase(card)
+    print(f"  planner in {time.perf_counter() - t0:.1f} s")
+
+    # 21. report
     kernels = []
     for name, lowerings in REPLACES.items():
         for regime, replaces in lowerings.items():

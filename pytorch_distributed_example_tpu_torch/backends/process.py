@@ -18,15 +18,15 @@ semantics of `backends/stacked.py` and the same dtypes:
   their input);
 * gather rides all_gather and zeroes every rank but the destination, as
   the reference does;
-* the driver-mode permute becomes isend/irecv pairs.
+* the driver-mode permute is not here: `distributed.permute` moves a
+  multiproc group's rows over the p2p plane.
 
 gloo carries CUDA tensors too (the `"cuda:gloo"` backend: processes that
 share one card). Its collectives copy a CUDA row to host memory and back
-on their own streams, but its send and recv read the row's pointer as
-host memory, so `GLOO_CUDA_STAGED` names the ops whose CUDA rows this
-backend stages itself through pinned host memory: the device-to-host
-copy is synchronized before the send, the received row goes back on the
-current stream. The table is fixed, not found by catching an error.
+on their own streams; its send and recv read the row's pointer as host
+memory and abort on a CUDA tensor, which is why no send or recv of the
+port goes through gloo: they ride the p2p plane (`p2p.py`), which stages
+a CUDA row through pinned host memory itself.
 
 The collectives run synchronously; the `TensorWork` then records an event
 on the current stream, which nccl's stream has been joined to.
@@ -34,15 +34,14 @@ on the current stream, which nccl's stream has been joined to.
 `STATS` counts, for the process, the bytes each op hands its transport
 (this process's input rows), the host seconds inside each op's
 torch.distributed calls (which block until done, so on a card they
-include gloo's own host copies) and the seconds spent staging;
-`reset_stats()` zeroes them.
+include gloo's own host copies); `reset_stats()` zeroes them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Any, Sequence, Tuple
+from typing import Any, Tuple
 
 import torch
 import torch.distributed as tdist
@@ -63,15 +62,11 @@ _NATIVE_OPS = {
 }
 
 
-# ops whose CUDA rows gloo cannot carry: ProcessGroupGloo's send/recv hand
-# the tensor's pointer to gloo's host buffers as it is
-GLOO_CUDA_STAGED = frozenset({"permute"})
-
-STATS = {"bytes": {}, "seconds": {}, "staging_s": 0.0, "staged_bytes": 0}
+STATS = {"bytes": {}, "seconds": {}}
 
 
 def reset_stats() -> None:
-    STATS.update(bytes={}, seconds={}, staging_s=0.0, staged_bytes=0)
+    STATS.update(bytes={}, seconds={})
 
 
 @contextlib.contextmanager
@@ -97,24 +92,6 @@ class ProcessBackend(Backend):
                  torch_group):
         super().__init__(mesh.flattened("_ranks"), rank, world_size, timeout)
         self.torch_group = torch_group
-        gloo_cuda = mesh.device.type == "cuda" and "gloo" in str(tdist.get_backend(torch_group))
-        self.staged = GLOO_CUDA_STAGED if gloo_cuda else frozenset()
-
-    def _to_host(self, row: torch.Tensor) -> torch.Tensor:
-        """A pinned host copy of a CUDA row, complete before it is sent."""
-        t0 = time.perf_counter()
-        host = torch.empty(row.shape, dtype=row.dtype, pin_memory=True)
-        host.copy_(row, non_blocking=True)
-        torch.cuda.current_stream(row.device).synchronize()
-        STATS["staging_s"] += time.perf_counter() - t0
-        STATS["staged_bytes"] += row.numel() * row.element_size()
-        return host
-
-    def _from_host(self, dst: torch.Tensor, host: torch.Tensor) -> None:
-        t0 = time.perf_counter()
-        dst.copy_(host, non_blocking=True)
-        STATS["staging_s"] += time.perf_counter() - t0
-        STATS["staged_bytes"] += host.numel() * host.element_size()
 
     def _global(self, group_rank: int) -> int:
         return tdist.get_global_rank(self.torch_group, group_rank)
@@ -190,30 +167,6 @@ class ProcessBackend(Backend):
             tdist.all_to_all_single(wire(out[0]), wire(x[0].contiguous()),
                                     group=self.torch_group)
         return self._work(out, OpType.ALLTOALL, "all_to_all")
-
-    def permute(self, x, perm: Sequence[Tuple[int, int]]) -> Tuple[Any, Work]:
-        out, row = x.clone(), x[0].contiguous()
-        staged = "permute" in self.staged
-        reqs, recv, sent = [], None, None
-        for s, d in perm:
-            s, d = int(s), int(d)
-            if s == d == self.rank:
-                continue  # a rank sending to itself keeps its row
-            if s == self.rank:
-                buf = self._to_host(row) if staged else row
-                sent = buf
-                reqs.append(tdist.isend(wire(buf), dst=self._global(d), group=self.torch_group))
-            if d == self.rank:
-                recv = (torch.empty(row.shape, dtype=row.dtype, pin_memory=True) if staged
-                        else out[0])
-                reqs.append(tdist.irecv(wire(recv), src=self._global(s),
-                                        group=self.torch_group))
-        with _count("permute", sent if sent is not None else row[:0]):
-            for req in reqs:
-                req.wait()
-        if staged and recv is not None:
-            self._from_host(out[0], recv)
-        return self._work(out, OpType.SEND, "permute")
 
     def barrier(self) -> Work:
         dev = self.mesh.device

@@ -23,12 +23,17 @@ Two execution modes share this API, as in the reference:
   torch.distributed (`backends/process.py`): gloo for CPU tensors, nccl
   for CUDA tensors, or gloo for CUDA tensors too when the backend is
   given in torch's device form, `"cuda:gloo"` (processes that share one
-  card: nccl refuses two ranks on one GPU). Point-to-point ops are
-  torch.distributed's send and recv.
+  card: nccl refuses two ranks on one GPU). Point-to-point ops (`send`,
+  `recv`, `isend`, `irecv`, `batch_isend_irecv`, and the row moves of
+  `permute`) go through the direct p2p data plane (`p2p.P2PPlane`): every
+  process publishes a listener endpoint at init, and tensor bytes move
+  pair to pair over TCP (a CUDA tensor through pinned host memory). A
+  rank that opted out (`TDX_P2P_PLANE=0`) publishes "none", and messages
+  to it take the store path, as in the reference.
 
-Not ported yet, with their place in ROADMAP.md: the collective planner
-behind `plan_args` (the parameter is accepted and ignored) and the direct
-p2p data plane (`P2PPlane`).
+`plan_args` marks a collective plannable: with the collective planner on
+(`TDX_COLLECTIVE_PLANNER=1` or `plan.enable_for_group`), `_dispatch` takes
+the planner's schedule (`plan.maybe_lower`) in place of the stock one.
 """
 
 from __future__ import annotations
@@ -53,7 +58,6 @@ from . import backends as _backends
 from . import faults as _faults
 from . import schedule as _schedule
 from .backends.base import Backend as _BackendBase
-from .backends.process import wire as _wire
 from .mesh import DeviceMesh, init_device_mesh, visible_devices
 from .rendezvous import rendezvous as _rendezvous
 from .store import HashStore, PrefixStore, Store
@@ -190,13 +194,23 @@ class ProcessGroup:
 
         Shapes are recorded as the reference records them, with the rank
         dim at the group's size: (world, *per-rank shape) in both modes.
-        `plan_args` marks the op plannable for the collective planner,
-        which is not ported yet: it is accepted and ignored. A sync-path
+        `plan_args` marks the op plannable: when the collective planner
+        is active for this group, the stock `fn` is swapped for the
+        planner's schedule (`plan.maybe_lower`: the rank-stacked bodies of
+        `plan/driver.py` in driver mode, the plan walked over the p2p
+        plane in multiproc mode); the planner declining (None) keeps `fn`,
+        and the op fingerprint is the same either way. A sync-path
         Work (`async_op=False`: the caller never sees it) drops its result:
         the host runs ahead of the card, and the completion sweep would
         otherwise pin the output of every collective still queued."""
         from .utils.flight_recorder import global_recorder
 
+        if plan_args is not None:
+            from . import plan as _plan_mod
+
+            alt = _plan_mod.maybe_lower(self, op_name, tensor, plan_args, fallback=fn)
+            if alt is not None:
+                fn = alt
         self._sweep_inflight()
         seq = self._backend.next_sequence_number()
         shape = () if tensor is None else (self.size(),) + tuple(tensor.shape[1:])
@@ -553,6 +567,21 @@ def init_process_group(
     )
     _world.default_pg = pg
     GroupMember.WORLD = pg
+    if multiproc:
+        # Direct p2p data plane (gloo's full-mesh pair connections,
+        # ProcessGroupGloo.hpp:48+): every rank publishes a listener
+        # endpoint; tensor bytes then move pair-to-pair instead of
+        # through the store daemon or gloo. Must run on EVERY rank — an
+        # opted-out rank publishes "none" so peers take the store path
+        # instead of blocking on the endpoint key.
+        global _p2p_plane
+        from . import p2p as _p2p_mod
+
+        _p2p_plane = _p2p_mod.P2PPlane(
+            _world.process_rank,
+            PrefixStore(f"p2p_plane_gen{_world.scope}", store),
+            enabled=os.environ.get("TDX_P2P_PLANE", "1") != "0",
+        ).start()
     # both modes: default ON under the elastic agent, TDX_WATCHDOG=1
     # opts in anywhere (driver mode included — a wedged collective
     # should dump + abort there too, not sit on the 30-min PG timeout)
@@ -733,7 +762,7 @@ def destroy_process_group(group: Optional[ProcessGroup] = None) -> None:
     the store; the daemon host waits (bounded) for all marks before the
     daemon goes down.
     """
-    global _world
+    global _world, _p2p_plane
     if group is None or group is _world.default_pg or group is GroupMember.WORLD:
         for pg in _world.pg_map.values():
             if pg.watchdog is not None:
@@ -743,6 +772,16 @@ def destroy_process_group(group: Optional[ProcessGroup] = None) -> None:
                 pg.watchdog.stop()
                 pg.watchdog = None
             pg.backend_impl.shutdown()
+        if _p2p_plane is not None:
+            # before torch's groups are dropped and before the store
+            # teardown handshake: the listener and reader threads end
+            # here, and waiters wake with a clear "closed" error rather
+            # than a store connection error
+            _p2p_plane.close()
+            _p2p_plane = None
+        from .plan import traced as _traced
+
+        _traced.reset()
         if tdist.is_initialized():
             tdist.destroy_process_group()  # every torch.distributed group
         # Drop the last references to torch's groups here, so their gloo
@@ -1004,18 +1043,46 @@ def permute(tensor, perm, group=None, async_op: bool = False):
     """Move rows between ranks: for each (src, dst) pair of `perm`, rank
     dst's row becomes rank src's (the reference's `ppermute`); a rank no
     pair sends to keeps its row. In place on the DistTensor. Multiproc
-    mode runs it as isend/irecv pairs, so every rank of the group calls
-    it with the same pairs, a rank with nothing to send or receive too."""
+    mode moves the rows over the p2p plane, so every rank of the group
+    calls it with the same pairs, a rank with nothing to send or receive
+    too."""
     g = _resolve(group)
     dt = _as_dist(tensor, g)
     perm = [(int(s), int(d)) for s, d in perm]
     for s_, d_ in perm:
         g._check_member(s_)
         g._check_member(d_)
-    out, work = g._dispatch("permute", dt.tensor,
-                            lambda: g.backend_impl.permute(dt.tensor, perm),
-                            detail=f"perm={perm}", async_op=async_op)
+    if _world.mode == "multiproc":
+        verify = getattr(g.backend_impl, "_verify", None)  # DETAIL's cross-rank check
+        if verify is not None:
+            verify(f"permute:{tuple(perm)}", dt.tensor)
+        fn = lambda: _permute_p2p(dt.tensor, perm, g)  # noqa: E731
+    else:
+        fn = lambda: g.backend_impl.permute(dt.tensor, perm)  # noqa: E731
+    out, work = g._dispatch("permute", dt.tensor, fn, detail=f"perm={perm}",
+                            async_op=async_op)
     return _finish(dt, out, work, async_op)
+
+
+# the row moves of a multiproc `permute` ride their own internal channel
+_PERMUTE_TAG = (1 << 30) - 8
+
+
+def _permute_p2p(x: torch.Tensor, perm, g: ProcessGroup):
+    """Multiproc `permute` over the p2p plane: this process sends its row
+    to every dst a pair names (sends first, so no pair waits on another),
+    then lands the row of the pair that sends here."""
+    from .backends.process import _count
+
+    me, out, row = g.rank(), x.clone(), x[0]
+    with _count("permute", row):
+        for s_, d_ in perm:
+            if s_ == me and d_ != me:
+                _store_send(row, d_, g, _PERMUTE_TAG)
+        for s_, d_ in perm:
+            if d_ == me and s_ != me:
+                _store_recv(out[0], s_, g, _PERMUTE_TAG, g.timeout)
+    return out, CompletedWork(out, OpType.SEND)
 
 
 def barrier(group=None, async_op: bool = False, device_ids=None):
@@ -1438,23 +1505,206 @@ class P2POp:
     rank: Optional[int] = None
 
 
-class _TorchP2PWork(Work):
-    """A torch.distributed p2p request as a Work; a receive into a
-    DistTensor lands as its row."""
+def _is_send(op) -> bool:
+    return getattr(op, "__name__", str(op)) in ("isend", "send")
 
-    def __init__(self, req, op_type: OpType, result, src: Optional[int] = None):
-        super().__init__(op_type, f"process:{op_type.name.lower()}")
-        self._req = req
-        self._result = result
-        self._src = src
+
+def _p2p_key(gen, src: int, dst: int, tag: int, seq: int) -> str:
+    # gen disambiguates init/destroy incarnations (and agent restart
+    # generations): subgroup PrefixStore names ("group_N") reset with
+    # _world, so without it an unconsumed send from a dead incarnation
+    # would be delivered to the next one.
+    return f"p2p/g{gen}/{src}->{dst}/t{tag}/{seq}"
+
+
+def _p2p_counters(g: ProcessGroup, which: str) -> Dict:
+    """Per-GROUP sequence counters: a global counter would desynchronize
+    sender and receiver as soon as two groups carry p2p traffic."""
+    attr = f"_p2p_{which}_seq"
+    ctr = getattr(g, attr, None)
+    if ctr is None:
+        ctr = {}
+        setattr(g, attr, ctr)
+    return ctr
+
+
+# Large store-path payloads are split into bounded chunks streamed through
+# the daemon; the manifest key is written FIRST so the receiver drains
+# chunk i while the sender is still writing chunk i+1.
+_P2P_CHUNK_MAGIC = b"TDXCHUNKS:"
+
+
+def _p2p_chunk_bytes() -> int:
+    return int(os.environ.get("TDX_P2P_CHUNK_BYTES", str(4 << 20)))
+
+
+# Direct data plane (p2p.py). Routing is deterministic per incarnation:
+# a sender uses the plane iff the DESTINATION published a listener; a
+# receiver drains its own inbox iff ITS listener is up — the same
+# condition from both ends, so a message never has two possible paths.
+_p2p_plane = None
+
+
+def _route_key(g: ProcessGroup) -> str:
+    # group+incarnation scope, mirroring the store path's PrefixStore
+    # nesting: same (tag, seq) on two groups must not collide.
+    return f"{_world.scope}/{g.group_name}"
+
+
+def _plane_send_target(g: ProcessGroup, dst_group_rank: int, timeout: float):
+    """(plane, dst_global) when the plane carries this send, else None.
+
+    A message takes the store path ONLY when dst published a "none"
+    endpoint (its listener is down), which is exactly when dst drains the
+    store. A failed endpoint LOOKUP therefore propagates: silently
+    diverting one message to the store would strand it."""
+    if _p2p_plane is None:
+        return None
+    dst_global = g.get_global_rank(dst_group_rank)
+    ep = _p2p_plane.endpoint_of(dst_global, timeout)
+    return (_p2p_plane, dst_global) if ep is not None else None
+
+
+def _plane_recv_active() -> bool:
+    return _p2p_plane is not None and _p2p_plane.listening
+
+
+def _p2p_payload(tensor) -> torch.Tensor:
+    """This process's tensor for a multiproc send: a DistTensor's row, a
+    tensor, or an array."""
+    if isinstance(tensor, DistTensor):
+        return tensor.tensor[0]
+    if isinstance(tensor, torch.Tensor):
+        return tensor
+    return torch.as_tensor(np.asarray(tensor))
+
+
+def _land(tensor, val: torch.Tensor) -> torch.Tensor:
+    """The torch in-place receive contract: a tensor is filled, a
+    DistTensor gets the value as its row (on its device)."""
+    if isinstance(tensor, DistTensor):
+        row = tensor.tensor[0]
+        tensor._set(val.to(device=row.device, dtype=row.dtype).reshape(row.shape)[None])
+    elif isinstance(tensor, torch.Tensor):
+        tensor.copy_(val.reshape(tensor.shape))
+    return val
+
+
+def _store_send(tensor, dst: int, g: ProcessGroup, tag: int) -> None:
+    """Multiproc send of this process's tensor to group rank dst, under a
+    generation- and group-scoped per-(dst, tag) sequence number: through
+    the p2p plane when dst listens, else through the store."""
+    from . import p2p as _p2p_mod
+
+    ctr = _p2p_counters(g, "send")
+    seq = ctr.get((dst, tag), 0)
+    ctr[(dst, tag)] = seq + 1
+    val = _p2p_payload(tensor)
+    target = _plane_send_target(g, dst, g.timeout)
+    if target is not None:
+        plane, dst_global = target
+        plane.send(dst_global, _route_key(g), tag, seq, val, g.timeout)
+        return
+    kind, dtype, shape, buf = _p2p_mod.encode(val)
+    payload = pickle.dumps((kind, dtype, tuple(shape), bytes(buf)))
+    key = _p2p_key(_world.scope, g.rank(), dst, tag, seq)
+    chunk = _p2p_chunk_bytes()
+    if len(payload) <= chunk:
+        g.store.set(key, payload)
+        return
+    n = (len(payload) + chunk - 1) // chunk
+    # manifest first: the receiver starts draining immediately
+    g.store.set(key, _P2P_CHUNK_MAGIC + pickle.dumps((n, len(payload))))
+    for i in range(n):
+        g.store.set(f"{key}/c{i}", payload[i * chunk : (i + 1) * chunk])
+
+
+def _store_recv(tensor, src: int, g: ProcessGroup, tag: int, timeout: float):
+    from . import p2p as _p2p_mod
+
+    ctr = _p2p_counters(g, "recv")
+    seq = ctr.get((src, tag), 0)
+    ctr[(src, tag)] = seq + 1
+    if _plane_recv_active():
+        # my listener is up, so every peer routed this message through it
+        val = _p2p_plane.recv(g.get_global_rank(src), _route_key(g), tag, seq, timeout)
+        return _land(tensor, val)
+    key = _p2p_key(_world.scope, src, g.rank(), tag, seq)
+    g.store.wait([key], timeout)
+    head = g.store.get(key)
+    if head.startswith(_P2P_CHUNK_MAGIC):
+        n, total = pickle.loads(head[len(_P2P_CHUNK_MAGIC):])
+        parts = []
+        for i in range(n):  # chunks stream in-order behind the manifest
+            ck = f"{key}/c{i}"
+            g.store.wait([ck], timeout)
+            parts.append(g.store.get(ck))
+            try:
+                g.store.delete_key(ck)
+            except (DistError, OSError):
+                pass  # best-effort GC: a failed delete only leaks a consumed key
+        head = b"".join(parts)
+        assert len(head) == total, (len(head), total)
+    kind, dtype, shape, buf = pickle.loads(head)
+    try:
+        g.store.delete_key(key)
+    except (DistError, OSError):
+        pass  # best-effort GC: a failed delete only leaks a consumed key
+    return _land(tensor, _p2p_mod.decode(kind, dtype, shape, bytearray(buf)))
+
+
+def _store_recv_any(tensor, g: ProcessGroup, tag: int, timeout: float):
+    """Any-source receive (torch `recv(src=None)`): the first message
+    from any peer at its next expected sequence number. Returns (src,
+    value)."""
+    me = g.rank()
+    ctr = _p2p_counters(g, "recv")
+    peers = [r for r in range(g.size()) if r != me]
+    if _plane_recv_active():
+        cands = [(g.get_global_rank(r), ctr.get((r, tag), 0)) for r in peers]
+        src_global, val = _p2p_plane.recv_any(
+            cands, _route_key(g), tag, timeout if timeout is not None else 3600.0)
+        src = g.get_group_rank(src_global)
+        ctr[(src, tag)] = ctr.get((src, tag), 0) + 1
+        return src, _land(tensor, val)
+    budget = timeout if timeout is not None else 3600.0
+    deadline = time.monotonic() + budget
+    poll = 0.002
+    while True:
+        for src in peers:
+            key = _p2p_key(_world.scope, src, me, tag, ctr.get((src, tag), 0))
+            if g.store.check([key]):
+                return src, _store_recv(tensor, src, g, tag, timeout)
+        if time.monotonic() >= deadline:
+            raise TimeoutError(f"recv(src=None): no sender within {budget}s (tag={tag})")
+        # exponential backoff to 50 ms: a long any-source wait must not
+        # hammer the single-threaded daemon with W RPCs every 2 ms
+        time.sleep(poll)
+        poll = min(poll * 2, 0.05)
+
+
+class _StoreRecvWork(Work):
+    """Deferred multiproc receive: `wait()` performs the blocking read.
+    `src=None` resolves any-source at wait time; `source_rank()` then
+    reports who sent (torch `Work._source_rank`)."""
+
+    def __init__(self, tensor, src: Optional[int], g: ProcessGroup, tag: int):
+        super().__init__(OpType.RECV, "p2p:recv")
+        self._args = (tensor, src, g, tag)
         self._done = False
+        self._src = src
+        self.value = None
 
     def is_completed(self) -> bool:
-        return self._done or self._req.is_completed()
+        return self._done
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         if not self._done:
-            self._req.wait()
+            t, src, g, tag = self._args
+            if src is None:
+                self._src, self.value = _store_recv_any(t, g, tag, timeout or g.timeout)
+            else:
+                self.value = _store_recv(t, src, g, tag, timeout or g.timeout)
             self._done = True
         return True
 
@@ -1463,63 +1713,27 @@ class _TorchP2PWork(Work):
 
     def result(self):
         self.wait()
-        return self._result
-
-
-def _is_send(op) -> bool:
-    return getattr(op, "__name__", str(op)) in ("isend", "send")
-
-
-def _p2p_row(tensor, g: ProcessGroup) -> torch.Tensor:
-    """This process's tensor for a multiproc send: a DistTensor's row, a
-    tensor, or an array, on the group's device."""
-    if isinstance(tensor, DistTensor):
-        return tensor.tensor[0].contiguous()
-    if not isinstance(tensor, torch.Tensor):
-        tensor = torch.as_tensor(np.asarray(tensor))
-    return tensor.to(g.device).contiguous()
-
-
-def _recv_buffer(tensor, g: ProcessGroup) -> Tuple[torch.Tensor, Any]:
-    """(buffer to receive into, how to land it): a DistTensor gets the
-    buffer as its row; a CUDA or CPU tensor is filled in place."""
-    if isinstance(tensor, DistTensor):
-        buf = torch.empty_like(tensor.tensor[0])
-        return buf, lambda: tensor._set(buf[None])
-    if tensor.device == g.device and tensor.is_contiguous():
-        return tensor, lambda: None
-    buf = torch.empty(tensor.shape, dtype=tensor.dtype, device=g.device)
-    return buf, lambda: tensor.copy_(buf)
+        return self._args[0]
 
 
 def batch_isend_irecv(p2p_op_list: List[P2POp]) -> List[Work]:
     """torch `batch_isend_irecv` (`distributed_c10d.py:2990`). Driver mode:
     pair up the sends/recvs and run them as ONE permute over the rank dim.
-    Multiproc mode: one torch.distributed batch (nccl groups it, so ranks
-    that both send and receive cannot deadlock)."""
+    Multiproc mode: each op goes through the p2p plane (sends at once,
+    receives deferred to `wait()`), like isend/irecv."""
     if not p2p_op_list:
         return []
     g = _resolve(p2p_op_list[0].group)
     if _world.mode == "multiproc":
-        ops, lands, kinds = [], [], []
+        works: List[Work] = []
         for p in p2p_op_list:
             pg = _resolve(p.group)
             _check_user_tag(p.tag)
             if _is_send(p.op):
-                buf, land = _p2p_row(p.tensor, pg), (lambda: None)
-                ops.append(tdist.P2POp(tdist.isend, _wire(buf), pg.get_global_rank(p.peer),
-                                       pg.torch_group, p.tag))
-                kinds.append(OpType.SEND)
+                _store_send(p.tensor, p.peer, pg, p.tag)
+                works.append(CompletedWork(p.tensor, OpType.SEND))
             else:
-                buf, land = _recv_buffer(p.tensor, pg)
-                ops.append(tdist.P2POp(tdist.irecv, _wire(buf), pg.get_global_rank(p.peer),
-                                       pg.torch_group, p.tag))
-                kinds.append(OpType.RECV)
-            lands.append(land)
-        works = []
-        for req, land, kind, p in zip(tdist.batch_isend_irecv(ops), lands, kinds, p2p_op_list):
-            land()
-            works.append(_TorchP2PWork(req, kind, p.tensor, p.peer))
+                works.append(_StoreRecvWork(p.tensor, p.peer, pg, p.tag))
         return works
     sends: Dict[Tuple[int, int, int], P2POp] = {}
     recvs: Dict[Tuple[int, int, int], P2POp] = {}
@@ -1567,30 +1781,17 @@ def _check_user_tag(tag: int) -> None:
                          "tags are reserved for internal channels")
 
 
-def _torch_send(tensor, dst: int, g: ProcessGroup, tag: int) -> None:
-    tdist.send(_wire(_p2p_row(tensor, g)), dst=g.get_global_rank(dst),
-               group=g.torch_group, tag=tag)
-
-
-def _torch_recv(tensor, src: Optional[int], g: ProcessGroup, tag: int) -> int:
-    """Blocking receive into `tensor`; the sender's group rank."""
-    buf, land = _recv_buffer(tensor, g)
-    sender = tdist.recv(_wire(buf), src=None if src is None else g.get_global_rank(src),
-                        group=g.torch_group, tag=tag)
-    land()
-    return g.get_group_rank(sender)
-
-
 def send(tensor, dst: int, group=None, tag: int = 0, *, src: Optional[int] = None):
     """torch `send` (`distributed_c10d.py:2598`).
 
-    Multiproc mode: the calling process's tensor goes to dst through
-    torch.distributed's send. Driver mode: all ranks live here, so a send
-    is half of a permute pair and needs the acting rank via `src=`."""
+    Multiproc mode: the calling process's tensor goes to dst through the
+    p2p plane (the store path toward an opted-out rank). Driver mode: all
+    ranks live here, so a send is half of a permute pair and needs the
+    acting rank via `src=`."""
     _check_user_tag(tag)
     g = _resolve(group)
     if _world.mode == "multiproc":
-        _torch_send(tensor, dst, g, tag)
+        _store_send(tensor, dst, g, tag)
         return None
     if src is None:
         raise ValueError("driver mode: send(...) needs src= (acting rank)")
@@ -1609,16 +1810,20 @@ def send(tensor, dst: int, group=None, tag: int = 0, *, src: Optional[int] = Non
 def recv(tensor, src: Optional[int] = None, group=None, tag: int = 0, *, dst: Optional[int] = None) -> int:
     """torch `recv` (`distributed_c10d.py:2682`).
 
-    Multiproc mode: blocking receive through torch.distributed; a tensor
-    is filled IN PLACE (torch contract), a DistTensor gets the received
-    row; returns the sender's rank (any sender when src is None, on gloo).
+    Multiproc mode: blocking receive from the p2p plane (or the store
+    path); a tensor is filled IN PLACE (torch contract), a DistTensor gets
+    the received row; returns the sender's rank (any sender when src is
+    None).
     Driver mode: the matching send already routed data into the
     rank-stacked tensor (send+recv are one permute), so this is a no-op
     returning src."""
     _check_user_tag(tag)
     g = _resolve(group)
     if _world.mode == "multiproc":
-        return _torch_recv(tensor, src, g, tag)
+        if src is None:
+            return _store_recv_any(tensor, g, tag, g.timeout)[0]
+        _store_recv(tensor, src, g, tag, g.timeout)
+        return src
     return src if src is not None else -1
 
 
@@ -1626,9 +1831,8 @@ def isend(tensor, dst: int, group=None, tag: int = 0, *, src: Optional[int] = No
     _check_user_tag(tag)
     g = _resolve(group)
     if _world.mode == "multiproc":
-        req = tdist.isend(_wire(_p2p_row(tensor, g)), dst=g.get_global_rank(dst),
-                          group=g.torch_group, tag=tag)
-        return _TorchP2PWork(req, OpType.SEND, tensor)
+        _store_send(tensor, dst, g, tag)  # the plane's send returns once written
+        return CompletedWork(tensor, OpType.SEND)
     if src is None:
         raise ValueError("driver mode: isend(...) needs src= (acting rank)")
     dt = _as_dist(tensor, g)
@@ -1646,11 +1850,7 @@ def irecv(tensor, src: Optional[int] = None, group=None, tag: int = 0, *, dst: O
     _check_user_tag(tag)
     g = _resolve(group)
     if _world.mode == "multiproc":
-        buf, land = _recv_buffer(tensor, g)
-        req = tdist.irecv(_wire(buf), src=None if src is None else g.get_global_rank(src),
-                          group=g.torch_group, tag=tag)
-        land()
-        return _TorchP2PWork(req, OpType.RECV, tensor, src)
+        return _StoreRecvWork(tensor, src, g, tag)
     return CompletedWork(tensor, OpType.RECV)
 
 
@@ -1850,7 +2050,7 @@ _OBJ_P2P_TAG = (1 << 30) - 7
 
 def send_object_list(object_list: List[Any], dst: int, group=None, device=None):
     """torch `send_object_list` (`:3250`): pickle each object and send the
-    count, the lengths, then the payload to dst through torch.distributed.
+    count, the lengths, then the payload to dst through the p2p plane.
     Driver mode raises — all ranks live in one process there; use the
     object collectives (`broadcast_object_list` / `gather_object`)
     instead."""
@@ -1866,7 +2066,7 @@ def send_object_list(object_list: List[Any], dst: int, group=None, device=None):
     for part in (np.array([len(bufs)], np.int64),
                  np.array([len(b) for b in bufs], np.int64), payload):
         if part.size:
-            _torch_send(part, dst, g, _OBJ_P2P_TAG)
+            _store_send(part, dst, g, _OBJ_P2P_TAG)
 
 
 def recv_object_list(
@@ -1883,14 +2083,17 @@ def recv_object_list(
             "gather_object"
         )
     count = torch.empty(1, dtype=torch.int64)
-    src = _torch_recv(count, src, g, _OBJ_P2P_TAG)
+    if src is None:
+        src = _store_recv_any(count, g, _OBJ_P2P_TAG, g.timeout)[0]
+    else:
+        _store_recv(count, src, g, _OBJ_P2P_TAG, g.timeout)
     n = int(count[0])
     lens = torch.empty(n, dtype=torch.int64)
     if n:
-        _torch_recv(lens, src, g, _OBJ_P2P_TAG)
+        _store_recv(lens, src, g, _OBJ_P2P_TAG, g.timeout)
     payload = torch.empty(int(lens.sum()), dtype=torch.uint8)
     if payload.numel():
-        _torch_recv(payload, src, g, _OBJ_P2P_TAG)
+        _store_recv(payload, src, g, _OBJ_P2P_TAG, g.timeout)
     data = payload.numpy()
     objs, off = [], 0
     for ln in lens.tolist():

@@ -46,6 +46,7 @@ from ..ops import (dense_attention, flash_attention, gather_paged_kv, quantize_k
                    resolved_block_sizes)
 from ..ops.flash_attention import NEG_INF
 from ..nn import functional as nnf
+from ..plan import traced as _traced
 from ..parallel.expert_parallel import moe_mlp
 
 
@@ -647,7 +648,7 @@ def _stacked_body(cfg, w, tokens, tp_axis, T, H_l, KV_l, mesh):
 
 
 # ---------------------------------------------------------------------------
-# the paged decode path over a ("tp", T) mesh, in driver mode
+# the paged decode path over a ("tp", T) mesh, in driver or multiproc mode
 # ---------------------------------------------------------------------------
 
 
@@ -670,21 +671,29 @@ _TP_LAYOUT = [
     (r"(o_proj|down_proj)\.weight$", 1, False),
     (r"lm_head\.weight$", 0, False),
     (r"(attn_norm|mlp_norm|final_norm)\.weight$", None, True),
+    (r"experts_up$", 2, False),
+    (r"experts_down$", 1, False),
+    (r"router$", None, True),
 ]
 
 
 class TensorParallelDecoder:
     """The paged KV-cache decode path (`Attention._decode_paged`) over a
-    driver-mode (``tp``, T) mesh: every tp rank's work on the mesh's one
-    device, the ranks a leading dim, as `stacked_forward` runs training.
+    (``tp``, T) mesh, as `stacked_forward` runs training: in driver mode
+    every tp rank's work on the mesh's one device, the ranks a leading
+    dim; over a multiproc mesh (`mesh.py`, one process a tp rank) this
+    process's rank's work, the leading dim of size 1, the collectives
+    those of the tp group.
 
     The weights take their tp layout once, here (`sharding_rules(tp_axis,
     fsdp_axis=None)` through `_gathered`), cast to the compute dtype
     where the model casts them per call: q/k/v, gate/up and the LM head
     column-parallel (T, out/T, in), o and down row-parallel (T, out,
     in/T), the embedding split on d_model and kept float32, the norms
-    whole. `params` (name -> `DTensor` over `mesh`, e.g. from
-    `dtensor.redistribute_for_serving`) replaces the model's own weights.
+    whole; the MoE's experts_up (E, D, F/T) and experts_down (E, F/T, D)
+    split on the hidden dim, the router whole in float32. `params` (name
+    -> `DTensor` over `mesh`, e.g. from `dtensor.redistribute_for_serving`)
+    replaces the model's own weights.
 
     A call is the model's decode call on the paged pool: `cache` holds
     the KV-head-sharded pool (`parallel.tensor_parallel.shard_kv_pool`),
@@ -694,7 +703,11 @@ class TensorParallelDecoder:
     the single-card path's, computed once for all ranks. The row-parallel
     projections sum the ranks' float32 partial products and round once
     (`parallel.tensor_parallel.row_parallel`); bf16 partials would round
-    twice. Returns float32 logits (B, L, V)."""
+    twice. The MoE routes the step's B·L tokens globally with the
+    replicated router, as the single-card path does, and every rank
+    computes its F/T slice of every expert; the experts' down projection
+    ends in one all-reduce of the float32 partials, as `stacked_forward`'s
+    MoE. Returns float32 logits (B, L, V)."""
 
     def __init__(self, model, mesh, params=None, tp_axis: str = "tp"):
         import re
@@ -710,13 +723,18 @@ class TensorParallelDecoder:
         if cfg.n_heads % T or cfg.kv_heads % T:
             raise ValueError(f"{cfg.n_heads} heads and {cfg.kv_heads} kv heads must split "
                              f"over {T} tp ranks")
-        if cfg.n_experts > 0:
-            raise NotImplementedError("tensor-parallel decode of the MoE MLP is not ported "
-                                      "(ROADMAP.md, Queue 1 item 2)")
+        if cfg.n_experts > 0 and cfg.ffn_dim % T:
+            raise ValueError(f"the experts' hidden dim {cfg.ffn_dim} must split over {T} "
+                             "tp ranks")
+        if not mesh.multiproc and len({str(d) for d in mesh.device_list()}) != 1:
+            raise ValueError(f"a driver-mode tp mesh holds the model's device once a rank, got "
+                             f"{mesh.device_list()}; tp ranks on distinct devices are a "
+                             "multiproc mesh (init_device_mesh in a process gang)")
         dev, md = next(model.parameters()).device, torch.device(mesh.device)
         if (md.type, md.index or 0) != (dev.type, dev.index or 0):
             raise ValueError(f"the mesh holds {mesh.device}, the model {dev}")
         self.cfg, self.mesh, self.axis, self.T = cfg, mesh, tp_axis, T
+        self.Tl = mesh.local_size(tp_axis)  # the tp ranks this process holds
         rules = sharding_rules(tp_axis=tp_axis, fsdp_axis=None)
         src = params if params is not None else model.state_dict()
         self.w = {}
@@ -731,28 +749,35 @@ class TensorParallelDecoder:
                 t = distribute_tensor(t.detach(), mesh, spec_to_placements(spec, mesh))
             elif t.device_mesh != mesh:
                 raise ValueError(f"{name} lies on {t.device_mesh}, not on the serve mesh")
-            self.w[name] = _gathered(t, tp_dim, torch.float32 if f32 else cfg.dtype, tp_axis,
-                                     T).detach()
+            with mesh:
+                self.w[name] = _gathered(t, tp_dim, torch.float32 if f32 else cfg.dtype,
+                                         tp_axis, T).detach()
 
     @torch.no_grad()
     def __call__(self, tokens, decode: bool = True, positions=None, block_tables=None,
                  cache=None):
-        from ..dtensor import DTensor
-        from ..parallel import tensor_parallel as tp
-
         if not decode or positions is None or block_tables is None or cache is None:
             raise ValueError("the tensor-parallel decoder runs the paged decode path: "
                              "decode=True with positions, block_tables and the pool")
-        cfg, T, axis, w = self.cfg, self.T, self.axis, self.w
+        with self.mesh:  # over a multiproc mesh: the tp group's collectives
+            return self._decode(tokens, positions, block_tables, cache)
+
+    def _decode(self, tokens, positions, block_tables, cache):
+        from ..dtensor import DTensor
+        from ..parallel import tensor_parallel as tp
+        from ..parallel.expert_parallel import _topk_routing, capacity_for, combine, dispatch
+
+        cfg, axis, w = self.cfg, self.axis, self.w
+        T, Tl = self.T, self.Tl
         B, L = tokens.shape
         N = B * L
         H_l, KV_l, Dh, D = cfg.n_heads // T, cfg.kv_heads // T, cfg.head_dim, cfg.d_model
         M, dt, dev = cfg.max_seq_len, cfg.dtype, tokens.device
 
-        def column(x, weight):  # x (N, in) replica, weight (T, out_l, in) -> (T, N, out_l)
+        def column(x, weight):  # x (N, in) replica, weight (Tl, out_l, in) -> (Tl, N, out_l)
             return tp.column_parallel(x, weight.transpose(-1, -2), axis)
 
-        def row(x, weight):  # x (T, N, in_l), weight (T, out, in_l) -> (N, out) replica
+        def row(x, weight):  # x (Tl, N, in_l), weight (Tl, out, in_l) -> (N, out) replica
             return tp.row_parallel(x, weight.transpose(-1, -2), axis)
 
         x = nnf.all_gather(w["tok_embed.weight"][:, tokens], axis, -1, replica=True).to(dt)
@@ -773,32 +798,32 @@ class TensorParallelDecoder:
         # blocks addressed in the pool viewed (T * (nblk + 1), ...): a
         # gather on the leading dim, as the single-card path's
         idx = (bt.clamp(0, nblk).reshape(1, -1)
-               + (nblk + 1) * torch.arange(T, device=dev)[:, None])  # (T, B*nb)
+               + (nblk + 1) * torch.arange(Tl, device=dev)[:, None])  # (Tl, B*nb)
         mask = (torch.arange(nb * bs, device=dev)[None, None, :] <= pos[:, :, None])
-        mask = mask.repeat(T, 1, 1)[:, None, None]  # (T*B, 1, 1, L, nb*bs)
+        mask = mask.repeat(Tl, 1, 1)[:, None, None]  # (Tl*B, 1, 1, L, nb*bs)
         scale = 1.0 / (Dh ** 0.5)
 
         def local(a):
             return a._local if isinstance(a, DTensor) else a
 
-        def scatter(pool, upd):  # pool (T, nblk+1, bs, ...), upd (T, B, L, ...)
-            pool.view(T, -1, *pool.shape[3:]).index_copy_(1, flat,
-                                                          upd.reshape(T, N, *pool.shape[3:]))
+        def scatter(pool, upd):  # pool (Tl, nblk+1, bs, ...), upd (Tl, B, L, ...)
+            pool.view(Tl, -1, *pool.shape[3:]).index_copy_(1, flat,
+                                                           upd.reshape(Tl, N, *pool.shape[3:]))
 
-        def gather(pool, scl):  # -> (T*B, nb*bs, KV_l, Dh)
-            g = pool.flatten(0, 1)[idx]  # (T, B*nb, bs, KV_l, Dh)
+        def gather(pool, scl):  # -> (Tl*B, nb*bs, KV_l, Dh)
+            g = pool.flatten(0, 1)[idx]  # (Tl, B*nb, bs, KV_l, Dh)
             if scl is not None:
                 g = (g.float() * scl.flatten(0, 1)[idx][..., None]).to(dt)
-            return g.reshape(T * B, nb * bs, KV_l, Dh)
+            return g.reshape(Tl * B, nb * bs, KV_l, Dh)
 
         for i in range(cfg.n_layers):
             pre = f"layers.{i}."
             node = cache[f"layers_{i}"]["attn"]
             ck, cv = local(node["k"]), local(node["v"])
             h = _rms(x, w[pre + "attn_norm.weight"], cfg.norm_eps).reshape(N, D)
-            q = column(h, w[pre + "attn.q_proj.weight"]).reshape(T, B, L, H_l, Dh)
-            k = column(h, w[pre + "attn.k_proj.weight"]).reshape(T, B, L, KV_l, Dh)
-            v = column(h, w[pre + "attn.v_proj.weight"]).reshape(T, B, L, KV_l, Dh)
+            q = column(h, w[pre + "attn.q_proj.weight"]).reshape(Tl, B, L, H_l, Dh)
+            k = column(h, w[pre + "attn.k_proj.weight"]).reshape(Tl, B, L, KV_l, Dh)
+            v = column(h, w[pre + "attn.v_proj.weight"]).reshape(Tl, B, L, KV_l, Dh)
             q, k = _rope_ranked(q, c, s), _rope_ranked(k, c, s)
             if "k_scale" in node:
                 ks, vs = local(node["k_scale"]), local(node["v_scale"])
@@ -813,16 +838,29 @@ class TensorParallelDecoder:
                 scatter(ck, k.to(ck.dtype))
                 scatter(cv, v.to(cv.dtype))
                 kf, vf = gather(ck, None), gather(cv, None)
-            qg = q.reshape(T * B, L, KV_l, H_l // KV_l, Dh)
+            qg = q.reshape(Tl * B, L, KV_l, H_l // KV_l, Dh)
             sc = torch.einsum("blkrd,bmkd->bkrlm", qg, kf) * scale
             sc = torch.where(mask, sc.float(), NEG_INF)
             p = torch.softmax(sc, dim=-1).to(vf.dtype)
-            o = torch.einsum("bkrlm,bmkd->blkrd", p, vf).reshape(T, N, H_l * Dh)
+            o = torch.einsum("bkrlm,bmkd->blkrd", p, vf).reshape(Tl, N, H_l * Dh)
             x = x + row(o, w[pre + "attn.o_proj.weight"]).reshape(B, L, D)
             h = _rms(x, w[pre + "mlp_norm.weight"], cfg.norm_eps).reshape(N, D)
-            a = F.silu(column(h, w[pre + "mlp.gate_proj.weight"])) * column(
-                h, w[pre + "mlp.up_proj.weight"])
-            x = x + row(a, w[pre + "mlp.down_proj.weight"]).reshape(B, L, D)
+            if cfg.n_experts > 0:  # the MoE: global routing, the experts' F split over tp
+                E = cfg.n_experts
+                C = capacity_for(N, E, cfg.moe_capacity_factor, cfg.moe_top_k)
+                expert, gate, slot, keep, _ = _topk_routing(
+                    h.float() @ w[pre + "mlp.router"], E, C, cfg.moe_top_k)
+                buf = dispatch(h, expert, slot, keep, E, C)  # (E, C, D) replica
+                up = tp.column_parallel(buf, w[pre + "mlp.experts_up"], axis)
+                y = tp.row_parallel(F.gelu(up, approximate="tanh"),
+                                    w[pre + "mlp.experts_down"], axis)
+                y = combine(y, expert, slot, gate, keep).to(dt)
+            else:
+                a = F.silu(column(h, w[pre + "mlp.gate_proj.weight"])) * column(
+                    h, w[pre + "mlp.up_proj.weight"])
+                y = row(a, w[pre + "mlp.down_proj.weight"])
+            x = x + y.reshape(B, L, D)
         h = _rms(x, w["final_norm.weight"], cfg.norm_eps).reshape(N, D)
-        logits = column(h, w["lm_head.weight"]).float()  # (T, N, V/T)
-        return nnf.all_gather(logits, axis, -1, replica=True).reshape(B, L, -1)
+        logits = column(h, w["lm_head.weight"]).float()  # (Tl, N, V/T)
+        return _traced.all_gather(logits, axis, dim=-1, warn_missing=False,
+                                  replica=True).reshape(B, L, -1)

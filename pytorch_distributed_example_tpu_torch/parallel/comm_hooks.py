@@ -30,8 +30,8 @@ The block-quantized hook also serves the eager bucketed `Reducer`
 (`BlockwiseQuantHook.for_reducer`): a bucket's flat (n, total) buffer a
 call, error feedback carried on the host side per bucket, staged during a
 pass and committed when the whole pass has succeeded. The planner's hook
-(`planner_hook`) comes with the collective planner (ROADMAP, Queue 1
-item 4).
+(`planner_hook`) reduces each leaf through the traced planner seam
+(`plan/traced.py`), with the schedule agreed for its own size bucket.
 """
 
 from __future__ import annotations
@@ -59,6 +59,35 @@ def allreduce_hook(grads: DistTensor, group) -> DistTensor:
 def noop_hook(grads: DistTensor, group) -> DistTensor:
     """No reduction (single-rank groups, debugging)."""
     return grads
+
+
+def planner_hook(group=None) -> Hook:
+    """Traced-planner gradient reduction (per leaf): each leaf's mean
+    all-reduce takes the AGREED schedule for its own size bucket from the
+    `plan/traced.py` table (probed and store-agreed on the host before the
+    step runs), mixing the one-shot mean for biases with ring/rhd bodies
+    for the big matmul gradients inside one step. A bucket with no agreed
+    entry warns once and takes the stock mean. The hook reads the group it
+    is called with (driver mode falls back to that group's planner cache
+    for unprepared buckets); ``group`` is the reference's argument, whose
+    hook sees only an axis name, and is not needed here."""
+    from ..plan import traced
+
+    def hook(grads: List[DistTensor], g) -> List[DistTensor]:
+        out = []
+        for leaf in grads:
+            def stock(leaf=leaf):
+                dist.all_reduce(leaf, ReduceOp.AVG, g)
+                return leaf.tensor
+
+            t = traced.on_group("all_reduce", leaf.tensor, g, stock, reduce_kind="avg",
+                                warn_missing=True)
+            out.append(DistTensor.wrap(t, g))
+        return out
+
+    hook.per_leaf = True
+    hook.__name__ = "planner_hook"
+    return hook
 
 
 def _compress_hook(dtype):

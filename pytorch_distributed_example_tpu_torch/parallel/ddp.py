@@ -295,12 +295,19 @@ def make_ddp_train_step(
         raise ValueError("has_rng=True needs rng_fn(generator, batch) for the random inputs")
     if isinstance(optimizer, ZeroRedundancyOptimizer):
         optimizer = optimizer.optimizer
-    hook = comm_hook if comm_hook is not None else comm_hooks.allreduce_hook
+    g = dist._resolve(group)
+    W = g.size()
+    hook = comm_hook
+    if hook is None:
+        # planner-aware default: when the collective planner is active for
+        # this group, each gradient leaf takes the agreed schedule for its
+        # size bucket (plan.ddp_comm_hook); otherwise the stock mean
+        from ..plan import ddp_comm_hook
+
+        hook = ddp_comm_hook(g) or comm_hooks.allreduce_hook
     stateful = hasattr(hook, "init") and hasattr(hook, "apply")
     per_leaf = stateful or getattr(hook, "per_leaf", False)
 
-    g = dist._resolve(group)
-    W = g.size()
     zero_update = shard_weight_update == "force" or (shard_weight_update == "auto" and W > 1)
     fused_rs = zero_update and hook is comm_hooks.allreduce_hook
     local_ranks = dist._local_rows(g)
@@ -518,7 +525,25 @@ def make_ddp_train_step(
         if on_unused is not None:
             on_unused(unused)
 
+    planner_prepared = [False]
+
+    def maybe_prepare_planner(params):
+        """Probe + agree the step's collective schedules on the host, once,
+        before the first step: per-leaf all-reduce buckets for the hook
+        plus ZeRO's reduce-scatter/all-gather halves. In a multiproc gang
+        each entry rides a sequence-keyed store agreement round, so a
+        skewed TDX_PLANNER_FORCE fails HERE, naming the first divergent
+        eqn, not as a hang in the first collective."""
+        if planner_prepared[0]:
+            return
+        planner_prepared[0] = True
+        from ..plan import active_for_group, traced
+
+        if active_for_group(g) and W > 1:
+            traced.prepare_for_params(g, params, zero_update=zero_update)
+
     def run(params, opt_state, hook_state, x, y, seeds):
+        maybe_prepare_planner(params)
         check_unused(params, x, seeds)
         if zero_update and opt_state is not last_state[0]:
             opt_state = shard_opt_state(params, opt_state)
@@ -581,6 +606,7 @@ def make_ddp_train_step(
         return out
 
     step.group = g
+    step.comm_hook = hook
     step.weight_update_sharded = zero_update
     step.init_opt_state = init_opt_state
     step.shard_opt_state = shard_opt_state

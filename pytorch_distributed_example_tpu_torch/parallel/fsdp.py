@@ -446,6 +446,17 @@ def make_zero2_train_step(apply_fn: Callable, loss_fn: Callable, optimizer, mesh
         raise ValueError(f"ZeRO-2 shards over {axis!r}, which is not one of the data axes "
                          f"{present} in the mesh")
     group = None
+    if comm_hook is None:
+        # planner-aware default: with the traced planner on, the grad
+        # reduction takes the agreed schedule table's per-bucket winner
+        # (plan/traced.py — probed and agreed on the host at the first
+        # call, below); planner off keeps the stock reduction exactly
+        from ..plan import traced
+
+        if traced.enabled() and len(present) == 1:
+            from . import comm_hooks
+
+            comm_hook = comm_hooks.planner_hook()
     if comm_hook is not None:
         if hasattr(comm_hook, "init") and hasattr(comm_hook, "apply"):
             raise NotImplementedError(
@@ -518,6 +529,21 @@ def make_zero2_train_step(apply_fn: Callable, loss_fn: Callable, optimizer, mesh
     def init_opt_state(params):
         return Zero2State(optimizer, {k: _full(v) for k, v in params.items()}, mesh, axis,
                           sharded_update)
+
+    if comm_hook is not None:
+        # with the planner on, probe + agree the hook's per-leaf schedule
+        # buckets on the host before the first step (plan/traced.py: the
+        # step then reads the agreed table purely)
+        inner_step, prepared = step, [False]
+
+        def step(params, opt_state, x, y, *generator):
+            if not prepared[0]:
+                prepared[0] = True
+                from ..plan import traced
+
+                if traced.enabled(group):
+                    traced.prepare_for_params(group, {k: _full(v) for k, v in params.items()})
+            return inner_step(params, opt_state, x, y, *generator)
 
     step.init_opt_state = init_opt_state
     step.weight_update_sharded = sharded_update

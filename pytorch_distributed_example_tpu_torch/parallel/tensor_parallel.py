@@ -12,9 +12,11 @@ a dim of the tp ranks leads every sharded operand (`w_local` is
 form of `nn.functional`). A column-parallel matmul gives every tp rank the
 replica (`nn.functional.replicate`: backward all_reduce), a row-parallel
 one all-reduces the ranks' partial products (`all_reduce(replica=True)`:
-backward copy). The reference routes its reductions through the traced
-planner seam (`plan/traced.py`); the port's use `nn.functional` until
-the planner is ported (ROADMAP). Inside an entered multiproc mesh each
+backward copy). The row-parallel sums and the gathers route through the
+traced planner seam (`plan/traced.py`), as the reference's do: with an
+agreed or forced schedule for the activation's size bucket they run as
+the chosen ring/rhd body; planner off keeps `nn.functional`'s stock
+collective. Inside an entered multiproc mesh each
 process is one tp rank: the leading tp dim has size 1, and the seams'
 reductions are collectives of the tp group (`nn.functional`'s multiproc
 mode); the row-parallel partials stay float32 through the all-reduce.
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import mesh as _mesh
+from ..plan import traced as _traced
 from ..dtensor import Replicate, distribute_tensor, spec_to_placements
 from ..mesh import DeviceMesh
 from ..nn import functional as nnf
@@ -159,7 +162,8 @@ class _RowParallel(torch.autograd.Function):
     def forward(ctx, x, w, axis):
         ctx.save_for_backward(x, w)
         partial = _bmm_f32(x, w)
-        return nnf.all_reduce(partial, ReduceOp.SUM, axis, replica=True).to(x.dtype)
+        return _traced.all_reduce(partial, axis, reduce_kind="sum", warn_missing=False,
+                                  replica=True).to(x.dtype)
 
     @staticmethod
     def backward(ctx, ct):
@@ -218,14 +222,17 @@ def vocab_parallel_logits(h, emb_local, axis: str = "tp"):
     T, lead = emb_local.shape[0], h.shape[:-1]
     hs = nnf.replicate(h.reshape(-1, h.shape[-1]), axis, T)
     local = torch.bmm(hs.float(), emb_local.float())  # (T, N, V/T)
-    return nnf.all_gather(local, axis, -1, replica=True).reshape(*lead, -1)
+    return _traced.all_gather(local, axis, dim=-1, warn_missing=False,
+                              replica=True).reshape(*lead, -1)
 
 
 def gathered_matmul(x_local, w, axis: str = "tp"):
     """y = all_gather(x_local) @ w: the ranks' row blocks (tp, n, D)
-    gathered into one replica (tp*n, D) against a replicated weight."""
-    full = nnf.all_gather(x_local, axis, 0, replica=True)
-    return (full.float() @ w.float()).to(x_local.dtype)
+    gathered into one replica (tp*n, D) against a replicated weight. With
+    an agreed ring schedule each landed chunk is multiplied as it arrives
+    (`plan/traced.all_gather_matmul`); otherwise the one-shot gather and
+    one matmul. Row-exact either way."""
+    return _traced.all_gather_matmul(x_local, w, axis).to(x_local.dtype)
 
 
 def vocab_parallel_cross_entropy(local_logits, targets, axis: str = "tp",

@@ -148,12 +148,26 @@ def shard_rows(params, group) -> dict:
 def reduce_scatter_mean(packed: torch.Tensor, group) -> torch.Tensor:
     """Gradients straight to their owners: ``packed`` is this process's
     ranks' (n, W, K) buffers; one AVG reduce-scatter returns their (n, K)
-    owned shards, averaged over the group."""
-    return dist.reduce_scatter(DistTensor.wrap(packed, group), ReduceOp.AVG, group).tensor
+    owned shards, averaged over the group. Routed through the traced
+    planner seam (`plan/traced.py`): an agreed ring schedule runs as the
+    explicit ring; planner off keeps the stock reduce-scatter bit for
+    bit."""
+    from ..plan import traced
+
+    return traced.on_group(
+        "reduce_scatter", packed, group, reduce_kind="avg",
+        stock=lambda: dist.reduce_scatter(DistTensor.wrap(packed, group), ReduceOp.AVG,
+                                          group).tensor)
 
 
 def unshard(shards: torch.Tensor, group) -> torch.Tensor:
     """All-gather this process's ranks' (n, K) shards back into the whole
     (W, K) buffer — the weight update's single collective. Every rank's
-    gathered row is the same; the first local one is returned."""
-    return dist.all_gather(DistTensor.wrap(shards, group), group).tensor[0]
+    gathered row is the same; the first local one is returned. Routed
+    through the traced planner seam: an agreed ring schedule runs as its
+    W-1 shifts (bitwise the one-shot gather, pure data movement)."""
+    from ..plan import traced
+
+    return traced.on_group(
+        "all_gather", shards, group,
+        stock=lambda: dist.all_gather(DistTensor.wrap(shards, group), group).tensor)[0]

@@ -16,8 +16,8 @@ measured algorithm timings; anything else must not (PCCL, arxiv
 2606.07019: schedules are per-topology artifacts).
 
 A copy of the reference's `plan/topology.py`; `detect` reads the port's
-`DeviceMesh` and, with no p2p plane in the port yet, groups the ranks of
-a multiproc gang one to a host.
+`DeviceMesh` in driver mode and the port's p2p plane's published
+endpoints in multiproc mode.
 """
 
 from __future__ import annotations
@@ -156,11 +156,13 @@ def detect(group) -> Topology:
         env = None
     if env is not None:
         return env
-    if dist._world.mode == "multiproc":
-        # the port has no p2p plane yet (ROADMAP.md, Queue 1 item 4), so
-        # no rank has published an endpoint: each rank is its own host,
-        # the safe assumption for an unknown link
-        return _group_by(world, list(range(world)), platform)
+    if dist._world.mode == "multiproc" and dist._p2p_plane is not None:
+        return from_plane_endpoints(
+            dist._p2p_plane.store,
+            [group.get_global_rank(r) for r in range(world)],
+            group.timeout,
+            platform,
+        )
     return from_devices(group.mesh.device_list(), platform)
 
 

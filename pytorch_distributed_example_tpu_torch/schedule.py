@@ -25,9 +25,11 @@ point (action `"corrupt"`, advisory) perturbs one rank's fingerprint so
 tests can prove the mismatch is reported, not hung on
 (`tests/test_torch_c10d_multiproc.py`).
 
-The reference's compiled-program agreement (`agree_program`, the jaxpr
-diff behind `TDX_PROGLINT`) belongs to the collective planner and is not
-ported with this module.
+`agree_program` is the reference's compiled-program agreement: host-only
+store rounds that compare each rank's ordered collective descriptors
+before anything dispatches. The collective planner's `plan.traced.prepare`
+rides it, so a gang whose ranks chose different schedules fails at
+step-factory time, naming the first divergent eqn.
 
 Env knobs:
 
@@ -48,7 +50,9 @@ from .types import DistError
 
 __all__ = [
     "ScheduleMismatchError",
+    "ProgramScheduleMismatchError",
     "ScheduleVerifier",
+    "agree_program",
     "enabled",
 ]
 
@@ -62,6 +66,15 @@ class ScheduleMismatchError(DistError):
     first divergent call (or the ranks that never reached the checkpoint)
     so the offending call site is greppable — the diagnostic this check
     exists to produce instead of a hang."""
+
+
+class ProgramScheduleMismatchError(ScheduleMismatchError):
+    """Ranks prepared divergent collective programs (`agree_program`):
+    the per-rank fingerprints published through the group store before
+    first dispatch disagree. Where the runtime ScheduleVerifier catches a
+    divergent schedule only after a collective has been issued (and maybe
+    wedged the transport), this fires before any collective executes,
+    naming the first divergent collective eqn."""
 
 
 def enabled() -> bool:
@@ -225,3 +238,125 @@ class ScheduleVerifier:
             "checkpoints); rerun with TDX_SCHEDULE_CHECK_EVERY=1 to "
             "pinpoint the call"
         )
+
+
+# ---------------------------------------------------------------------------
+# J005: cross-rank compiled-PROGRAM agreement (TDX_PROGLINT=1)
+# ---------------------------------------------------------------------------
+
+
+def _first_divergent_eqn(
+    mine: List[str], theirs: List[str], my_rank: int, peer_rank: int
+) -> str:
+    for i, (a, b) in enumerate(zip(mine, theirs)):
+        if a != b:
+            return (
+                f"first divergent collective eqn is #{i + 1}: rank "
+                f"{my_rank} compiled {a!r}, rank {peer_rank} compiled "
+                f"{b!r} (eqn is primitive|axes|operands|params)"
+            )
+    if len(mine) != len(theirs):
+        longer, owner = (
+            (mine, my_rank)
+            if len(mine) > len(theirs)
+            else (theirs, peer_rank)
+        )
+        extra = longer[min(len(mine), len(theirs))]
+        return (
+            f"rank {my_rank} compiled {len(mine)} collective eqn(s) but "
+            f"rank {peer_rank} compiled {len(theirs)}; first unmatched "
+            f"eqn on rank {owner}: {extra!r}"
+        )
+    return (
+        "collective eqn sequences match — the fingerprints diverge in "
+        "the donation/aliasing set or program metadata"
+    )
+
+
+def agree_program(
+    store,
+    rank: int,
+    world: int,
+    key: str,
+    payload: dict,
+    timeout: Optional[float] = None,
+) -> None:
+    """Publish one compiled program's fingerprint and block (bounded)
+    until every rank's copy agrees — the J005 half of `tools/proglint.py`,
+    run at program REGISTRATION (compile) time, before first dispatch.
+
+    ``store`` must be group- AND incarnation-scoped (the caller wraps the
+    group store in a PrefixStore, mirroring the ScheduleVerifier
+    contract); ``key`` identifies the agreement ROUND and must be
+    position-based, not name-based — proglint keys by GLOBAL
+    registration sequence (`reg{seq}`) so a rank that compiled a
+    differently-named program at the same position is DIAGNOSED (the
+    name rides in ``payload`` and is compared below); keying by name
+    would make skewed ranks wait on keys that never appear and fail by
+    timeout instead. ``payload`` is the fingerprint's canonical dict —
+    ``digest`` (content hash) plus ``eqns`` (the ordered collective eqn
+    descriptors, published so a mismatch can NAME the first divergent
+    eqn rather than just two hashes).
+
+    The `proglint.agree` fault point fires before publication; an
+    advisory ``corrupt`` rule perturbs THIS rank's published digest, so
+    chaos tests can prove a divergence is raised on EVERY rank (each
+    rank compares peers against what it itself published) instead of
+    hanging in the first dispatched collective."""
+    timeout = (
+        float(timeout)
+        if timeout is not None
+        else float(os.environ.get("TDX_PROGLINT_TIMEOUT_S", "60"))
+    )
+    name = str(payload.get("name", key))
+    digest = str(payload["digest"])
+    eqns = [str(e) for e in payload.get("eqns", [])]
+    rule = faults.fire("proglint.agree", rank=rank, program=key)
+    if rule is not None and rule.action == "corrupt":
+        digest += "|<injected-divergence>"
+    store.set(
+        f"{key}/{rank}",
+        json.dumps({"name": name, "digest": digest, "eqns": eqns}),
+    )
+    keys = [f"{key}/{r}" for r in range(world)]
+    try:
+        store.wait(keys, timeout)
+    except (DistError, OSError, TimeoutError) as e:
+        missing = []
+        for r in range(world):
+            if r == rank:
+                continue
+            try:
+                if not store.check([f"{key}/{r}"]):
+                    missing.append(r)
+            except (DistError, OSError):
+                missing.append(r)
+        raise ProgramScheduleMismatchError(
+            f"program agreement for {key!r}: rank(s) "
+            f"{missing or '<unknown>'} never published a fingerprint "
+            f"within {timeout}s — they did not compile this program "
+            "(divergent compile paths), or compiled a differently-named "
+            "one"
+        ) from e
+    for r in range(world):
+        if r == rank:
+            continue
+        peer = json.loads(store.get(f"{key}/{r}").decode())
+        peer_name = peer.get("name", key)
+        if peer_name != name:
+            raise ProgramScheduleMismatchError(
+                f"compiled-program divergence at registration {key!r} "
+                f"(caught at agreement time BEFORE any collective "
+                f"executed): rank {rank} compiled {name!r} but rank {r} "
+                f"compiled {peer_name!r} — the ranks took divergent "
+                "compile paths; "
+                + _first_divergent_eqn(eqns, list(peer["eqns"]), rank, r)
+            )
+        if peer["digest"] != digest:
+            raise ProgramScheduleMismatchError(
+                f"compiled-program divergence for {name!r} at "
+                f"registration {key!r} (rank {r} disagrees with rank "
+                f"{rank}, caught at agreement time BEFORE any collective "
+                "executed): "
+                + _first_divergent_eqn(eqns, list(peer["eqns"]), rank, r)
+            )

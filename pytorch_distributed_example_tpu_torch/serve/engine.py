@@ -30,15 +30,25 @@ tokens, and a prefill's end reads back its first token, as the
 reference's. Prefill runs the same dense decode-path attention as the
 reference's programs (no flash kernel on this path).
 
-Tensor-parallel decode: ``mesh=`` (a driver-mode `DeviceMesh` with a
-``tp_axis`` axis of T ranks, all on the model's device) lays the weights
-out once, at construction, by `models.transformer.sharding_rules(tp_axis,
-fsdp_axis=None)` (`TensorParallelDecoder`), shards the block pool on its
-KV heads (`parallel.tensor_parallel.shard_kv_pool`) and holds the slot
-lanes once (the driver-mode form of replicated). The programs are the
-single-card ones over that decoder. ``params=`` (name -> `DTensor` over
-`mesh`, as `dtensor.redistribute_for_serving` gives) serves those weights
-in place of the model's own.
+Tensor-parallel decode: ``mesh=`` (a `DeviceMesh` with a ``tp_axis`` axis
+of T ranks) lays the weights out once, at construction, by
+`models.transformer.sharding_rules(tp_axis, fsdp_axis=None)`
+(`TensorParallelDecoder`, the MoE's experts split on their hidden dim),
+shards the block pool on its KV heads
+(`parallel.tensor_parallel.shard_kv_pool`) and holds the slot lanes
+replicated. The programs are the single-card ones over that decoder.
+``params=`` (name -> `DTensor` over `mesh`, as
+`dtensor.redistribute_for_serving` gives) serves those weights in place of
+the model's own. A driver-mode mesh holds every tp rank on the model's
+device, and the engine acts for all of them. Over a multiproc mesh
+(`init_device_mesh(("tp",), (T,))` in a gang, one process a tp rank) each
+process runs its own engine on the same traffic: the host-side slot
+bookkeeping and block tables are identical on every process (every
+decision is a deterministic function of the submitted requests and the
+tokens, which are the same everywhere), each process holds its KV-head
+shard of the pool and a full copy of the slot lanes, and sampling draws
+from the same threefry keys on every process, so every process emits the
+same tokens. The decoder's collectives are the tp group's.
 
 Disaggregated serving (`serve/disagg/`): ``role="prefill"`` freezes each
 finished prefill as a `Handoff` (slot, blocks and first token kept, no
@@ -50,8 +60,7 @@ replay through prefill); ``role="both"`` is the colocated engine.
 Not ported: ``precompiled=`` (the pre-warmed program set of the
 reference's `serve/prewarm.py`) raises `NotImplementedError`; it belongs
 with the serve worker under the elastic agent (ROADMAP.md, Queue 1 item
-5). Tensor-parallel serving over a mesh of distinct devices (multiproc
-mode) raises too (item 2).
+5).
 
 Synchronous single-owner design: one thread calls `submit()`/`step()`/
 `run()`; `ServeMetrics` is internally locked.
@@ -158,11 +167,6 @@ class ServeEngine:
             raise ValueError(
                 f"role must be 'both', 'prefill', or 'decode', got {role!r}"
             )
-        if mesh is not None and len(set(mesh.device_list())) != 1:
-            raise NotImplementedError(
-                "tensor-parallel serving over distinct devices (multiproc mode) is not "
-                "ported yet: ROADMAP.md, Queue 1 item 2; a driver-mode mesh holds the "
-                "model's device once a rank")
         if precompiled:
             raise NotImplementedError(
                 "precompiled= (pre-warmed programs, serve/prewarm.py) is not ported yet: "
@@ -245,7 +249,8 @@ class ServeEngine:
         self._decoding: set = set()
         # per-slot state on the model's device, updated in place by every
         # step; block tables stay host-side numpy and ride into each call.
-        # Under a driver-mode mesh they are replicated: held once.
+        # Under a mesh they are replicated: held once in driver mode, a
+        # full copy on every process over a multiproc mesh.
         dev = model_device(model)
         self._dev_lengths = torch.zeros((S,), dtype=torch.int32, device=dev)
         self._dev_tokens = torch.zeros((S,), dtype=torch.int32, device=dev)

@@ -5,9 +5,14 @@ distlint R011 statically flags host-side effects (blocking store ops,
 module is the runtime half of that contract, the same way `schedule.py`'s
 `TDX_SCHEDULE_CHECK` fingerprint verifier is the runtime half of R001:
 with the guard armed, a guarded primitive invoked while `torch.compile`
-is tracing raises a named `TraceGuardError` AT THE OP — instead of a
-trace-time side effect that silently runs once instead of per step, or a
-graph break hidden inside a compiled region.
+is tracing, or inside a `torch.func` transform (the rank `vmap` of a
+step, a `grad` or `vjp`), raises a named `TraceGuardError` AT THE OP —
+instead of a trace-time side effect that silently runs once instead of
+per step, or a graph break hidden inside a compiled region.
+
+The collective planner's host work (`plan.traced.prepare`,
+`plan.probe.probe_driver`) raises `TraceGuardError` under tracing
+whether or not the guard is armed.
 
 Wired into:
 
@@ -32,7 +37,7 @@ __all__ = ["TraceGuardError", "enabled", "under_tracing", "check"]
 
 
 class TraceGuardError(RuntimeError):
-    """A guarded host-side op ran while torch.compile traced (TDX_TRACE_GUARD=1)."""
+    """A guarded host-side op ran under tracing (`under_tracing`)."""
 
 
 def enabled() -> bool:
@@ -42,20 +47,26 @@ def enabled() -> bool:
 
 
 def under_tracing() -> bool:
-    """True while `torch.compile` (dynamo) is tracing the calling code."""
+    """True while `torch.compile` (dynamo) is tracing the calling code, or
+    while it runs inside a `torch.func` transform (`vmap`, `grad`,
+    `vjp`, ...): the port's trace, whose body runs once for every rank or
+    every tangent."""
     import torch
 
-    return bool(torch.compiler.is_compiling())
+    if torch.compiler.is_compiling():
+        return True
+    return torch._C._functorch.maybe_current_level() is not None
 
 
 def check(op: str) -> None:
     """Raise `TraceGuardError` naming ``op`` when the guard is armed and
-    torch.compile is tracing; no-op otherwise."""
+    the caller is under tracing; no-op otherwise."""
     if not enabled():
         return
     if under_tracing():
         raise TraceGuardError(
-            f"host-side op `{op}` invoked while torch.compile is tracing "
+            f"host-side op `{op}` invoked under tracing (torch.compile or a "
+            "torch.func transform) "
             "(TDX_TRACE_GUARD=1): a compiled body must stay device-pure — "
             "this op would execute once at trace time instead of every "
             "step. Hoist it out of the compiled body (probe outside, agree "

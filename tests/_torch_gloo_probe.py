@@ -1,5 +1,6 @@
 """Which of torch.distributed's gloo ops take CUDA tensors: the evidence
-for the staging table of `backends/process.py` (`GLOO_CUDA_STAGED`).
+that `backends/process.py` may hand gloo its collectives' CUDA rows, and
+why the port's send and recv go through the p2p plane instead.
 
     python3 tests/_torch_gloo_probe.py             # every op, a line each
     python3 tests/_torch_gloo_probe.py OP [OP ...]

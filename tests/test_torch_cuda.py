@@ -950,7 +950,7 @@ _GANG_WORKER = _GANG_COMMON + '''
 import pickle, sys
 rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 import pytorch_distributed_example_tpu_torch as tdx
-from pytorch_distributed_example_tpu_torch.backends import process as bp
+from pytorch_distributed_example_tpu_torch import p2p
 
 tdx.init_process_group(backend="cuda:gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                        world_size=2, timeout=120)
@@ -958,7 +958,7 @@ mesh = tdx.init_device_mesh(("dp",), (2,))
 with mesh:
     res = run(X[rank:rank + 1])
 res["_device"] = str(mesh.device)
-res["_staged"] = bp.STATS["staged_bytes"]
+res["_staged"] = p2p.STAGING["bytes"]
 tdx.destroy_process_group()
 with open(out, "wb") as f:
     pickle.dump(res, f)
@@ -1018,10 +1018,11 @@ def test_cuda_gloo_gang_is_driver_mode_bitwise(tmp_path):
 
 @pytest.mark.cuda
 def test_gloo_takes_the_cuda_rows_the_backend_does_not_stage():
-    """The staging table is what gloo does: every collective that
-    `ProcessBackend` hands gloo unstaged (all but the ops of
-    `GLOO_CUDA_STAGED`) takes CUDA tensors on cuda:0 and gives the right
-    values (`tests/_torch_gloo_probe.py`)."""
+    """What `ProcessBackend` hands gloo is what gloo takes: every
+    collective takes CUDA tensors on cuda:0 and gives the right values
+    (`tests/_torch_gloo_probe.py`), and the backend has no send or recv to
+    hand it (the port's p2p, `permute`'s rows included, goes through the
+    p2p plane)."""
     import importlib.util
     import os
 
@@ -1032,6 +1033,86 @@ def test_gloo_takes_the_cuda_rows_the_backend_does_not_stage():
         "_torch_gloo_probe", os.path.join(os.path.dirname(__file__), "_torch_gloo_probe.py"))
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
-    assert bp.GLOO_CUDA_STAGED == {"permute"}  # the probe's send_recv: staged
+    assert "permute" not in vars(bp.ProcessBackend)  # the probe's send_recv: not gloo's
     got = probe.probe(probe.COLLECTIVES)
     assert got == {op: "ok" for op in probe.COLLECTIVES}, got
+
+
+_PLANE_WORKER = '''
+import os, pickle, sys
+import torch
+rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+import pytorch_distributed_example_tpu_torch as tdx
+from pytorch_distributed_example_tpu_torch import distributed as dist, plan
+from pytorch_distributed_example_tpu_torch.tensor import DistTensor
+
+tdx.init_process_group(backend="cuda:gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                       world_size=2, timeout=120)
+gen = torch.Generator("cuda").manual_seed(5)
+sent = {"bf16": torch.randn(3, 1000, device="cuda", generator=gen).bfloat16(),
+        "f32": torch.randn(777, device="cuda", generator=gen)}
+res = {}
+for name, t in sent.items():
+    if rank == 0:
+        tdx.send(t, 1)
+    else:
+        buf = torch.empty_like(t)
+        tdx.recv(buf, 0)
+        res[name] = bool(torch.equal(buf, t)) and buf.device.type == "cuda"
+x = torch.randn(1, 4099, device="cuda", generator=torch.Generator("cuda").manual_seed(rank))
+stock = DistTensor.wrap(x.clone())
+tdx.all_reduce(stock)
+os.environ.update(TDX_COLLECTIVE_PLANNER="1", TDX_PLANNER_FORCE="ring",
+                  TDX_PLANNER_PROBE_CACHE="")
+ring = DistTensor.wrap(x.clone())
+tdx.all_reduce(ring)
+res["ring"] = (bool(torch.equal(ring.tensor, stock.tensor)), ring.tensor.device.type,
+               plan.planner_for_group(dist._get_default_group()).last_choice)
+res["frames"] = (dist._p2p_plane.frames_sent, dist._p2p_plane.frames_received)
+tdx.destroy_process_group()
+with open(out, "wb") as f:
+    pickle.dump(res, f)
+'''
+
+
+@pytest.mark.cuda
+def test_p2p_plane_carries_cuda_tensors_between_processes_on_the_card(tmp_path):
+    """Two processes on cuda:0 ("cuda:gloo"): CUDA tensors, bf16 and float32,
+    go rank 0 -> 1 through the p2p plane (device -> pinned host -> socket
+    and back) bit for bit, and the planner's ring all-reduce over the plane
+    gives CUDA rows bitwise the stock gloo all_reduce's (two terms a sum)."""
+    import os
+    import pickle
+    import socket
+    import subprocess
+    import sys
+
+    _need_card()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "plane.py"
+    script.write_text(_PLANE_WORKER)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(port),
+                               str(tmp_path / f"p{r}.pkl")], env=env, cwd=repo,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{out}"
+    res = []
+    for r in range(2):
+        with open(tmp_path / f"p{r}.pkl", "rb") as f:
+            res.append(pickle.load(f))
+    assert res[1]["bf16"] and res[1]["f32"]
+    for r in range(2):
+        assert res[r]["ring"] == (True, "cuda", ("all_reduce", "ring", "force")), res[r]
+    assert res[0]["frames"][0] >= 2 and res[1]["frames"][1] >= 2

@@ -65,8 +65,8 @@ def test_port_imports_nothing_of_jax():
     # training, generation, serving on one card and across ranks and
     # pools, the planner's schedules, the ResNet and BERT workloads, the
     # pipeline and the dry run, checkpoints and the training utilities,
-    # and their modules
-    assert int(count) >= 91
+    # the p2p plane and the collective planner, and their modules
+    assert int(count) >= 97
     for name in ("ops.flash_attention", "parallel", "parallel.context_parallel",
                  "distributed", "store", "backends.stacked", "backends.process",
                  "examples.toy", "data.sampler", "data.loader", "models.convnet",
@@ -81,7 +81,8 @@ def test_port_imports_nothing_of_jax():
                  "serve.disagg.router", "optim", "utils.remat", "models.resnet", "models.bert",
                  "examples.cifar", "parallel.comm_hooks", "parallel.pipeline", "dryrun",
                  "checkpoint", "checkpoint_sharded", "amp", "nn.utils", "parallel.join",
-                 "parallel.localsgd", "utils.cpu_reference"):
+                 "parallel.localsgd", "utils.cpu_reference", "p2p", "plan.probe",
+                 "plan.planner", "plan.driver", "plan.executor", "plan.traced"):
         assert f"pytorch_distributed_example_tpu_torch.{name}" in modules.split(), name
 
 

@@ -371,20 +371,21 @@ def test_parked_lane_writes_land_in_the_sink():
         assert torch.equal(v[:-1], before[k][:-1])
 
 
-# a mesh over distinct devices: tensor-parallel serving in multiproc mode
+# a driver-mode mesh over distinct devices: tp ranks on distinct devices
+# are a multiproc mesh (tests/test_torch_serve_tp_multiproc.py serves one)
 _SPREAD = DeviceMesh(["cpu", "meta"], (2,), ("tp",))
 
 
-@pytest.mark.parametrize("kw,err", [
-    (dict(mesh=_SPREAD), NotImplementedError),
-    (dict(precompiled={"step": object()}), NotImplementedError),
-    (dict(role="prefill", mesh=_SPREAD), NotImplementedError),
-    (dict(role="decode", precompiled={"step": object()}), NotImplementedError),
-    (dict(role="bogus"), ValueError),
+@pytest.mark.parametrize("kw,err,match", [
+    (dict(mesh=_SPREAD), ValueError, "multiproc mesh"),
+    (dict(precompiled={"step": object()}), NotImplementedError, "ROADMAP"),
+    (dict(role="prefill", mesh=_SPREAD), ValueError, "multiproc mesh"),
+    (dict(role="decode", precompiled={"step": object()}), NotImplementedError, "ROADMAP"),
+    (dict(role="bogus"), ValueError, "role"),
 ])
-def test_unported_engine_options_raise(kw, err):
+def test_unported_engine_options_raise(kw, err, match):
     _, _, tmodel = _pair()
-    with pytest.raises(err, match="ROADMAP" if err is NotImplementedError else "role"):
+    with pytest.raises(err, match=match):
         tserve.ServeEngine(tmodel, **kw)
 
 
