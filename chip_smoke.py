@@ -326,6 +326,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1587,7 +1588,7 @@ SERVE_ARGV = ["--vocab-size", "32000", "--d-model", "2048", "--n-layers", "16",
 SERVE_SLOTS, SERVE_BLOCK = 8, 16
 SERVE_GATE = (4, 512)  # prompts x tokens for the decode-path logits gate
 SERVE_RMS_TOL = 3e-2  # the flash-vs-dense gate of PERF.md section 2
-SERVE_REQUESTS = 48
+SERVE_REQUESTS = 24  # the bimodal burst's first 24 (48 until [elastic] needed the time)
 # the preemption-determinism run: prompts of 256 or 512 tokens, so every
 # prefill chunk is 256 wide whatever shares its step (equal program shapes
 # in both runs), and 192 blocks (3072 tokens) against up to 8 x 640 tokens
@@ -1828,7 +1829,9 @@ def serve_phase(card):
 # serving across ranks and pools: tensor-parallel decode, disaggregated
 # prefill/decode with KV migration, and the replica router
 FLEET_TP = 2
-FLEET_DET_REQUESTS = 16  # the determinism construct's requests (prompts 256/512, chunk 256)
+# the determinism construct's requests (prompts 256/512, chunk 256; 16
+# until [elastic] needed the time)
+FLEET_DET_REQUESTS = 8
 # benchmarks/serve_bench.py --trace disagg at its defaults (:703-800)
 DISAGG_STEADY, DISAGG_BURST, DISAGG_CHUNK, DISAGG_SLOTS = 16, 32, 32, 18
 ROUTER_REPLICAS = 2
@@ -2519,9 +2522,9 @@ def serve_fleet_phase(card):
 DDP8 = 8
 CIFAR_BATCH = 128  # a rank, as the reference's benchmarks/resnet_ddp.py
 CIFAR_CHECK_BATCH = 4  # a rank, for the card-vs-CPU step
-CIFAR_BENCH = dict(warmup=3, steps=5, windows=3)
+CIFAR_BENCH = dict(warmup=3, steps=5, windows=2)  # 3 windows until [elastic]
 BERT_BATCH, BERT_SEQ = 16, 128  # a rank, as the reference's benchmarks/bert_finetune.py
-BERT_BENCH = dict(warmup=2, steps=3, windows=3)
+BERT_BENCH = dict(warmup=2, steps=3, windows=2)  # 3 windows until [elastic]
 # the card-vs-CPU checks: BERT at full width, its depth cut to 2 layers,
 # 1 sequence of 32 tokens a rank (the CPU side runs the same step)
 BERT_CHECK = dict(n_layers=2)
@@ -3231,7 +3234,7 @@ def rank0_resume(card):
     must be bitwise the saved one (on the card, in its dtypes), and the
     resumed step's loss and params bitwise the uninterrupted one's.
     Returns the number of train steps taken."""
-    args = lm.parse_args(SLICE_ARGV)
+    args = lm.parse_args(CKPT_ARGV)
     model, opt, next_tokens = lm.build(args, world=1)
     cfg = model.cfg
     toks = [next_tokens() for _ in range(CKPT_STEPS + 1)]
@@ -3322,8 +3325,14 @@ def same_state(a, b):
     return True
 
 
+# both checkpoints at 8 of CFG_1B's 16 layers (the full depth until
+# [elastic] needed the time)
+CKPT_ARGV = SLICE_ARGV + ["--n-layers", "8"]
+CKPT_SHARDED_ARGV = FSDP_TP_ARGV + ["--n-layers", "8"]
+
+
 def sharded_ckpt(card):
-    """CFG_1B over fsdp 2 x tp 2 after one step: `dcp_save` (each rank's
+    """CFG_1B's width at 8 layers over fsdp 2 x tp 2 after one step: `dcp_save` (each rank's
     shard its own entry); `dcp_load` into the same layout, bitwise, and a
     step from that restored state against the live step, bitwise; 4 -> 1
     into `resharded_template`'s single-card layout, bitwise
@@ -3333,7 +3342,7 @@ def sharded_ckpt(card):
     into fsdp 2 x tp 2, bitwise. Returns the number of train steps taken."""
     from torch.distributed.checkpoint import FileSystemReader
 
-    args = lm.parse_args(FSDP_TP_ARGV)
+    args = lm.parse_args(CKPT_SHARDED_ARGV)
     mod, opt, next_tokens = lm.build(args, world=FSDP_TP_WORLD)
     lm.train_step(mod, opt, next_tokens())
     steps = 1
@@ -3503,8 +3512,8 @@ def ckpt_phase(card):
         n4 = sharded_ckpt(card)
         print(f"  sharded checkpoint in {time.perf_counter() - t0:.1f} s")
         routes = dict(fa.ROUTE_LAUNCHES)
-        layers = lm.config_for(lm.parse_args(SLICE_ARGV)).n_layers
-        want = layers * (n1 + n4)
+        want = (lm.config_for(lm.parse_args(CKPT_ARGV)).n_layers * n1
+                + lm.config_for(lm.parse_args(CKPT_SHARDED_ARGV)).n_layers * n4)
         print(f"  flash launches in the phase's {n1} single-card and {n4} sharded steps: "
               f"{dict(fa.LAUNCHES)}; by route: {routes}")
         check(routes == want_routes(want),
@@ -4561,12 +4570,14 @@ def mp_nccl(card):
 
 # -- (g) CFG_1B tensor-parallel serving at tp 2 as a gang ----------------------
 
-MP_SERVE_REQUESTS = 16
+MP_SERVE_REQUESTS = 8  # (16 until [elastic] needed the time)
 MP_SERVE_GATE = (2, 128)  # prompts x tokens of the gang's prefill-logits gate
 MP_SERVE_F32_RMS = 1e-5  # float32 (TF32 off): the same sums in another kernel's order
 MP_SERVE_FORCED_RMS = {"bf16": SERVE_RMS_TOL, "float32": MP_SERVE_F32_RMS}
-MP_SERVE_RUNS = (("bf16", SERVE_ARGV, (False, True)),
-                 ("float32", [a for a in SERVE_ARGV if a != "--bf16"], (False,)))
+# CFG_1B's width at 8 of its 16 layers (16 until [elastic] needed the time)
+MP_SERVE_ARGV = SERVE_ARGV + ["--n-layers", "8"]
+MP_SERVE_RUNS = (("bf16", MP_SERVE_ARGV, (False, True)),
+                 ("float32", [a for a in MP_SERVE_ARGV if a != "--bf16"], (False,)))
 
 
 def mp_serve_gate_tokens():
@@ -5177,6 +5188,514 @@ def multiproc_phase(card):
     return launches
 
 
+# -- [elastic]: the elastic agent, the serve worker gang, pre-warm, the
+# debug frontend and the elastic trainer --------------------------------------
+
+EL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".elastic_smoke")
+EL_SERVE_MODULE = "pytorch_distributed_example_tpu_torch.examples.serve_worker"
+# [serve]'s geometry: CFG_1B in bf16, 8 slots of 16-token blocks (the
+# engine's default, as the workers'), buckets from 8; unchunked prefill, so a request's program shapes do not depend on
+# what shares its steps, and every incarnation replays it bit for bit
+EL_SERVE_ARGV = ["--config", "CFG_1B", "--slots", str(SERVE_SLOTS), "--min-bucket", "8"]
+EL_REQUESTS, EL_BUDGET = 16, 32
+EL_WAVES = (6, 5, 5)  # before 2 -> 3, into the 3-wide gang, after the resize to 1
+EL_DRAIN_S = 30.0
+EL_DEVICE = "cuda"  # this process's reference, warm-pass check and replay
+EL_ENV = {}  # added to every worker's environment
+EL_TIMEOUT_S = 240.0  # a generation's forming, or the traffic's end (a hung gang fails)
+# checkpoints at 15 and 30 only: the final save moves generation 0's
+# step-15 checkpoint to `.prev`, the world-1 replay's starting point
+EL_TRAIN = dict(steps=30, every=15, batch=32)
+# world 2 against its replay: the replay computes both ranks' gradients in
+# one rank-batched (vmapped) pass, whose convolutions reduce in other
+# orders than one rank's pass in its own process (6e-08 apart after 10
+# steps on the CPU); world 1 from the same params is held bitwise
+EL_TRAIN_TOL = dict(rtol=1e-4, atol=1e-5)
+EL_STAGES = (("spawn and imports", "decision", "start"), ("CUDA init", "start", "cuda_ready"),
+             ("model build", "cuda_ready", "model_built"),
+             ("engine and warm pass", "model_built", "engine_built"),
+             ("restore and register", "engine_built", "registered"),
+             ("first token", "registered", "first_token"))
+
+
+def el_free_port():
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def el_serve_args():
+    from pytorch_distributed_example_tpu_torch.examples import serve_worker
+
+    return serve_worker, serve_worker.parse_args(EL_SERVE_ARGV)
+
+
+def el_traffic():
+    """16 of the bimodal burst's requests, each with a budget of 32."""
+    return [(f"r{seed}", prompt, EL_BUDGET, seed)
+            for prompt, _, seed in bimodal_traffic(EL_REQUESTS)]
+
+
+def el_engine(model, args, **kw):
+    from pytorch_distributed_example_tpu_torch.serve import ServeEngine
+
+    return ServeEngine(model, slots=args.slots, min_bucket=args.min_bucket, **kw)
+
+
+def el_pool_state(eng):
+    return ([buf.clone() for node in eng.cache.tree.values() for buf in node["attn"].values()],
+            [t.clone() for t in (eng._dev_lengths, eng._dev_tokens, eng._dev_rngs)],
+            eng.cache.block_tables.copy(), list(eng.cache._free_blocks), eng.queue.depth,
+            eng.metrics.steps)
+
+
+def el_reference(card):
+    """The uninterrupted engine on cuda:0 from the workers' seed and
+    geometry: its tokens are what every gang must emit. Then (b)'s warm
+    pass on a live engine, mid-stream: the pool (sink included), lanes,
+    tables, allocator, queue and step count bitwise as before, and the
+    engine's streams still the reference's."""
+    from pytorch_distributed_example_tpu_torch.serve import prewarm
+
+    serve_worker, args = el_serve_args()
+    model = serve_worker.build_model(args, torch.device(EL_DEVICE, 0))
+    traffic = el_traffic()
+    eng = el_engine(model, args)
+    sync()
+    t0 = time.perf_counter()
+    for rid, prompt, budget, seed in traffic:
+        eng.submit(prompt, budget, rid=rid, seed=seed)
+    eng.run(max_steps=100000)
+    sync()
+    ref = {r: list(c.tokens) for r, c in eng.completions.items()}
+    check(len(ref) == EL_REQUESTS and all(len(t) == EL_BUDGET for t in ref.values()),
+          "[elastic] the reference engine did not finish its requests")
+    print(f"  reference: CFG_1B bf16 on cuda:0, {EL_REQUESTS} bimodal requests x {EL_BUDGET} "
+          f"tokens greedy, {args.slots} slots, block {eng.cache.block_size}, buckets from "
+          f"{args.min_bucket}: {eng.metrics.steps} steps in {time.perf_counter() - t0:.2f} s")
+    del eng
+    live = el_engine(model, args)
+    for rid, prompt, budget, seed in traffic:
+        live.submit(prompt, budget, rid=rid, seed=seed)
+    for _ in range(6):
+        live.step()
+    check(live.num_active > 0 and live.queue.depth > 0, "[elastic] the live engine is idle")
+    before = el_pool_state(live)
+    sync()
+    t0 = time.perf_counter()
+    timings = prewarm.prewarm_engine_programs(live)
+    warm_s = time.perf_counter() - t0
+    after = el_pool_state(live)
+    same = (all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
+            and all(torch.equal(a, b) for a, b in zip(before[1], after[1]))
+            and np.array_equal(before[2], after[2]) and before[3:] == after[3:])
+    pool_bytes = sum(t.numel() * t.element_size() for t in before[0])
+    print(f"  (b) warm pass on a live engine ({live.num_active} slots live, {live.queue.depth} "
+          f"queued): {len(timings)} program calls in {warm_s:.3f} s; the pool ({pool_bytes} "
+          f"bytes, the sink included), the lanes, tables, allocator, queue and steps bitwise "
+          f"unchanged: {same}")
+    check(same, "[elastic] the warm pass changed the live engine")
+    del before, after
+    live.run(max_steps=100000)
+    check({r: list(c.tokens) for r, c in live.completions.items()} == ref,
+          "[elastic] the warmed live engine's streams part from the cold engine's")
+    print("  (b) the warmed live engine then finishes with the cold engine's tokens")
+    del live, model
+    torch.cuda.empty_cache()
+    return traffic, ref
+
+
+def el_logs(log_dir):
+    """Each worker's `serve_worker timings` row from the agent's logs,
+    keyed (generation, rank)."""
+    rows = {}
+    for name in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, name), errors="replace") as f:
+            for line in f:
+                if line.startswith("serve_worker timings "):
+                    row = json.loads(line[len("serve_worker timings "):])
+                    rows[(row["gen"], row["rank"])] = row
+    return rows
+
+
+def el_log_tail(log_dir, n=30):
+    for name in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, name), errors="replace") as f:
+            lines = f.read().splitlines()[-n:]
+        for line in lines:
+            print(f"    [{name}] {line}")
+
+
+def el_stages(rows, gen, decision):
+    """Where a resize's seconds went: the decision (or the kill) to each
+    stamp of the new generation's first worker to emit a token. None when
+    no worker of `gen` logged a token (a worker killed before its exit
+    logs nothing)."""
+    mine = [r for (g, _), r in rows.items() if g == gen and r["first_token"] is not None]
+    if not mine:
+        return None
+    stamps = dict(min(mine, key=lambda r: r["first_token"]), decision=decision)
+    parts = [f"{name} {stamps[b] - stamps[a]:.2f}" for name, a, b in EL_STAGES]
+    return stamps["first_token"] - decision, ", ".join(parts)
+
+
+class ElasticGang:
+    """A `LocalElasticAgent` on a thread of this process, its store client
+    and a `GangRouter`; every worker ended on the way out."""
+
+    def __init__(self, name, nproc, active, env, extra=()):
+        from pytorch_distributed_example_tpu_torch.elastic import LocalElasticAgent, WorkerSpec
+        from pytorch_distributed_example_tpu_torch.serve.worker import GangRouter
+        from pytorch_distributed_example_tpu_torch.store import TCPStore
+
+        self.port = el_free_port()
+        self.log_dir = os.path.join(EL_DIR, f"logs_{name}")
+        root = os.path.dirname(os.path.abspath(__file__))
+        spec = WorkerSpec(
+            entrypoint=[EL_SERVE_MODULE, *EL_SERVE_ARGV, *extra], module=True,
+            nproc_per_node=nproc, min_nproc=1, master_port=self.port, max_restarts=4,
+            monitor_interval_s=0.05, serve_drain_grace_s=EL_DRAIN_S,
+            env={"OMP_NUM_THREADS": "1",
+                 "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                 **EL_ENV, **env})
+        self.agent = LocalElasticAgent(spec, log_dir=self.log_dir)
+        self.agent.active_nproc = active
+        self.result = {}
+        self.thread = threading.Thread(target=lambda: self.result.update(run=self.agent.run()),
+                                       daemon=True)
+        self.thread.start()
+        self.store = TCPStore("127.0.0.1", self.port, is_master=False, timeout=60.0)
+        self.router = GangRouter(self.store)
+
+    def formed(self, gen, n):
+        from pytorch_distributed_example_tpu_torch.serve.worker import wait_registered
+
+        try:
+            return wait_registered(self.store, gen, n, timeout=EL_TIMEOUT_S)
+        except Exception:
+            el_log_tail(self.log_dir)
+            raise
+
+    def submit(self, reqs):
+        return [self.router.submit(prompt, budget, rid=rid, seed=seed)
+                for rid, prompt, budget, seed in reqs]
+
+    def resize(self, n):
+        from pytorch_distributed_example_tpu_torch.elastic import request_resize
+
+        t = time.time()
+        request_resize("127.0.0.1", self.port, n)
+        return t
+
+    def wait_gone(self, rows):
+        """Until the agent has replaced the workers of a registration
+        `rows` (it reaps them at its teardown, then spawns the next)."""
+        pids = {int(r["pid"]) for r in rows}
+        deadline = time.monotonic() + EL_TIMEOUT_S
+        while any(w.proc is not None and w.proc.pid in pids for w in list(self.agent._workers)):
+            check(time.monotonic() < deadline, "[elastic] the old generation did not exit")
+            time.sleep(0.02)
+
+    def finish(self, rids):
+        try:
+            out = self.router.wait_all(rids, timeout=EL_TIMEOUT_S)
+        except Exception:
+            el_log_tail(self.log_dir)
+            raise
+        self.router.shutdown()
+        self.thread.join(timeout=EL_TIMEOUT_S)
+        check(not self.thread.is_alive(), "[elastic] the agent did not end after shutdown")
+        return out
+
+    def close(self):
+        if self.thread.is_alive():  # a failed check: end the gang
+            with contextlib.suppress(Exception):
+                self.router.shutdown(sweep=False)
+            self.thread.join(timeout=60.0)
+            for w in list(self.agent._workers):
+                if w.proc is not None and w.proc.poll() is None:
+                    w.proc.kill()
+        with contextlib.suppress(Exception):
+            self.store.close()
+
+
+def el_get(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+        return json.loads(r.read().decode())
+
+
+def el_admitted(debug_port, world):
+    """Until a worker's engine has admitted a request (its /serve)."""
+    deadline = time.monotonic() + EL_TIMEOUT_S
+    while True:
+        with contextlib.suppress(OSError):
+            if any(el_get(debug_port + r, "/serve")["engine"]["admitted"] for r in range(world)):
+                return
+        check(time.monotonic() < deadline, "[elastic] no worker admitted a request")
+        time.sleep(0.01)
+
+
+def el_debug_check(debug_port, world):
+    """(d): rank 0's debug frontend: /world names the gang's size, /status
+    its group, /flight_recorder the ring buffer, /serve the engine."""
+    def get(path):
+        return el_get(debug_port, path)
+
+    w, st, fr, sv = get("/world"), get("/status"), get("/flight_recorder"), get("/serve")
+    eng = sv["engine"]
+    admitted = [el_get(debug_port + r, "/serve")["engine"]["admitted"] for r in range(world)]
+    print(f"  (d) rank 0's debug frontend: /world mode {w['mode']}, process rank "
+          f"{w['process_rank']}, default_pg size {w['groups']['default_pg']['size']} "
+          f"({w['groups']['default_pg']['backend']}); /status {sorted(st)}; /flight_recorder "
+          f"{len(fr.get('entries', []))} entries; /serve slots {eng['slots']}, submitted "
+          f"{eng['submitted']}, admitted {eng['admitted']}, completed {eng['completed']}, "
+          f"queue depth {eng.get('queue_depth')}; admitted by rank {admitted}")
+    check(w["initialized"] and w["mode"] == "multiproc" and w["process_rank"] == 0
+          and w["groups"]["default_pg"]["size"] == world, "[elastic] /world does not name the gang")
+    check("default_pg" in st and "entries" in fr, "[elastic] /status or /flight_recorder is off")
+    check(eng["slots"] == SERVE_SLOTS and sum(admitted) >= 1,
+          "[elastic] /serve does not show the engine's metrics")
+
+
+def el_serve_gang(card, traffic, ref):
+    """(a) and (d): the CFG_1B gang at 2, resized 2 -> 3 mid-traffic, one
+    worker SIGKILLed in the 3-wide generation (the agent re-forms at 2),
+    then resized to 1; every completion the reference's. The workers
+    pre-warm through TDX_PREWARM_DIR: generation 0 writes the manifest,
+    the later ones warm from it."""
+    import signal
+
+    waves, at = [], 0
+    for n in EL_WAVES:
+        waves.append(traffic[at:at + n])
+        at += n
+    debug = el_free_port()
+    gang = ElasticGang("a", 3, 2, {"TDX_PREWARM_DIR": os.path.join(EL_DIR, "prewarm")},
+                       extra=("--debug-port", str(debug)))
+    try:
+        t0 = time.perf_counter()
+        gang.formed(0, 2)
+        print(f"  (a) generation 0: 2 workers registered in {time.perf_counter() - t0:.1f} s")
+        rids = gang.submit(waves[0])
+        el_admitted(debug, 2)  # mid-traffic: a request is in a slot
+        t_grow = gang.resize(3)
+        first_done = sum(1 for r in rids if gang.router.result(r))
+        rows1 = gang.formed(1, 3)
+        rids += gang.submit(waves[1])
+        el_admitted(debug, 3)
+        el_debug_check(debug, 3)
+        done = sum(1 for r in rids if gang.router.result(r))
+        # the busiest worker that is not the restore leader (the leader's
+        # recovery row outlives the generation), its requests in flight
+        leader = int(gang.store.get("serve/restored/gen1").decode())
+        busy = {r: el_get(debug + r, "/serve")["engine"]["admitted"] for r in range(3)}
+        killed = max((r for r in rows1 if int(r["rank"]) != leader),
+                     key=lambda r: (busy[int(r["rank"])], r["rank"]))
+        victim = int(killed["pid"])
+        os.kill(victim, signal.SIGKILL)
+        t_kill = time.time()
+        print(f"  (a) 2 -> 3 requested with {len(waves[0]) - first_done} of {len(waves[0])} "
+              f"requests unfinished; generation 1 formed at 3 (restore leader rank {leader}); SIGKILL rank {killed['rank']} (pid "
+              f"{victim}, {busy[int(killed['rank'])]} requests admitted) with {done} of "
+              f"{len(rids)} requests done")
+        rows2 = gang.formed(2, 2)
+        gang.router.wait_all(rids, timeout=EL_TIMEOUT_S)
+        t_shrink = gang.resize(1)
+        gang.wait_gone(rows2)
+        rids += gang.submit(waves[2])
+        gang.formed(3, 1)
+        out = gang.finish(rids)
+        run = gang.result.get("run")
+        print(f"  (a) generations {gang.agent.restart_count + 1}, final width "
+              f"{gang.agent.active_nproc}; the agent {run.state.value if run else None} after "
+              f"{run.restarts if run else None} restarts")
+        check(run is not None and run.state.value == "SUCCEEDED" and gang.agent.active_nproc == 1
+              and gang.agent.restart_count == 3, "[elastic] the gang did not end at width 1")
+        same = sum(out[r] == ref[r] for r in ref)
+        print(f"  (a) {same} of {EL_REQUESTS} completions equal the uninterrupted engine's "
+              f"token for token")
+        check(out == ref, "[elastic] a gang's stream parts from the uninterrupted engine's")
+        rows = el_logs(gang.log_dir)
+        for (g, r), row in sorted(rows.items()):
+            rec = row["recovery"] or {}
+            print(f"  (a) gen {g} rank {r}: warm {row['warm_s']:.3f} s, restored "
+                  f"{row['restored']}; recovery restores {rec.get('restores')}, requests_restored "
+                  f"{rec.get('requests_restored')}, last_recovery_s "
+                  f"{rec.get('last_recovery_s')}; peak {row['peak_bytes'] / 2 ** 30:.2f} GiB")
+        check(any((row["recovery"] or {}).get("requests_restored") for (g, _), row in rows.items()
+                  if g >= 1), "[elastic] no generation restored sealed work")
+        for gen, label, t in ((1, "2 -> 3", t_grow), (2, "kill -> 2", t_kill),
+                              (3, "2 -> 1 (pre-warmed)", t_shrink)):
+            got = el_stages(rows, gen, t)
+            text = (f"{got[0]:.2f} s ({got[1]})" if got
+                    else "not measured (no worker of it logged a token)")
+            print(f"  (a) {label}: decision to first token {text}  [{card}]")
+        warm = el_stages(rows, 3, t_shrink)
+        check(warm is not None, "[elastic] the resize to 1 emitted no token")
+        return warm
+    finally:
+        gang.close()
+
+
+def el_cold_resize(card, traffic, ref, warm):
+    """(b): the same resize, 2 -> 1 with the last wave, in a gang that does
+    not pre-warm."""
+    gang = ElasticGang("b", 2, 2, {})
+    try:
+        rows0 = gang.formed(0, 2)
+        t_dec = gang.resize(1)
+        gang.wait_gone(rows0)
+        wave = traffic[-EL_WAVES[-1]:]
+        rids = gang.submit(wave)
+        gang.formed(1, 1)
+        out = gang.finish(rids)
+        check(out == {r: ref[r] for r in rids},
+              "[elastic] the cold gang's streams part from the uninterrupted engine's")
+        cold = el_stages(el_logs(gang.log_dir), 1, t_dec)
+        check(cold is not None, "[elastic] the cold resize emitted no token")
+        total, parts = cold
+    finally:
+        gang.close()
+    print(f"  (b) 2 -> 1, cold: decision to first token {total:.2f} s ({parts})  [{card}]")
+    print(f"  (b) 2 -> 1, pre-warmed: decision to first token {warm[0]:.2f} s ({warm[1]}); "
+          f"the same {len(rids)} requests, equal tokens in both  [{card}]")
+
+
+def el_replay(world, params, lo, hi, batch):
+    """The trainer's steps lo..hi replayed here in driver mode at `world`
+    (every rank's batch, rank-major), from `params` (None: the initial
+    ones) with fresh momentum, under cuDNN's deterministic algorithms."""
+    from pytorch_distributed_example_tpu_torch.examples import elastic as ex
+
+    dev = torch.device(EL_DEVICE, 0)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tdx.init_process_group(world_size=world, device=dev)
+    try:
+        model, p0 = ex.initial_params(dev)
+        ddp = tdx.DistributedDataParallel(model, p0 if params is None else params)
+        opt = optim.sgd(0.05, momentum=0.9)
+        step = ddp.make_train_step(opt, ex.loss_fn)
+        state = opt.init(ddp.params)
+        xs, ys = zip(*(ex.rank_batch(r, batch, dev) for r in range(world)))
+        x, y = torch.cat(xs), torch.cat(ys)
+        out = ddp.params
+        for _ in range(lo, hi):
+            out, state, _ = step(out, state, x, y)
+        return {n: p.clone() for n, p in out.items()}
+    finally:
+        tdx.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def el_trainer(card):
+    """(c): `examples/elastic.py` at world 2 on cuda:0 over cuda:gloo, one
+    worker killed after the first checkpoint; the run ends at world 1 at
+    --steps; generation 0's checkpoint against a world-2 replay within
+    EL_TRAIN_TOL, the final params bitwise a world-1 replay from it."""
+    from pytorch_distributed_example_tpu_torch.elastic import LocalElasticAgent, WorkerSpec
+    from pytorch_distributed_example_tpu_torch.examples import elastic as ex
+
+    ckpt = os.path.join(EL_DIR, "train_ckpt")
+    log_dir = os.path.join(EL_DIR, "logs_c")
+    root = os.path.dirname(os.path.abspath(__file__))
+    S, E, B = EL_TRAIN["steps"], EL_TRAIN["every"], EL_TRAIN["batch"]
+    spec = WorkerSpec(
+        entrypoint=["pytorch_distributed_example_tpu_torch.examples.elastic", "--steps", str(S),
+                    "--ckpt-every", str(E), "--ckpt", ckpt, "--batch-size", str(B)],
+        module=True, nproc_per_node=2, min_nproc=1, max_restarts=3, monitor_interval_s=0.05,
+        env={"OMP_NUM_THREADS": "1",
+             "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", ""), **EL_ENV})
+    agent = LocalElasticAgent(spec, log_dir=log_dir)
+    result = {}
+    th = threading.Thread(target=lambda: result.update(run=agent.run()), daemon=True)
+    t0 = time.perf_counter()
+    th.start()
+    try:
+        deadline = time.monotonic() + EL_TIMEOUT_S
+        while not os.path.exists(os.path.join(ckpt, "meta.json")):
+            check(time.monotonic() < deadline and th.is_alive(),
+                  "[elastic] the trainer wrote no checkpoint")
+            time.sleep(0.005)
+        agent._workers[1].proc.kill()
+        th.join(timeout=EL_TIMEOUT_S)
+    finally:
+        if th.is_alive():
+            for w in list(agent._workers):
+                if w.proc is not None and w.proc.poll() is None:
+                    w.proc.kill()
+            th.join(timeout=30.0)
+    run = result.get("run")
+    resume = None
+    for name in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, name), errors="replace") as f:
+            text = f.read()
+        if name == "worker_0_attempt1.log":
+            m = re.search(r"resuming at step (\d+)", text)
+            resume = int(m.group(1)) if m else None
+    meta = json.load(open(os.path.join(ckpt, "meta.json")))
+    print(f"  (c) examples/elastic.py, ConvNet at world 2 x {B} on cuda:0 over cuda:gloo, "
+          f"checkpoint every {E} of {S} steps: rank 1 killed after the first checkpoint; the "
+          f"agent {run.state.value if run else None} after {run.restarts if run else None} "
+          f"restarts at width {agent.active_nproc}; generation 1 resumed at step {resume}; the "
+          f"final checkpoint at step {meta['step']} ({time.perf_counter() - t0:.1f} s)")
+    if run is None or run.state.value != "SUCCEEDED":
+        el_log_tail(log_dir)
+    check(run is not None and run.state.value == "SUCCEEDED" and run.restarts >= 1
+          and agent.active_nproc == 1 and meta["step"] == S and resume is not None,
+          "[elastic] the trainer did not finish at world 1")
+    from pytorch_distributed_example_tpu_torch.checkpoint import last_good_path
+
+    w2 = el_replay(2, None, 0, resume, B)
+    mid, _, mid_step, _ = load_checkpoint(last_good_path(ckpt), w2)
+    err2 = max(float((mid[n] - w2[n]).abs().max()) for n in w2)
+    close2 = all(torch.allclose(mid[n], w2[n], **EL_TRAIN_TOL) for n in w2)
+    w1 = el_replay(1, mid, resume, S, B)
+    final, _, _, _ = load_checkpoint(ckpt, w1)
+    err1 = max(float((final[n] - w1[n]).abs().max()) for n in w1)
+    bitwise1 = all(torch.equal(final[n], w1[n]) for n in w1)
+    print(f"  (c) generation 0's checkpoint at step {mid_step} against the world-2 replay: max "
+          f"|diff| {err2:.3e} (rtol {EL_TRAIN_TOL['rtol']}, atol {EL_TRAIN_TOL['atol']}: "
+          f"{close2}); the final params against the world-1 replay from it: max |diff| "
+          f"{err1:.3e}, bitwise {bitwise1}  [{card}]")
+    check(mid_step == resume and close2, "[elastic] world 2 strays from its replay")
+    check(bitwise1, "[elastic] world 1 is not bitwise its replay")
+
+
+def elastic_phase(card):
+    """The elastic agent on the card: (a) the CFG_1B serving gang resized
+    2 -> 3 -> 1 under a SIGKILL, token for token the uninterrupted engine;
+    (b) pre-warm: the warm pass leaves a live engine bitwise unchanged, and
+    a fresh worker's decision to first token, cold and pre-warmed; (c) the
+    elastic trainer killed to world 1 against its replay; (d) the debug
+    frontend of a serving worker. Returns this process's flash launches
+    (the workers run no flash kernel: dense decode, the ConvNet)."""
+    shutil.rmtree(EL_DIR, ignore_errors=True)
+    os.makedirs(EL_DIR)
+    fa.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        traffic, ref = el_reference(card)
+        print(f"  reference and warm-pass check in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        warm = el_serve_gang(card, traffic, ref)
+        print(f"  serving gang in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        el_cold_resize(card, traffic, ref, warm)
+        print(f"  cold resize in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        el_trainer(card)
+        print(f"  trainer in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(EL_DIR, ignore_errors=True)
+    launches = dict(fa.ROUTE_LAUNCHES)
+    check(sum(launches.values()) == 0, "[elastic] a flash kernel launched")
+    print(f"  flash launches in [elastic]: {dict(fa.LAUNCHES)}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5327,14 +5846,20 @@ def main():
     phase_launches["planner"] = planner_phase(card)
     print(f"  planner in {time.perf_counter() - t0:.1f} s")
 
-    # 21. report
+    # 21. the elastic agent: the serving gang resized, pre-warm, the trainer
+    t0 = time.perf_counter()
+    print("[elastic]")
+    phase_launches["elastic"] = elastic_phase(card)
+    print(f"  elastic in {time.perf_counter() - t0:.1f} s")
+
+    # 22. report
     kernels = []
     for name, lowerings in REPLACES.items():
         for regime, replaces in lowerings.items():
             design = results[regime][name]["design"]
             by_phase = {ph: phase_launches[ph].get(f"{name}:{design}", 0)
                         for ph in PHASES[regime] + ("serve_fleet", "cifar", "bert",
-                                                    "train_utils")}
+                                                    "train_utils", "elastic")}
             kernels.append({"name": name, "route": "cuda",
                             "source": WGMMA_SOURCE if design == "wgmma" else SOURCE,
                             "replaces": replaces, "regime": regime,

@@ -8,8 +8,9 @@ tensor-parallel decode (``mesh=``) and the disaggregated roles
 index (`prefix.py`), the serve-state checkpoints (`elastic.py`), the
 data-parallel replica router (`router.py`) with its SLO autoscaler
 (`autoscale.py`), and disaggregated prefill/decode pools joined by KV
-migration (`disagg/`). The serve worker under the elastic agent and its
-pre-warmed programs are still to come (ROADMAP.md, Queue 1 item 5).
+migration (`disagg/`), the serve worker daemon under the elastic agent
+with its front door and gang scaler (`worker.py`), and the geometry
+pre-warm (`prewarm.py`).
 """
 
 from .bucketing import bucket_for, bucket_lengths  # noqa: F401
@@ -28,4 +29,19 @@ from .engine import Handoff, ServeEngine  # noqa: F401
 from .metrics import ServeMetrics, percentile  # noqa: F401
 from .prefix import PrefixIndex, prefix_scope  # noqa: F401
 from .router import ScaleEvent, ServeRouter  # noqa: F401
+from .worker import (  # noqa: F401
+    ElasticGangScaler,
+    GangRouter,
+    ServeWorker,
+    claim_role,
+    pool_members,
+    wait_registered,
+)
+from .prewarm import (  # noqa: F401
+    GeometrySpec,
+    enable_compile_cache,
+    load_precompiled,
+    prewarm_engine_programs,
+    reachable_geometries,
+)
 from .queue import ClassSpec, Completion, QueueFullError, Request, RequestQueue  # noqa: F401

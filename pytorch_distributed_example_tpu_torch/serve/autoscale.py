@@ -2,7 +2,7 @@
 
 Everything reactive already existed (class-ordered shedding, preemption,
 drain/restore at any world size, `agent.resize`); this module CLOSES
-the loop (ROADMAP item 5): a controller polls the gang's ROLLING-WINDOW
+the loop: a controller polls the gang's ROLLING-WINDOW
 metrics (`ServeMetrics.window_view` merged across replicas by
 `ServeRouter.window_view` — never lifetime aggregates, which can
 neither see a fresh breach nor forgive an old one) and drives

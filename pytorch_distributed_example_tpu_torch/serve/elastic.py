@@ -1,6 +1,6 @@
 """Elastic serving — drain / checkpoint / restore of the serve plane.
 
-The failure domain this module closes (ROADMAP item 5): an
+The failure domain this module closes: an
 elastic-agent restart or resize used to kill every in-flight request
 and lose the queue. Now the serving state that actually matters —
 which requests exist, not what their KV blocks hold — survives the
@@ -39,7 +39,7 @@ untouched on a transient fault) and ``serve.restore`` (before the
 checkpoint is read back).
 
 A copy of the reference's `serve/elastic.py`, re-pointed at the port's
-`faults` and `serve.queue`, with `SERVE_DRAIN_PREFIX` kept here.
+`faults`, `serve.queue` and elastic agent.
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ import zlib
 from typing import Dict, Optional, Tuple
 
 from .. import faults
+from ..elastic.agent import SERVE_DRAIN_PREFIX  # agent owns the contract
 from .queue import Request
 
 __all__ = [
@@ -64,13 +65,6 @@ __all__ = [
 ]
 
 SERVE_CKPT_PREFIX = "serve/ckpt"
-
-# Agent -> serve-loop drain contract: the agent sets
-# f"{SERVE_DRAIN_PREFIX}/gen{g}" before a restart/resize teardown, and
-# serve loops poll it between steps. The reference's agent owns this
-# constant (`elastic/agent.py`); the port keeps it here until its agent
-# is ported, which then imports it from this module.
-SERVE_DRAIN_PREFIX = "serve/drain"
 
 
 def _ckpt_key(gen: int, key_prefix: str = SERVE_CKPT_PREFIX) -> str:

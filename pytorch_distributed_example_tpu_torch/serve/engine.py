@@ -57,10 +57,11 @@ decoding) for the migration plane, which exports its blocks and calls
 `attach_migrated` (its queue holds preempted migrants for the router to
 replay through prefill); ``role="both"`` is the colocated engine.
 
-Not ported: ``precompiled=`` (the pre-warmed program set of the
-reference's `serve/prewarm.py`) raises `NotImplementedError`; it belongs
-with the serve worker under the elastic agent (ROADMAP.md, Queue 1 item
-5).
+Pre-warm: ``precompiled=`` takes `serve/prewarm.py`'s table (from
+`load_precompiled`) and runs each listed program call once at
+construction, on scratch lanes and the pool's sink block, so the first
+token after a resize pays no first-call cost; dispatch stays the eager
+programs (the reference swaps in deserialized executables instead).
 
 Synchronous single-owner design: one thread calls `submit()`/`step()`/
 `run()`; `ServeMetrics` is internally locked.
@@ -167,10 +168,6 @@ class ServeEngine:
             raise ValueError(
                 f"role must be 'both', 'prefill', or 'decode', got {role!r}"
             )
-        if precompiled:
-            raise NotImplementedError(
-                "precompiled= (pre-warmed programs, serve/prewarm.py) is not ported yet: "
-                "ROADMAP.md, Queue 1 item 5, with the serve worker")
         if params is not None and mesh is None:
             raise ValueError("params= gives the weights' tensor-parallel layout; it needs "
                              "mesh=")
@@ -256,6 +253,13 @@ class ServeEngine:
         self._dev_tokens = torch.zeros((S,), dtype=torch.int32, device=dev)
         self._dev_rngs = torch.zeros((S, 2), dtype=torch.int64, device=dev)
         self.completions: Dict[str, Completion] = {}
+        # pre-warm: run the table's program calls once now, leaving this
+        # engine's pool, lanes and bookkeeping as they are
+        self.prewarm_timings: Dict = {}
+        if precompiled:
+            from .prewarm import warm_engine
+
+            self.prewarm_timings = warm_engine(self, precompiled)
 
     # -- admission ---------------------------------------------------------
     def submit(

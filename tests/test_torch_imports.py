@@ -82,7 +82,9 @@ def test_port_imports_nothing_of_jax():
                  "examples.cifar", "parallel.comm_hooks", "parallel.pipeline", "dryrun",
                  "checkpoint", "checkpoint_sharded", "amp", "nn.utils", "parallel.join",
                  "parallel.localsgd", "utils.cpu_reference", "p2p", "plan.probe",
-                 "plan.planner", "plan.driver", "plan.executor", "plan.traced"):
+                 "plan.planner", "plan.driver", "plan.executor", "plan.traced",
+                 "elastic", "elastic.agent", "elastic.run", "serve.worker", "serve.prewarm",
+                 "utils.debug_http", "examples.elastic", "examples.serve_worker"):
         assert f"pytorch_distributed_example_tpu_torch.{name}" in modules.split(), name
 
 

@@ -377,16 +377,40 @@ _SPREAD = DeviceMesh(["cpu", "meta"], (2,), ("tp",))
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(mesh=_SPREAD), ValueError, "multiproc mesh"),
-    (dict(precompiled={"step": object()}), NotImplementedError, "ROADMAP"),
-    (dict(role="prefill", mesh=_SPREAD), ValueError, "multiproc mesh"),
-    (dict(role="decode", precompiled={"step": object()}), NotImplementedError, "ROADMAP"),
-    (dict(role="bogus"), ValueError, "role"),
+    pytest.param(dict(mesh=_SPREAD), ValueError, "multiproc mesh",
+                 id="kw0-ValueError-multiproc mesh"),
+    pytest.param(dict(role="prefill", mesh=_SPREAD), ValueError, "multiproc mesh",
+                 id="kw2-ValueError-multiproc mesh"),
+    pytest.param(dict(role="bogus"), ValueError, "role", id="kw4-ValueError-role"),
 ])
 def test_unported_engine_options_raise(kw, err, match):
     _, _, tmodel = _pair()
     with pytest.raises(err, match=match):
         tserve.ServeEngine(tmodel, **kw)
+
+
+# precompiled= (serve/prewarm.py's table) warms at construction and leaves
+# the engine serving as a cold one: the same tokens as generate()
+_TABLE = {("prefill_chunk", 8): {}, ("first_token", 8): {}, ("attach", 2): {},
+          ("step", 2): {}, ("step", 7): {}}
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(role="decode")], ids=["both", "decode"])
+def test_precompiled_engine_option_warms(kw):
+    _, _, tmodel = _pair()
+    eng = tserve.ServeEngine(tmodel, slots=2, block_size=BS, min_bucket=8,
+                             precompiled=_TABLE, **kw)
+    assert set(eng.prewarm_timings) == {("prefill_chunk", 8), ("first_token", 8),
+                                        ("attach", 2), ("step", 2)}
+    assert all(t >= 0.0 for t in eng.prewarm_timings.values())
+    if kw:
+        return
+    cold = tserve.ServeEngine(tmodel, slots=2, block_size=BS, min_bucket=8)
+    for e in (eng, cold):
+        for r in _trace(4, seed=3):
+            e.submit(r["prompt"], r["max_new_tokens"], rid=r["rid"], seed=r["seed"])
+    got = {r: c.tokens for r, c in eng.run(max_steps=200).items()}
+    assert got == {r: c.tokens for r, c in cold.run(max_steps=200).items()}
 
 
 def test_submit_validation_matches_the_reference():
