@@ -232,5 +232,5 @@ class NativeFlightRecorder:
     def __del__(self):
         try:
             self.close()
-        except Exception:  # distlint: disable=R005 -- a finalizer must not raise; the interpreter may be tearing down
+        except Exception:  # a finalizer must not raise; the interpreter may be tearing down
             pass

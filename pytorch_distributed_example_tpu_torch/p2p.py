@@ -268,7 +268,7 @@ class P2PPlane:
                 self._accept_thread = t
             except OSError:
                 self.listening = False  # publish "none"; peers fall back
-        self.store.set(f"ep/{self.rank}", ep)  # close() tombstones it to _NONE_EP
+        self.store.set(f"ep/{self.rank}", ep)  # distlint: disable=R007 -- close() atomically tombstones to _NONE_EP via compare_set; deletion would make late peers BLOCK instead of reading "opted out"
         self._published = ep  # close() tombstones only our own payload
         return self
 

@@ -517,7 +517,7 @@ def make_zero2_train_step(apply_fn: Callable, loss_fn: Callable, optimizer, mesh
                     shard.grad = means[k][:1]
         opt_state.optimizer.step()
         with torch.no_grad(), mesh:
-            for k, shard in opt_state.shards.items():
+            for k, shard in opt_state.shards.items():  # distlint: disable=R010 -- one shard a parameter name; every rank holds the same names
                 new = (nnf.all_gather(shard, axis, 0, replica=True) if k in opt_state.sharded
                        else shard[0])
                 target = params[k]

@@ -217,9 +217,7 @@ def _agreed_plane_choice(group, me: int, op_name: str, per_rank_bytes: int,
 
         key = f"planalg/gen{dist._world.scope}/{op_name}/{bucket}"
         if me == 0:
-            # probe-agreement rows keyed gen/op/bucket, pinned for replay
-            # within the job; reclaimed with its store
-            group.store.set(key, f"{alg}:{pipe}".encode())
+            group.store.set(key, f"{alg}:{pipe}".encode())  # storelint: disable=S005 -- probe-agreement rows keyed gen/op/bucket, pinned for replay within the job; reclaimed with its store
         else:
             group.store.wait([key], group.timeout)
             raw = group.store.get(key).decode()

@@ -144,10 +144,7 @@ class CollectivePlanner:
                 return alg, "default"
         source = "cache"
         if not usable:
-            # probe programs run on the DRIVER plane of a single-controller
-            # process only; the multiproc plane prober is a no-op and
-            # _agreed_plane_choice store-publishes rank 0's choice
-            timings = self._probe(op, cands, bucket, reduce_kind, plane)
+            timings = self._probe(op, cands, bucket, reduce_kind, plane)  # distlint: disable=R001 -- probe programs run on the DRIVER plane of a single-controller process only; the multiproc plane prober is a no-op and _agreed_plane_choice store-publishes rank 0's choice
             source = "probe"
             if timings is None:  # probing impossible: structural default
                 alg = "hier" if (

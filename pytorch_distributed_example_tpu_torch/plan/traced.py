@@ -235,9 +235,7 @@ def prepare(group, entries: Iterable[Tuple[str, int, str]], *,
             # intent and is kept, so skew is diagnosed, not laundered
             key = f"tracedalg/{op}/{bucket}/{reduce_kind}"
             if rank == 0:
-                # one row per (op, bucket, kind) for the life of the
-                # incarnation-scoped store; reclaimed with it
-                store.set(key, f"{alg}".encode())
+                store.set(key, f"{alg}".encode())  # storelint: disable=S005 -- one row per (op,bucket,kind) for the life of the incarnation-scoped store; reclaimed with it
             else:
                 store.wait([key], group.timeout)
                 published = store.get(key).decode()

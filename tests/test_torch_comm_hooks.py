@@ -296,7 +296,7 @@ def test_hook_views_give_per_leaf_hooks_the_reference_layout(group):
     params = {"w": torch.randn(5, 3), "b": torch.randn(5)}
     step = make_ddp_train_step(lambda p, x: x @ p["w"].T + p["b"], lambda o, y: o.square().mean(),
                                optim.sgd(0.1), comm_hook=spy,
-                               hook_views={"b": None, "w": (1, 0)})
+                               hook_views={"b": None, "w": (1, 0)}, group=group)
     step(params, {}, torch.randn(2 * W, 3), torch.zeros(2 * W))
     assert seen == [(5,), (3, 5)]  # each rank's leaf, permuted by its view
 

@@ -136,7 +136,7 @@ def test_step_carries_the_references_bitwise_contract():
 
 def _setup(group, shard="auto", **kw):
     model = ConvNet(device="cpu", generator=torch.Generator().manual_seed(0))
-    ddp = tdx.DistributedDataParallel(model)
+    ddp = tdx.DistributedDataParallel(model, process_group=group)
     opt = optim.sgd(0.01, momentum=0.5)
     step = ddp.make_train_step(opt, F.cross_entropy, has_rng=True, shard_weight_update=shard,
                                **kw)

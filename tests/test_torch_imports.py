@@ -24,7 +24,9 @@ PORT_TESTS = sorted(
     for p in glob.glob(os.path.join(REPO, "tests", "test_torch_*.py"))
 )
 
-_CHECK = r"""
+# An import hook that refuses JAX and the JAX package; a script that
+# runs the port under it starts with this.
+HOOK = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BANNED = ("jax", "jaxlib", "flax", "optax", "pytorch_distributed_example_tpu")
@@ -40,7 +42,9 @@ class Refuse(importlib.abc.MetaPathFinder):
 for name in [m for m in sys.modules if banned(m)]:
     del sys.modules[name]
 sys.meta_path.insert(0, Refuse())
+"""
 
+_CHECK = HOOK + r"""
 import pytorch_distributed_example_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names + ["chip_smoke"]:
@@ -65,8 +69,9 @@ def test_port_imports_nothing_of_jax():
     # training, generation, serving on one card and across ranks and
     # pools, the planner's schedules, the ResNet and BERT workloads, the
     # pipeline and the dry run, checkpoints and the training utilities,
-    # the p2p plane and the collective planner, and their modules
-    assert int(count) >= 97
+    # the p2p plane and the collective planner, the guard planes, and
+    # their modules
+    assert int(count) >= 102
     for name in ("ops.flash_attention", "parallel", "parallel.context_parallel",
                  "distributed", "store", "backends.stacked", "backends.process",
                  "examples.toy", "data.sampler", "data.loader", "models.convnet",
@@ -84,7 +89,8 @@ def test_port_imports_nothing_of_jax():
                  "parallel.localsgd", "utils.cpu_reference", "p2p", "plan.probe",
                  "plan.planner", "plan.driver", "plan.executor", "plan.traced",
                  "elastic", "elastic.agent", "elastic.run", "serve.worker", "serve.prewarm",
-                 "utils.debug_http", "examples.elastic", "examples.serve_worker"):
+                 "utils.debug_http", "examples.elastic", "examples.serve_worker",
+                 "tools", "tools._lintcore", "tools.distlint", "tools.storelint", "tools.lint"):
         assert f"pytorch_distributed_example_tpu_torch.{name}" in modules.split(), name
 
 
