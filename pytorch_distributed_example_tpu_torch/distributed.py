@@ -224,6 +224,10 @@ class ProcessGroup:
         # flight-recorder entry
         if self._sched is not None:
             self._sched.record(seq, op_name, shape, dtype, detail)
+        tapped = bool(_schedule._taps)
+        if tapped:  # the program plane (`tools/proglint.py`): one rank's shape
+            _schedule.tap_record("c10d", op_name, self.mesh.axis_names, shape[1:], dtype,
+                                 {"detail": detail})
         self.status.record_enqueue(seq, op_name, numel)
         rec = global_recorder()
         rec.record(seq, op_name, self.group_name, shape, dtype, numel)
@@ -242,7 +246,11 @@ class ProcessGroup:
             # marker never completes, the watchdog dumps + aborts), and
             # an injected raise takes the failure bookkeeping below
             rule = _faults.fire("collective.dispatch", op=op_name, seq=seq)
-            out, work = fn()
+            if tapped:  # the op is recorded; the schedule it lowers to is not
+                with _schedule.taps_muted():
+                    out, work = fn()
+            else:
+                out, work = fn()
         except Exception:
             # a raised collective is a failure, not a hang: mark it so the
             # flight recorder / status don't show it as forever-enqueued

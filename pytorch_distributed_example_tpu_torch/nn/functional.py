@@ -50,6 +50,10 @@ nothing to send or receive too.
 
 The eager collectives of `distributed.py` stay non-differentiable, as in
 the reference and in torch.
+
+Each collective's forward records itself, before it runs, to the program
+plane's taps (`schedule.tap`, `tools/proglint.py`) with one rank's shape;
+with no tap installed that is one test of an empty list.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from .. import mesh as _mesh
+from .. import schedule as _schedule
 from ..types import ReduceOp, _PremulSum, fold
 
 _LINEAR = (ReduceOp.SUM, ReduceOp.AVG, ReduceOp.PREMUL_SUM)
@@ -209,13 +214,28 @@ class _Proc:
 
 def _core(name, t, b, *args):
     """One collective of the c10d core over b's group on this process's
-    row `t`: the result row (a tensor), outside autograd."""
+    row `t`: the result row (a tensor), outside autograd. The axis
+    collective that lowers here has recorded itself for the program
+    plane (`_tap`), so its c10d dispatch is hidden from the taps."""
     from .. import distributed as dist
     from ..tensor import DistTensor
 
     dt = DistTensor(t.detach().contiguous().unsqueeze(0), b.group)
-    out = getattr(dist, name)(dt, *args, group=b.group)
+    if _schedule._taps:
+        with _schedule.taps_muted():
+            out = getattr(dist, name)(dt, *args, group=b.group)
+    else:
+        out = getattr(dist, name)(dt, *args, group=b.group)
     return (dt if out is None else out).tensor[0]
+
+
+def _tap(op: str, x, axis_name: str, nstack: int, **params) -> None:
+    """The program plane's seam (`schedule.tap`): one axis collective, with
+    one rank's shape (x without its rank dims), before it runs. Callers
+    test `_schedule._taps` first, so an untapped collective builds no
+    record."""
+    _schedule.tap_record("axis", op, (axis_name,), x.shape[nstack:],
+                         str(x.dtype).removeprefix("torch."), params)
 
 
 def _ranks(axis_name: str, x, s: int):
@@ -267,6 +287,8 @@ def all_reduce(x, op=ReduceOp.SUM, axis_name: str = "dp", axes=None, replica: bo
     op = _resolve_op(op)
     s, nstack, W = _rank_dim(x, axis_name, axes)
     R = _ranks(axis_name, x, s)
+    if _schedule._taps:
+        _tap("all_reduce", x, axis_name, nstack, reduce_op=str(op))
     if op in _LINEAR or isinstance(op, _PremulSum):
         return _AllReduce.apply(x, s, op, replica, R)
     if op == ReduceOp.PRODUCT:
@@ -314,6 +336,8 @@ def all_gather(x, axis_name: str = "dp", axis: int = 0, tiled: bool = True, axes
         d = _local(axis, x.dim(), nstack)
     else:  # the new local dim sits at `axis` of the output
         d = nstack + axis % (x.dim() - nstack + 1)
+    if _schedule._taps:
+        _tap("all_gather", x, axis_name, nstack, all_gather_dimension=d - nstack, tiled=tiled)
     return _AllGather.apply(x, s, d, tiled, replica, _ranks(axis_name, x, s))
 
 
@@ -336,7 +360,10 @@ def reduce_scatter(x, axis_name: str = "dp", axis: int = 0, axes=None):
     """Differentiable reduce_scatter(SUM): rank i gets the i-th block of the
     ranks' sum along local dim `axis`. Backward: all_gather."""
     s, nstack, _ = _rank_dim(x, axis_name, axes)
-    return _ReduceScatter.apply(x, s, _local(axis, x.dim(), nstack), _ranks(axis_name, x, s))
+    d = _local(axis, x.dim(), nstack)
+    if _schedule._taps:
+        _tap("reduce_scatter", x, axis_name, nstack, scatter_dimension=d - nstack, tiled=True)
+    return _ReduceScatter.apply(x, s, d, _ranks(axis_name, x, s))
 
 
 class _AllToAll(torch.autograd.Function):
@@ -360,6 +387,8 @@ def all_to_all(x, axis_name: str = "dp", split_axis: int = 0, concat_axis: int =
     along `concat_axis`. Backward: the inverse all_to_all."""
     s, nstack, _ = _rank_dim(x, axis_name, axes)
     sd, cd = _local(split_axis, x.dim(), nstack), _local(concat_axis, x.dim(), nstack)
+    if _schedule._taps:
+        _tap("all_to_all", x, axis_name, nstack, split_axis=sd - nstack, concat_axis=cd - nstack)
     return _AllToAll.apply(x, s, sd, cd, _ranks(axis_name, x, s))
 
 
@@ -395,10 +424,12 @@ def broadcast(x, src: int = 0, axis_name: str = "dp", axes=None):
     """Differentiable broadcast: every rank gets rank `src`'s value. The
     summed cotangent lands at `src`, zero elsewhere (torch's
     `_Broadcast.backward`)."""
-    s = _rank_dim(x, axis_name, axes)[0]
+    s, nstack, _ = _rank_dim(x, axis_name, axes)
     R = _ranks(axis_name, x, s)
     if not 0 <= src < R.size:
         raise ValueError(f"src {src} out of range for axis {axis_name!r} of size {R.size}")
+    if _schedule._taps:
+        _tap("broadcast", x, axis_name, nstack, src=src)
     return _Broadcast.apply(x, s, src, R)
 
 
@@ -455,8 +486,11 @@ def reduce(x, dst: int = 0, op=ReduceOp.SUM, axis_name: str = "dp", axes=None):
     """Differentiable reduce-to-dst (torch `_Reduce`): rank `dst` gets the
     reduction, every other rank its input back. Whatever the op, the
     backward hands every rank dst's cotangent; the others' are dropped."""
-    s = _rank_dim(x, axis_name, axes)[0]
-    return _Reduce.apply(x, s, dst, _resolve_op(op), _ranks(axis_name, x, s))
+    s, nstack, _ = _rank_dim(x, axis_name, axes)
+    op = _resolve_op(op)
+    if _schedule._taps:
+        _tap("reduce", x, axis_name, nstack, dst=dst, reduce_op=str(op))
+    return _Reduce.apply(x, s, dst, op, _ranks(axis_name, x, s))
 
 
 class _Replicate(torch.autograd.Function):
@@ -555,8 +589,10 @@ def ppermute(x, axis_name: str, perm, axes=None):
     each (src, dst) pair, rank dst gets rank src's block; a rank no pair
     sends to gets zeros. Differentiable: the backward moves the
     cotangents by the inverse pairs."""
-    s = _rank_dim(x, axis_name, axes)[0]
+    s, nstack, _ = _rank_dim(x, axis_name, axes)
     perm = tuple((int(a), int(c)) for a, c in perm)
+    if _schedule._taps:
+        _tap("ppermute", x, axis_name, nstack, perm=perm)
     b = _ranks(axis_name, x, s).b
     if b is not None:
         return _Permute.apply(x, s, perm, b)

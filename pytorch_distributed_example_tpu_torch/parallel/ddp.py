@@ -44,6 +44,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import hashlib
+import os
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -605,6 +606,20 @@ def make_ddp_train_step(
             out["opt_state_bytes"] / opt_rank, 3) if opt_rank else 0.0
         return out
 
+    if os.environ.get("TDX_PROGLINT", "0") == "1":
+        # register-on-first-call (tools/proglint.py): the first step
+        # fingerprints the collectives it issues and agrees them across
+        # ranks before they dispatch; ZeRO's reduce-scatter/all-gather
+        # halves are exactly what the source plane cannot see
+        from ..tools import proglint
+
+        step = proglint.instrument(
+            "ddp.train_step." + ("zero" if zero_update else "replicated"),
+            step,
+            path="pytorch_distributed_example_tpu_torch/parallel/ddp.py",
+            mesh_axes=tuple(g.mesh.axis_names),
+            world=W,
+        )
     step.group = g
     step.comm_hook = hook
     step.weight_update_sharded = zero_update

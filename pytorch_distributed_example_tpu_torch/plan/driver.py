@@ -25,6 +25,7 @@ recursive-halving/doubling tree built from row permutations
 
 from __future__ import annotations
 
+import os
 from typing import Callable
 
 import torch
@@ -86,13 +87,26 @@ def compiled_body(op_name: str, algorithm: str, world: int, axis: str = AXIS,
     """The driver-plane program seam (`plan._lower_driver` and the probe
     build through here): the body, run eagerly on the stacked tensor. The
     port compiles nothing here; the mesh is the reference's argument and
-    is not needed."""
+    is not needed. Under `TDX_PROGLINT=1` the program is wrapped by
+    `tools/proglint.instrument`: its first call fingerprints the
+    collectives it issues (the ppermute rounds ARE the schedule) and, in
+    a multiproc gang, agrees them across ranks before they dispatch."""
     body = body_for(op_name, algorithm, world, axis, reduce_kind)
 
     @torch.no_grad()
     def prog(t):
         return body(t)
 
+    if os.environ.get("TDX_PROGLINT", "0") == "1":
+        from ..tools import proglint
+
+        prog = proglint.instrument(
+            f"plan.{op_name}.{algorithm}",
+            prog,
+            path="pytorch_distributed_example_tpu_torch/plan/driver.py",
+            mesh_axes=(axis,),
+            world=world,
+        )
     return prog
 
 

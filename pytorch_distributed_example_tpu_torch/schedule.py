@@ -31,6 +31,14 @@ before anything dispatches. The collective planner's `plan.traced.prepare`
 rides it, so a gang whose ranks chose different schedules fails at
 step-factory time, naming the first divergent eqn.
 
+`tap` is the program plane's view of the same seams: while a sink is
+installed on a thread, the two collective seams (`ProcessGroup._dispatch`
+beside the verifier's `record`, and `nn/functional.py`'s axis
+collectives) hand it one raw record per collective that thread issues
+(`tools/proglint.py` fingerprints a program's first call with it,
+`tools/numlint.py` interleaves it with the aten ops of a sweep variant).
+With no sink installed the seams pay one test of an empty list.
+
 Env knobs:
 
     TDX_SCHEDULE_CHECK            1 enables (default 0)
@@ -43,6 +51,8 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import threading
+from contextlib import contextmanager
 from typing import List, Optional
 
 from . import faults
@@ -54,6 +64,9 @@ __all__ = [
     "ScheduleVerifier",
     "agree_program",
     "enabled",
+    "tap",
+    "taps_muted",
+    "tap_record",
 ]
 
 _ENV = "TDX_SCHEDULE_CHECK"
@@ -314,7 +327,7 @@ def agree_program(
     rule = faults.fire("proglint.agree", rank=rank, program=key)
     if rule is not None and rule.action == "corrupt":
         digest += "|<injected-divergence>"
-    store.set(
+    store.set(  # storelint: disable=S005 -- one row per rank per agreement round, keyed by position in the caller's incarnation-scoped prefix store; a slow peer reads it until it agrees, so only that store's end reclaims it
         f"{key}/{rank}",
         json.dumps({"name": name, "digest": digest, "eqns": eqns}),
     )
@@ -360,3 +373,55 @@ def agree_program(
                 "executed): "
                 + _first_divergent_eqn(eqns, list(peer["eqns"]), rank, r)
             )
+
+
+# ---------------------------------------------------------------------------
+# collective taps (the program plane's view of the collective seams)
+# ---------------------------------------------------------------------------
+
+# (thread ident, sink) pairs. The seams test this list before building a
+# record, so with no sink installed a collective pays one truthiness test.
+_taps: List = []
+_tap_lock = threading.Lock()
+_tap_state = threading.local()
+
+
+@contextmanager
+def tap(sink):
+    """Install ``sink`` for the calling thread: it is called as
+    ``sink(source, op, axes, shape, dtype, params)`` for every collective
+    the thread issues inside the block (``source`` "c10d" or "axis",
+    ``shape`` one rank's, ``params`` the op's parameters). Taps nest;
+    every sink of the thread sees every record."""
+    entry = (threading.get_ident(), sink)
+    with _tap_lock:
+        _taps.append(entry)
+    try:
+        yield sink
+    finally:
+        with _tap_lock:
+            _taps.remove(entry)
+
+
+@contextmanager
+def taps_muted():
+    """Hide the collectives issued inside the block from the thread's
+    sinks: a seam that has already recorded its collective mutes the
+    lower seam it lowers through (an axis collective's c10d dispatch, the
+    planner's schedule inside a c10d op)."""
+    _tap_state.muted = getattr(_tap_state, "muted", 0) + 1
+    try:
+        yield
+    finally:
+        _tap_state.muted -= 1
+
+
+def tap_record(source: str, op: str, axes, shape, dtype: str, params: dict) -> None:
+    """Hand one collective to the calling thread's sinks (a seam calls this
+    before the collective dispatches, so a sink that raises stops it)."""
+    if getattr(_tap_state, "muted", 0):
+        return
+    me = threading.get_ident()
+    for ident, sink in list(_taps):
+        if ident == me:
+            sink(source, op, tuple(axes), tuple(int(d) for d in shape), dtype, dict(params))

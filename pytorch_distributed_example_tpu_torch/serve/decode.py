@@ -20,13 +20,14 @@ PRNGKey(seed); key, sub = split(key); the first token samples with sub
 and the key rides in the slot's lane, split again on every step (as the
 reference splits every lane every step, greedy or not).
 
-Not ported: the reference's register-on-compile seam for its program
-analyzer (`TDX_PROGLINT`, :66-81), which waits for the guard planes
-(ROADMAP.md, Queue 1).
+Under `TDX_PROGLINT=1` each program is wrapped by the program plane's
+register-on-first-call seam (`tools/proglint.py`), as the reference's
+(:66-81): `serve.slot.*` and `serve.paged.*`.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -42,6 +43,25 @@ def carry_key(seed: int, device=None) -> torch.Tensor:
     """The carry key left in a slot's lane after its first token, a pure
     function of the seed: split(PRNGKey(seed))[0]."""
     return prng.split(prng.PRNGKey(seed, device))[0]
+
+
+_DECODE_PATH = "pytorch_distributed_example_tpu_torch/serve/decode.py"
+
+
+def _register_programs(family: str, **programs):
+    """TDX_PROGLINT=1 register-on-first-call seam: wrap each serve program
+    so its first call fingerprints the collectives it issues and (in a
+    multiproc gang) agrees them across ranks before they dispatch
+    (`tools/proglint.py`). Off by default: one env read per build,
+    nothing per step."""
+    if os.environ.get("TDX_PROGLINT", "0") != "1":
+        return tuple(programs.values())
+    from ..tools import proglint
+
+    return tuple(
+        proglint.instrument(f"serve.{family}.{key}", fn, path=_DECODE_PATH)
+        for key, fn in programs.items()
+    )
 
 
 def sync_slot_lanes(lengths, tokens, rngs):
@@ -111,7 +131,7 @@ def slot_programs(model, temperature: float, top_k: Optional[int]):
                                         cache=cache)
         return cache, lengths, nxt, rngs
 
-    return prefill, write_slot, step
+    return _register_programs("slot", prefill=prefill, write_slot=write_slot, step=step)
 
 
 def paged_programs(model, temperature: float, top_k: Optional[int], forward=None):
@@ -160,4 +180,5 @@ def paged_programs(model, temperature: float, top_k: Optional[int], forward=None
                                         cache=tree)
         return tree, lengths, nxt, rngs
 
-    return prefill_chunk, first_token, attach, step
+    return _register_programs("paged", prefill_chunk=prefill_chunk, first_token=first_token,
+                              attach=attach, step=step)

@@ -20,6 +20,7 @@ of the tools package. distlint re-exports these names unchanged.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -43,6 +44,7 @@ __all__ = [
     "write_baseline",
     "render_report",
     "render_sarif",
+    "scoped_env",
 ]
 
 SEVERITIES = ("error", "warning", "off")
@@ -411,3 +413,29 @@ def render_sarif(
             }
         ],
     }
+
+
+# ---------------------------------------------------------------------------
+# environment
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def scoped_env(**values):
+    """Set (a str) or unset (None) environment variables for the block and
+    restore them after: the dynamic halves drive the port's env-selected
+    paths (`TDX_PROGLINT`, the planner's knobs) without leaking them."""
+    prev = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v

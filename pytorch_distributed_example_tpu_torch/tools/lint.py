@@ -4,10 +4,12 @@ artifact, one exit code.
     python -m pytorch_distributed_example_tpu_torch.tools.lint \
         --sarif-out lint.sarif
 
-runs, in order:
+runs, in order (the reference's):
 
   distlint   source plane    R001-R011, R013-R015 (call-graph divergence/trace)
+  proglint   program plane   J001, J002, J004     (registered programs' collectives)
   storelint  coordination    S001-S007            (store key-space registry)
+  numlint    numerics plane  N001-N007            (contract registry + parity)
 
 each against its committed baseline ratchet
 (`pytorch_distributed_example_tpu_torch/tools/baselines/<tool>.json`),
@@ -16,8 +18,11 @@ exactly as its standalone CLI would (`<tool> --format sarif --baseline
 entry per tool. The exit code is 0 iff every analyzer exited 0, so a
 single command gates a change on every plane.
 
-The dynamic half (storelint ``--explore``) stays on its own CLI: it runs
-real protocols and has its own gate (tests/test_torch_storelint.py).
+The dynamic halves (storelint ``--explore``, numlint ``--sweep``) and
+proglint's runtime J005 stay on their own CLIs and seams: they run real
+protocols and programs and have their own gates
+(tests/test_torch_storelint.py, tests/test_torch_numlint.py,
+tests/test_torch_proglint.py).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import os
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from . import distlint, storelint
+from . import distlint, numlint, proglint, storelint
 from ._lintcore import BASELINE_DIR
 
 __all__ = ["TOOLS", "run_all", "main"]
@@ -38,7 +43,9 @@ __all__ = ["TOOLS", "run_all", "main"]
 # (name, main callable, committed baseline ratchet relative to the root)
 TOOLS: Tuple[Tuple[str, object, str], ...] = (
     ("distlint", distlint.main, f"{BASELINE_DIR}/distlint.json"),
+    ("proglint", proglint.main, f"{BASELINE_DIR}/proglint.json"),
     ("storelint", storelint.main, f"{BASELINE_DIR}/storelint.json"),
+    ("numlint", numlint.main, f"{BASELINE_DIR}/numlint.json"),
 )
 
 
@@ -97,7 +104,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="lint",
         description=(
-            "run the port's guard-plane analyzers (distlint, storelint) "
+            "run the port's guard-plane analyzers (distlint, proglint, "
+            "storelint, numlint) "
             "against their baselines; one merged SARIF artifact, one exit "
             "code"
         ),

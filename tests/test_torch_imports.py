@@ -71,7 +71,7 @@ def test_port_imports_nothing_of_jax():
     # pipeline and the dry run, checkpoints and the training utilities,
     # the p2p plane and the collective planner, the guard planes, and
     # their modules
-    assert int(count) >= 102
+    assert int(count) >= 104
     for name in ("ops.flash_attention", "parallel", "parallel.context_parallel",
                  "distributed", "store", "backends.stacked", "backends.process",
                  "examples.toy", "data.sampler", "data.loader", "models.convnet",
@@ -90,7 +90,8 @@ def test_port_imports_nothing_of_jax():
                  "plan.planner", "plan.driver", "plan.executor", "plan.traced",
                  "elastic", "elastic.agent", "elastic.run", "serve.worker", "serve.prewarm",
                  "utils.debug_http", "examples.elastic", "examples.serve_worker",
-                 "tools", "tools._lintcore", "tools.distlint", "tools.storelint", "tools.lint"):
+                 "tools", "tools._lintcore", "tools.distlint", "tools.storelint", "tools.lint",
+                 "tools.numlint", "tools.proglint"):
         assert f"pytorch_distributed_example_tpu_torch.{name}" in modules.split(), name
 
 

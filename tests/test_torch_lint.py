@@ -1,11 +1,15 @@
 """The port's unified lint entry point (`pytorch_distributed_example_tpu_torch/tools/lint.py`).
 
 * The CLI gate, once, as a subprocess under `tests/test_torch_imports.py`'s
-  import hook (which refuses JAX and the JAX package): it exits 0 over
-  the port's tree at zero-entry baselines, and its one merged SARIF
-  artifact holds one run per plane.
-* A seeded finding of ANY shipped rule (R001-R011, R013-R015,
-  S001-S007) fails the single exit code, and so does a crashing plane.
+  import hook (which refuses JAX and the JAX package): it runs the four
+  planes in the reference's order (distlint, proglint, storelint,
+  numlint), exits 0 over the port's tree at zero-entry baselines, and
+  its one merged SARIF artifact holds one run per plane.
+* A seeded finding of ANY shipped static rule (R001-R011, R013-R015,
+  J001, J002, J004, S001-S007, N001-N007) fails the single exit code, and
+  so does a crashing plane. proglint lints the port's registered
+  programs, not the root's sources, so its seeds replace the program
+  catalog (`proglint.build_repo_programs`) with one seeded program.
 """
 
 import json
@@ -18,11 +22,12 @@ import pytest
 
 from pytorch_distributed_example_tpu_torch.tools import _lintcore
 from pytorch_distributed_example_tpu_torch.tools import lint as unified
+from pytorch_distributed_example_tpu_torch.tools import proglint
 
 from tests._mp_util import REPO
 from tests.test_torch_imports import HOOK
 
-EXPECTED_ORDER = ["distlint", "storelint"]
+EXPECTED_ORDER = ["distlint", "proglint", "storelint", "numlint"]
 
 # One seeded module a rule, each of which trips that rule once.
 _SEEDS = {
@@ -119,6 +124,73 @@ _SEEDS = {
             return spec_to_placements(("model",), mesh)
     """,
 }
+# numlint's, in the port's idiom: one module a rule
+_N_SEEDS = {
+    "N001": """
+        import torch
+
+        def cast(x):
+            return x.to(torch.bfloat16)
+
+        @numerics_contract("bitwise")
+        def step(w, batch):
+            return torch.matmul(cast(batch), w)
+    """,
+    "N002": """
+        def scatter(flat, nnf):
+            return nnf.reduce_scatter(flat, "dp", 0)
+
+        @numerics_contract("bitwise")
+        def update(flat, nnf):
+            return scatter(flat, nnf)
+    """,
+    "N003": """
+        def leak(x, quantize_blockwise):
+            q, _scales = quantize_blockwise(x, 64)
+            return q
+    """,
+    "N004": """
+        import torch
+
+        def save_checkpoint(path, leaves):
+            torch.save([l.to(torch.float16) for l in leaves], path)
+
+        def load_checkpoint(path):
+            return torch.load(path)
+    """,
+    "N005": """
+        @numerics_contract("token_exact")
+        def pair(key, prng):
+            return prng.uniform(key, (4,)), prng.uniform(key, (4,))
+    """,
+    "N006": """
+        import time
+
+        import torch
+
+        @torch.compile
+        def stamp(x):
+            return x * time.time()
+    """,
+    "N007": """
+        import torch
+
+        @numerics_contract("bitwise")
+        def exact(p, g):
+            return p - 0.1 * g
+
+        def test_exact():
+            torch.testing.assert_close(exact(1.0, 1.0), 0.9, rtol=1e-5, atol=0.0)
+    """,
+}
+# proglint's: one seeded program a rule
+_J_SEEDS = {
+    "J001": (proglint.CollectiveEqn(0, "psum", ("ghost",), (("float32", (4,)),)), {}),
+    "J002": (proglint.CollectiveEqn(0, "ppermute", ("dp",), (("float32", (4,)),),
+                                    perm=((0, 1), (0, 0))), {}),
+    "J004": (proglint.CollectiveEqn(0, "psum", ("dp",), (("float32", (512,)),)),
+             {"quantized_wire": True}),
+}
 # storelint's: the reference's rule corpus, one module a rule
 _S_CORPUS = {
     "S001": "s001_wait.py", "S002": "s002_dead_write.py", "S003": "s003_skew.py",
@@ -135,6 +207,10 @@ dispatch_path_modules = ["pkg/mod.py"]
 trace_roots = []
 
 [tool.storelint]
+paths = ["pkg"]
+exclude = []
+
+[tool.numlint]
 paths = ["pkg"]
 exclude = []
 """
@@ -182,7 +258,7 @@ class TestLintGate:
         doc = json.loads(out.read_text())
         assert doc["version"] == "2.1.0"
         assert [r["tool"]["driver"]["name"] for r in doc["runs"]] == EXPECTED_ORDER
-        prefixes = {"distlint": "R", "storelint": "S"}
+        prefixes = {"distlint": "R", "proglint": "J", "storelint": "S", "numlint": "N"}
         for run in doc["runs"]:
             name = run["tool"]["driver"]["name"]
             rules = {r["id"] for r in run["tool"]["driver"]["rules"]}
@@ -190,6 +266,10 @@ class TestLintGate:
             assert not [r for r in run["results"] if r.get("baselineState") == "new"]
         distlint_rules = {r["id"] for r in doc["runs"][0]["tool"]["driver"]["rules"]}
         assert "R012" not in distlint_rules and len(distlint_rules) == 14
+        proglint_rules = {r["id"] for r in doc["runs"][1]["tool"]["driver"]["rules"]}
+        assert proglint_rules == {"J001", "J002", "J004", "J005"}
+        numlint_rules = {r["id"] for r in doc["runs"][3]["tool"]["driver"]["rules"]}
+        assert numlint_rules == {f"N{i:03d}" for i in range(1, 8)}
 
     def test_tool_table_matches_baseline_files(self):
         assert [name for name, _, _ in unified.TOOLS] == EXPECTED_ORDER
@@ -203,10 +283,20 @@ class TestLintSemantics:
         root = _root(tmp_path, "def f(t, dist):\n    dist.all_reduce(t)\n")
         assert unified.main(["--root", root]) == 0
 
-    @pytest.mark.parametrize("rule", sorted(_SEEDS) + sorted(_S_CORPUS))
-    def test_a_seeded_finding_of_any_rule_fails(self, tmp_path, rule):
+    @pytest.mark.parametrize(
+        "rule", sorted(_SEEDS) + sorted(_J_SEEDS) + sorted(_S_CORPUS) + sorted(_N_SEEDS))
+    def test_a_seeded_finding_of_any_rule_fails(self, tmp_path, monkeypatch, rule):
         if rule in _SEEDS:
             source = textwrap.dedent(_SEEDS[rule])
+        elif rule in _N_SEEDS:
+            source = "def numerics_contract(tier):\n    return lambda f: f\n" + textwrap.dedent(
+                _N_SEEDS[rule])
+        elif rule in _J_SEEDS:
+            eq, meta = _J_SEEDS[rule]
+            seeded = [(proglint.ProgramFingerprint(name=f"seeded.{rule}", eqns=(eq,), world=2),
+                       proglint.ProgramMeta(**meta))]
+            monkeypatch.setattr(proglint, "build_repo_programs", lambda: list(seeded))
+            source = "def f(t, dist):\n    dist.all_reduce(t)\n"
         else:
             with open(os.path.join(REPO, "tests", "fixtures", "storelint", _S_CORPUS[rule]),
                       encoding="utf-8") as fh:
@@ -221,9 +311,9 @@ class TestLintSemantics:
 
     def test_only_runs_a_subset(self, tmp_path):
         root = _root(tmp_path, textwrap.dedent(_SEEDS["R001"]))
-        merged, rcs = unified.run_all(root, only=["storelint"])
-        assert rcs == {"storelint": 0}
-        assert [r["tool"]["driver"]["name"] for r in merged["runs"]] == ["storelint"]
+        merged, rcs = unified.run_all(root, only=["storelint", "numlint"])
+        assert rcs == {"storelint": 0, "numlint": 0}
+        assert [r["tool"]["driver"]["name"] for r in merged["runs"]] == ["storelint", "numlint"]
         assert unified.main(["--root", root, "--only", "distlint"]) == 1
 
     def test_a_crashing_plane_fails_the_exit_code(self, tmp_path):
@@ -231,6 +321,8 @@ class TestLintSemantics:
         cfg = tmp_path / _lintcore.CONFIG_PATH
         cfg.write_text(_CONFIG + '\n[tool.distlint.severity]\nR001 = "loud"\n')
         merged, rcs = unified.run_all(root)
-        assert rcs["distlint"] == 2 and rcs["storelint"] == 0
+        # proglint (its mesh-axis registry) and numlint (its call graph)
+        # read distlint's config too, so they fail with it; storelint runs
+        assert rcs == {"distlint": 2, "proglint": 2, "storelint": 0, "numlint": 2}
         assert [r["tool"]["driver"]["name"] for r in merged["runs"]] == EXPECTED_ORDER
         assert unified.main(["--root", root]) == 1
