@@ -328,6 +328,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1189,6 +1190,11 @@ MNIST_BENCH = dict(warmup=16, steps=64, windows=3)
 # port against the reference.
 MNIST_LOSS_RTOL = 1e-5
 MNIST_PARAM_TOL = dict(rtol=1e-4, atol=1e-6)
+MNIST_BREAKDOWN_ITERS = 20  # profile_breakdown's timed rounds
+# profile_breakdown's clocks must nest: forward <= forward+backward <=
+# the no-op step, each within this share of the larger one (PERF.md §6,
+# PR 18: the spread of five repeats a world on the card)
+MNIST_BREAKDOWN_SLACK = 0.10
 
 
 def mnist_model(device):
@@ -1259,6 +1265,111 @@ def mnist_step_check():
     print(f"  ZeRO auto vs off over {MNIST_CHECK_STEPS} steps, dropout on, deterministic "
           f"cuDNN, bitwise equal: {bitwise} (losses {aloss.tolist()})")
     check(bitwise, "ZeRO auto and off differ on the card")
+
+
+def mnist_coupled_run(mode):
+    """MNIST_CHECK_STEPS steps at world 8 with optim.adafactor under
+    `mode`, dropout off: (last loss, params on the host, the fallback
+    warnings seen, whether the update ended sharded)."""
+    tdx.init_process_group(world_size=MNIST_WORLD)
+    try:
+        ddp = tdx.DistributedDataParallel(mnist_model("cuda"))
+        opt = optim.adafactor(1e-3)
+        step = ddp.make_train_step(opt, mnist.loss_fn, shard_weight_update=mode)
+        x, y = mnist_batch(MNIST_WORLD, "cuda")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            p, s = ddp.params, opt.init(ddp.params)
+            for _ in range(MNIST_CHECK_STEPS):
+                p, s, loss = step(p, s, x, y)
+        warned = sum("does not commute" in str(w.message) for w in caught)
+        return loss.cpu(), {n: t.cpu() for n, t in p.items()}, warned, step.weight_update_sharded
+    finally:
+        tdx.destroy_process_group()
+
+
+def mnist_coupling_check():
+    """ZeRO's guards at world 8: adafactor's factored state makes "auto"
+    warn once and take the replicated update, whose params are the "off"
+    run's bit for bit (deterministic cuDNN, as the auto-vs-off check);
+    a chain of clip_by_global_norm and adamw warns when its step is
+    built."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        aloss, aparams, awarned, asharded = mnist_coupled_run("auto")
+        oloss, oparams, _, _ = mnist_coupled_run("off")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    bitwise = torch.equal(aloss, oloss) and all(torch.equal(aparams[n], oparams[n])
+                                                for n in aparams)
+    print(f"  adafactor under ZeRO auto at world {MNIST_WORLD}: {awarned} fallback warning(s), "
+          f"sharded {asharded}, {MNIST_CHECK_STEPS} steps bitwise the 'off' run's: {bitwise} "
+          f"(loss {float(aloss):.6f})")
+    check(awarned == 1 and not asharded, "adafactor under ZeRO auto did not fall back once")
+    check(bitwise and math.isfinite(float(aloss)), "the adafactor fallback differs from 'off'")
+
+    tdx.init_process_group(world_size=MNIST_WORLD)
+    try:
+        ddp = tdx.DistributedDataParallel(mnist_model("cuda"))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step = ddp.make_train_step(optim.chain(optim.clip_by_global_norm(1.0),
+                                                   optim.adamw(1e-3)), mnist.loss_fn)
+    finally:
+        tdx.destroy_process_group()
+    built = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+    print(f"  chain(clip_by_global_norm, adamw) step built (sharded {step.weight_update_sharded}) "
+          f"with {len(built)} build-time warning(s): {built[0][:90] if built else None}...")
+    check(len(built) == 1 and "clip_by_global_norm" in built[0],
+          "the norm-coupled chain built without its warning")
+
+
+def mnist_breakdown(world, card):
+    """`profile_breakdown(..., iters=MNIST_BREAKDOWN_ITERS)` on the ConvNet
+    at MNIST_BATCH a rank, beside the mean of as many unprofiled steps of
+    the instance's own train step (the default: ZeRO at world > 1).
+    Returns the five times."""
+    ddp = tdx.DistributedDataParallel(mnist_model("cuda"))
+    opt = optim.sgd(0.01, momentum=0.5)
+    x, y = mnist_batch(world, "cuda")
+    step = ddp.make_train_step(opt, mnist.loss_fn)
+    params, state = ddp.params, opt.init(ddp.params)
+    for _ in range(2):
+        params, state, _ = step(params, state, x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MNIST_BREAKDOWN_ITERS):
+        params, state, _ = step(params, state, x, y)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / MNIST_BREAKDOWN_ITERS
+    before = {n: p.clone() for n, p in ddp.params.items()}
+    t = ddp.profile_breakdown(opt, mnist.loss_fn, x, y, iters=MNIST_BREAKDOWN_ITERS)
+    c = ddp.breakdown_clocks_s
+    data = ddp.get_ddp_logging_data()
+    print(f"  world {world}: profile_breakdown ({MNIST_BREAKDOWN_ITERS} rounds, 'off' steps) "
+          + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in t.items())
+          + f"; unprofiled step ({'ZeRO' if step.weight_update_sharded else 'replicated update'}) "
+          f"{plain_ms:.4f} ms  [{card}]")
+    print(f"  world {world}: clocks (medians) "
+          + ", ".join(f"{k} {c[k] * 1e3:.4f}" for k in ("forward", "forward_backward",
+                                                       "noop_step", "full_step"))
+          + " ms; unclamped differences "
+          + ", ".join(f"{k} {c[k] * 1e3:.4f}" for k in ("backward", "optimizer", "comm_exposed"))
+          + " ms")
+    check(all(math.isfinite(v) and v >= 0 for v in t.values()), "a non-finite or negative time")
+    check(t["forward_s"] > 0 and t["full_step_s"] > 0, "profile_breakdown timed nothing")
+    check(t["forward_s"] <= 1.5 * t["full_step_s"], "the forward outlasts the full step")
+    keep = 1 - MNIST_BREAKDOWN_SLACK
+    check(c["forward_backward"] >= keep * c["forward"]
+          and c["noop_step"] >= keep * c["forward_backward"],
+          f"profile_breakdown's clocks do not nest (forward <= forward+backward <= "
+          f"no-op step, within {MNIST_BREAKDOWN_SLACK:.0%})")
+    check(data["avg_forward_compute_time_s"] == t["forward_s"]
+          and data["avg_backward_comm_time_s"] == t["comm_exposed_s"],
+          "profile_breakdown did not fill the logger")
+    check(all(torch.equal(before[n], ddp.params[n]) for n in before),
+          "profile_breakdown changed the instance's params")
+    return t
 
 
 def mnist_train_check():
@@ -1376,6 +1487,7 @@ def mnist_profile(world, card):
 
 def mnist_phase(card):
     mnist_step_check()
+    mnist_coupling_check()
     mnist_train_check()
     for world in (1, MNIST_WORLD):
         tdx.init_process_group(world_size=world)
@@ -1392,6 +1504,7 @@ def mnist_phase(card):
                       f"[{r['device']}; {card}]")
                 check(math.isfinite(r["final_loss"]), "non-finite bench loss")
             mnist_profile(world, card)
+            mnist_breakdown(world, card)
         finally:
             tdx.destroy_process_group()
     buf = io.StringIO()

@@ -114,12 +114,25 @@ from .store import (  # noqa: F401  (torch exposes the store family here)
     TCPStore,
 )
 
-from .parallel.ddp import DistributedDataParallel  # noqa: F401
+from .data.sampler import DistributedSampler  # noqa: F401
+from .parallel.ddp import DistributedDataParallel, make_ddp_train_step  # noqa: F401
 from .parallel.join import Join, Joinable  # noqa: F401
+from .parallel.reducer import Reducer  # noqa: F401
 from .checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
 from . import nn  # noqa: F401  (differentiable collectives, nn.utils)
 from . import optim  # noqa: F401  (ZeroRedundancyOptimizer, PostLocalSGDOptimizer)
 from . import amp  # noqa: F401  (GradScaler, dtype policies)
+from .dtensor import (  # noqa: F401
+    DTensor,
+    Partial,
+    Replicate,
+    Shard,
+    distribute_module,
+    distribute_tensor,
+    redistribute_for_serving,
+    redistribute_tree,
+    unwrap_module,
+)
 from .checkpoint_sharded import (  # noqa: F401
     DCPCheckpointer,
     dcp_load,

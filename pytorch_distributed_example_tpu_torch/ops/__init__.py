@@ -10,5 +10,12 @@ from .flash_attention import (  # noqa: F401
     reset_launch_counts,
     resolved_block_sizes,
 )
-from .quant import dequantize_kv, quantize_kv  # noqa: F401
+from . import quant  # noqa: F401
+from .quant import (  # noqa: F401
+    dequantize_blockwise,
+    dequantize_kv,
+    quantize_blockwise,
+    quantize_kv,
+    quantized_all_reduce,
+)
 from .reference import dense_attention  # noqa: F401

@@ -27,7 +27,7 @@ from .context_parallel import (  # noqa: F401
     ulysses_attention,
 )
 from .ddp import DistributedDataParallel, make_ddp_train_step, make_eval_step  # noqa: F401
-from .reducer import Reducer  # noqa: F401
+from .reducer import Reducer, compute_bucket_assignment_by_size  # noqa: F401
 from .join import Join, Joinable, JoinHook, join_batches  # noqa: F401
 from .localsgd import (  # noqa: F401
     HierarchicalModelAverager,

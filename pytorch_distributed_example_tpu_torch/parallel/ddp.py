@@ -34,9 +34,26 @@ rank-0 broadcast of every param in coalesced buckets (`_sync_module_states`,
 
 The step's options are the reference's `local_step` (`parallel/ddp.py:478-
 575`): gradient accumulation, `remat`, `with_aux`, unused-parameter
-detection (`find_unused_parameters`, `on_unused`) and every hook of
-`comm_hooks.py`, stateful ones with their state carried per rank. The
-planner's hook is still to port (ROADMAP).
+detection (`find_unused_parameters`, `on_unused`), every hook of
+`comm_hooks.py`, stateful ones with their state carried per rank, and the
+collective planner's hook (`plan.ddp_comm_hook`) when the planner is on.
+
+ZeRO's update is exact only for elementwise optimizers, and the step
+guards the rest as the reference does. At build time
+`classify_update_coupling` reads the optax factory names an optimizer
+records (`optim.py`'s `transform_names`) and warns for a global-norm or
+per-leaf-norm transform (`clip_by_global_norm`, lamb's trust ratio).
+Before the first sharded state is built, the step compares the
+optimizer's state template with the params' shapes: a non-scalar leaf
+shaped unlike every param (adafactor's factored moments) makes "auto"
+warn once and take the replicated update, and "force" raise.
+
+`DistributedDataParallel.profile_breakdown` times the step's components
+with the reference's decomposition (forward, forward and backward, a step
+whose reduction is the no-op hook, the full step) and fills the logger's
+component times with their differences. It calls the four in turn in
+every round and takes each one's median, so that the host's drift over
+the run falls on all four alike.
 """
 
 from __future__ import annotations
@@ -45,6 +62,9 @@ import contextlib
 import functools
 import hashlib
 import os
+import statistics
+import time
+import warnings
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -196,6 +216,40 @@ def _unused_params(apply_fn, params, x, masks) -> List[str]:
     return [n for n, gr in zip(names, grads) if gr is None]
 
 
+# Factory names whose transform couples elements ACROSS a leaf (or the whole
+# tree): slicing the params 1/W a rank changes what the coupled reduction
+# sees, so the ZeRO sharded update is no longer the replicated one.
+_COUPLING_KINDS = {
+    "scale_by_factored_rms": "factored",      # adafactor's v_row/v_col
+    "clip_by_global_norm": "global_norm",     # one norm over the TREE
+    "scale_by_trust_ratio": "per_leaf_norm",  # lamb / lars ||p||, ||u||
+    "clip_by_block_rms": "per_leaf_norm",
+    "adaptive_grad_clip": "per_leaf_norm",    # AGC unit-wise norms
+}
+
+
+def classify_update_coupling(optimizer) -> Tuple[str, list]:
+    """Does any transform of `optimizer` couple elements across a leaf?
+    The reference's classifier: `(kind, hits)`, kind "elementwise"
+    (sgd, momentum, adam, adamw), "factored" (adafactor's factored state,
+    which the step also detects from the state's shapes), "global_norm"
+    (one norm over the whole tree), "per_leaf_norm" (whole-leaf norms, the
+    lamb/lars trust ratio) or "unknown" (nothing to read: a `torch.optim`
+    class or any object without names), and hits the offending factory
+    names, sorted. The reference recovers the names from the optax
+    closures; the port's optimizers record them (`transform_names`,
+    `optim.py`). An inspection only: callers warn or raise."""
+    names = getattr(optimizer, "transform_names", None)
+    if not isinstance(names, (tuple, list)) or not names:
+        return "unknown", []
+    hits = sorted({n for n in names if n in _COUPLING_KINDS})
+    kinds = {_COUPLING_KINDS[n] for n in hits}
+    for kind in ("factored", "global_norm", "per_leaf_norm"):
+        if kind in kinds:
+            return kind, hits
+    return "elementwise", []
+
+
 @numerics_contract(
     "bitwise",
     note="ZeRO sharded weight update is bit-identical to the unsharded update "
@@ -277,7 +331,17 @@ def make_ddp_train_step(
     `step.checkpoint_opt_state(params, state)` the reference's checkpoint
     form (per-leaf padded flats), which `step.shard_opt_state` takes
     back. EXACT for elementwise optimizers (`optim.sgd`, `adam`, `adamw`); scalar state
-    leaves (adam's `count`) stay whole."""
+    leaves (adam's `count`) stay whole. A norm-coupled optimizer
+    (`classify_update_coupling`) warns at build time; one whose state has
+    non-scalar leaves shaped unlike every param (`optim.adafactor`) makes
+    "auto" warn once and take the replicated update
+    (`step.weight_update_sharded` becomes False) and "force" raise
+    `ValueError`, before the first sharded state is built.
+
+    `step.local_grads(params, x, y, seed)` is the step's forward and
+    backward alone: every local rank's gradients (n, *shape), losses (n,)
+    and aux, before any reduction (`DistributedDataParallel.profile_breakdown`
+    times it)."""
     from ..optim import ZeroRedundancyOptimizer
 
     if shard_weight_update not in ("auto", "off", "force"):
@@ -310,6 +374,23 @@ def make_ddp_train_step(
     per_leaf = stateful or getattr(hook, "per_leaf", False)
 
     zero_update = shard_weight_update == "force" or (shard_weight_update == "auto" and W > 1)
+    coupling = classify_update_coupling(optimizer)
+    if zero_update:
+        # norm-coupled transforms with param-shaped (or no) state leave no
+        # shape trace for the resolver below, but their factory names do:
+        # warn only, the coupling may be tolerable (a clip that never acts)
+        kind, hits = coupling
+        if kind in ("global_norm", "per_leaf_norm"):
+            warnings.warn(
+                "shard_weight_update: optimizer chain contains "
+                f"{', '.join(hits)} — a {kind.replace('_', '-')} "
+                "coupled transform reads norms a 1/W param shard "
+                "cannot see, so the ZeRO sharded update is NOT exact "
+                "for it; pass shard_weight_update='off' unless the "
+                "coupling is tolerable",
+                RuntimeWarning,
+                stacklevel=2,
+            )
     fused_rs = zero_update and hook is comm_hooks.allreduce_hook
     local_ranks = dist._local_rows(g)
     n_local = len(local_ranks)
@@ -439,17 +520,53 @@ def make_ddp_train_step(
         meta = {n: p.to("meta") for n, p in params.items()}
         return optimizer.init(meta), optimizer.init(zero.shard_rows(meta, g))
 
+    resolved: List[bool] = []
+
+    def zero_resolved(params) -> bool:
+        """Whether the sharded update runs. A factored optimizer couples
+        elements across a leaf: the classifier names it (adafactor's
+        `scale_by_factored_rms` and block-rms transforms), and one without
+        names shows it in its state template, a non-scalar leaf shaped
+        unlike every param (factored v_row/v_col). Then "auto" warns once
+        and falls back to the replicated update, and "force" raises. It
+        runs before every use of the layout, so no sharded state exists
+        when it falls back."""
+        nonlocal zero_update, fused_rs
+        if not zero_update:
+            return False
+        if resolved:
+            return resolved[0]
+        param_shapes = {tuple(p.shape) for p in params.values()}
+        odd = [tuple(l.shape) for l in pytree.tree_leaves(templates(params)[0])
+               if l.dim() >= 1 and tuple(l.shape) not in param_shapes]
+        coupled = coupling[0] == "factored" or bool(odd)
+        if coupled:
+            why = (f"factored transforms ({', '.join(coupling[1])})"
+                   if coupling[0] == "factored"
+                   else f"state leaves shaped unlike any param {odd[:3]}")
+            msg = (f"shard_weight_update: the optimizer has {why} — its update "
+                   "couples elements across a leaf (e.g. adafactor's factored "
+                   "moments), which does not commute with ZeRO shard slicing")
+            if shard_weight_update == "force":
+                raise ValueError(msg + "; use shard_weight_update='off'")
+            warnings.warn(msg + "; falling back to the replicated update",
+                          RuntimeWarning, stacklevel=3)
+            zero_update = fused_rs = False
+            step.weight_update_sharded = False
+        resolved.append(not coupled)
+        return resolved[0]
+
     def init_opt_state(params):
         """The optimizer state in the step's layout (under ZeRO each leaf
         is this process's ranks' (n, k) shard rows)."""
-        return optimizer.init(zero.shard_rows(params, g) if zero_update else params)
+        return optimizer.init(zero.shard_rows(params, g) if zero_resolved(params) else params)
 
     def shard_opt_state(params, opt_state):
         """An unsharded state (`optimizer.init(params)`, a restored one) or
         one of per-leaf padded flats (`checkpoint_opt_state`'s, the
         reference's checkpoint form at this world) in the sharded layout;
         a sharded one as it is."""
-        if not zero_update:
+        if not zero_resolved(params):
             return opt_state
         unsharded, sharded = templates(params)
         shapes = _shapes(opt_state)
@@ -469,7 +586,7 @@ def make_ddp_train_step(
         param-shaped leaf as its padded flat (W*k,) (`zero.to_shard_layout`),
         which `checkpoint.load_checkpoint` strips back into an unsharded
         template at any world (a collective in multiproc mode)."""
-        if not zero_update:
+        if not zero_resolved(params):
             return zero.to_shard_layout(opt_state, W)
         opt_state = shard_opt_state(params, opt_state)
         return pytree.tree_map(
@@ -479,7 +596,7 @@ def make_ddp_train_step(
     def unshard_opt_state(params, opt_state):
         """The full state, leaves in param shapes (one all-gather a leaf;
         a collective in multiproc mode)."""
-        if not zero_update:
+        if not zero_resolved(params):
             return opt_state
         unsharded, sharded = templates(params)
         if _shapes(opt_state) == _shapes(unsharded):
@@ -544,6 +661,7 @@ def make_ddp_train_step(
             traced.prepare_for_params(g, params, zero_update=zero_update)
 
     def run(params, opt_state, hook_state, x, y, seeds):
+        zero_resolved(params)
         maybe_prepare_planner(params)
         check_unused(params, x, seeds)
         if zero_update and opt_state is not last_state[0]:
@@ -592,7 +710,7 @@ def make_ddp_train_step(
     def memory_report(params, opt_state, grads=None):
         """Bytes of params / optimizer state (/ grads) for the whole world
         and for one rank: ZeRO holds 1/W of the state a rank."""
-        sharded = zero_update and _shapes(opt_state) != _shapes(templates(params)[0])
+        sharded = zero_resolved(params) and _shapes(opt_state) != _shapes(templates(params)[0])
         opt_rank = _tree_bytes(opt_state) // (n_local if sharded else 1)
         out = {
             "param_bytes": _tree_bytes(params),
@@ -610,16 +728,25 @@ def make_ddp_train_step(
         # register-on-first-call (tools/proglint.py): the first step
         # fingerprints the collectives it issues and agrees them across
         # ranks before they dispatch; ZeRO's reduce-scatter/all-gather
-        # halves are exactly what the source plane cannot see
+        # halves are exactly what the source plane cannot see. The name
+        # follows the resolved mode, so it is picked at that first call:
+        # an "auto" step that fell back is the replicated program
         from ..tools import proglint
 
-        step = proglint.instrument(
-            "ddp.train_step." + ("zero" if zero_update else "replicated"),
-            step,
-            path="pytorch_distributed_example_tpu_torch/parallel/ddp.py",
-            mesh_axes=tuple(g.mesh.axis_names),
-            world=W,
-        )
+        plain, armed = step, []
+
+        @functools.wraps(plain)
+        def step(params, *args, **kwargs):
+            if not armed:
+                zero_resolved(params)
+                armed.append(proglint.instrument(
+                    "ddp.train_step." + ("zero" if zero_update else "replicated"),
+                    plain,
+                    path="pytorch_distributed_example_tpu_torch/parallel/ddp.py",
+                    mesh_axes=tuple(g.mesh.axis_names),
+                    world=W,
+                ))
+            return armed[0](params, *args, **kwargs)
     step.group = g
     step.comm_hook = hook
     step.weight_update_sharded = zero_update
@@ -628,6 +755,7 @@ def make_ddp_train_step(
     step.checkpoint_opt_state = checkpoint_opt_state
     step.unshard_opt_state = unshard_opt_state
     step.memory_report = memory_report
+    step.local_grads = local_grads
     return step
 
 
@@ -701,6 +829,7 @@ class DistributedDataParallel:
         self.reducer = Reducer(process_group=g, bucket_cap_mb=bucket_cap_mb)
         # (d) logger — torch `dist.Logger(reducer)` (distributed.py:1462)
         self.logger = DDPLogger(self)
+        self.breakdown_clocks_s: Dict[str, float] = {}  # profile_breakdown's raw clocks
 
     # -- torch surface -----------------------------------------------------
     def __call__(self, x, *args, **kwargs):
@@ -757,12 +886,13 @@ class DistributedDataParallel:
             def apply(p, x):
                 return functional_call(module, p, (x,))
         kw.setdefault("logger", self.logger)
+        kw.setdefault("comm_hook", self._comm_hook)
         kw.setdefault("find_unused_parameters", self.find_unused_parameters)
         kw.setdefault("on_unused", self.unused_parameter_names.extend)
         if hasattr(module, "hook_views"):
             kw.setdefault("hook_views", module.hook_views())
         return make_ddp_train_step(apply, loss_fn, optimizer, group=self.process_group,
-                                   comm_hook=self._comm_hook, has_rng=has_rng, **kw)
+                                   has_rng=has_rng, **kw)
 
     def make_eval_step(self, metric_fn):
         module = self.module
@@ -772,6 +902,97 @@ class DistributedDataParallel:
     def get_ddp_logging_data(self):
         """torch `_get_ddp_logging_data` (`distributed.py:2552`)."""
         return self.logger.get_ddp_logging_data()
+
+    def profile_breakdown(self, optimizer, loss_fn, x, y, iters: int = 5):
+        """Fill the logger's forward / backward / communication / optimizer
+        times (torch's reducer timers, `reducer.hpp:468-472`,
+        `logger.hpp:85-90`) and return them with the full step's.
+
+        The reference's decomposition: four programs are clocked and
+        differenced — the forward (the rank-`vmap`ped `functional_call`),
+        forward and backward (the step's `local_grads`), a step whose
+        reduction is `comm_hooks.noop_hook`, and the full step with this
+        instance's hook, both steps with `shard_weight_update="off"` (the
+        classic step: a local update after one reduction; under ZeRO the
+        no-op floor would still carry the params' all-gather). Each
+        difference is clamped at 0; `comm_exposed_s` is the reduction's
+        time that nothing hid.
+
+        The eager step is host-bound, so the host's drift over a run is as
+        large as a component: where the reference clocks one program after
+        another, each of the 2 warm-up and `iters` timed rounds here calls
+        the four in turn, each call timed alone (on the card with
+        `torch.cuda.synchronize` before and after it, so a time is the
+        call's wall time, not its enqueue time), and each clock is the
+        median of its `iters` calls. The four medians and their unclamped
+        differences stay in `self.breakdown_clocks_s`.
+
+        The steps run on copies of `self.params` from a fresh
+        `optimizer.init`, which leaves `self.params` as they were. `x` and
+        `y` are this process's ranks' batches, as a train step takes them;
+        in a gang each process clocks its own row (the steps' collectives
+        are collectives: every process must call this)."""
+        g = self.process_group
+        module = self.module
+        n_local = len(dist._local_rows(g))
+        common = dict(logger=None, on_unused=None, shard_weight_update="off")
+        full = self.make_train_step(optimizer, loss_fn, **common)
+        nosync = self.make_train_step(optimizer, loss_fn, comm_hook=comm_hooks.noop_hook,
+                                      **common)
+        xs = x.reshape((n_local, -1) + tuple(x.shape[1:]))
+        vforward = vmap(lambda p, xa: functional_call(module, p, (xa,)), in_dims=(None, 0))
+
+        def sync():
+            if g.device.type == "cuda":
+                torch.cuda.synchronize(g.device)
+
+        def forward():
+            with torch.no_grad():
+                vforward(self.params, xs)
+
+        def stepper(stepfn):
+            p = {n: t.clone() for n, t in self.params.items()}
+            state = [p, optimizer.init(p),
+                     stepfn.init_hook_state(p) if hasattr(stepfn, "init_hook_state") else None]
+
+            def one():
+                p, o, hs = state
+                if hs is None:
+                    state[:2] = stepfn(p, o, x, y)[:2]
+                else:
+                    state[:] = stepfn(p, o, hs, x, y)[:3]
+
+            return one
+
+        programs = (forward, lambda: full.local_grads(self.params, x, y, None),
+                    stepper(nosync), stepper(full))
+        samples: List[List[float]] = [[] for _ in programs]
+        for it in range(2 + iters):
+            for fn, got in zip(programs, samples):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                if it >= 2:
+                    got.append(time.perf_counter() - t0)
+        t_f, t_fb, t_ns, t_full = (statistics.median(v) for v in samples)
+
+        self.breakdown_clocks_s = {
+            "forward": t_f, "forward_backward": t_fb, "noop_step": t_ns, "full_step": t_full,
+            "backward": t_fb - t_f, "optimizer": t_ns - t_fb, "comm_exposed": t_full - t_ns,
+        }
+        lg = self.logger
+        lg.avg_forward_compute_time_s = t_f
+        lg.avg_backward_compute_time_s = max(t_fb - t_f, 0.0)
+        lg.avg_optimizer_time_s = max(t_ns - t_fb, 0.0)
+        lg.avg_backward_comm_time_s = max(t_full - t_ns, 0.0)
+        return {
+            "forward_s": lg.avg_forward_compute_time_s,
+            "backward_s": lg.avg_backward_compute_time_s,
+            "optimizer_s": lg.avg_optimizer_time_s,
+            "comm_exposed_s": lg.avg_backward_comm_time_s,
+            "full_step_s": t_full,
+        }
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """Host copies of the params."""

@@ -17,6 +17,13 @@ number, a flight-recorder entry and the watchdog's cover. The train step
 (`ddp.make_ddp_train_step`) does not take this path: it reduces one flat
 buffer per step.
 
+`flatten_host_bucket` / `unflatten_host_bucket` are the host half of a
+flat bucket (numpy in and out), and `Reducer.reduce_dist_tensors` reduces
+`DistTensor`s in place. Bucket planning and the host buckets are Python
+and numpy only: the reference's native paths for them
+(`_native.compute_buckets`, `pack_f32`, `unpack_f32`) compute the same
+results and are not ported.
+
 A `comm_hook` replaces each bucket's all-reduce, in the reference's eager
 contract `hook(backend, flat) -> (out, work)`, or `hook(backend, flat,
 bucket_no)` for a hook that declares `wants_bucket_index` (the
@@ -30,6 +37,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -62,6 +70,25 @@ def compute_bucket_assignment_by_size(
     if cur:
         buckets.append(cur)
     return buckets
+
+
+def flatten_host_bucket(leaves: Sequence[np.ndarray]) -> np.ndarray:
+    """Host (numpy) gradient leaves flattened into one fresh float32 buffer
+    — the host half of torch's flat `Bucket.gradients` (`reducer.hpp:362`)."""
+    return np.concatenate([np.asarray(l, np.float32).reshape(-1) for l in leaves])
+
+
+def unflatten_host_bucket(flat: np.ndarray, shapes: Sequence[Tuple[int, ...]]) -> List[np.ndarray]:
+    """The inverse of `flatten_host_bucket` (torch's bucket views scatter):
+    fresh float32 arrays of `shapes`, `()` taking one element and a
+    zero-size shape none."""
+    res, off = [], 0
+    flat = np.asarray(flat, np.float32).reshape(-1)
+    for s in map(tuple, shapes):
+        n = int(np.prod(s))
+        res.append(flat[off:off + n].reshape(s).copy())
+        off += n
+    return res
 
 
 @dataclass
@@ -177,3 +204,10 @@ class Reducer:
         if hasattr(self.comm_hook, "on_reduce_complete"):
             self.comm_hook.on_reduce_complete()
         return pytree.tree_unflatten(new_leaves, treedef)
+
+    def reduce_dist_tensors(self, grads_dt: Sequence[Any], require_sync: bool = True) -> None:
+        """`reduce` over `DistTensor`s, in place (torch-style mutation):
+        each takes its reduced rank-stacked tensor."""
+        red = self.reduce([dt.tensor for dt in grads_dt], require_sync)
+        for dt, t in zip(grads_dt, red):
+            dt._set(t)

@@ -5,11 +5,12 @@ Parity surface (the reference's `utils/logger.py`):
     the last enqueued, started and completed collective of a group.
   - `DDPLogger` ≈ torch's DDP `Logger` + `DDPLoggingData` (`logger.hpp:42-90`;
     `_get_ddp_logging_data`, `nn/parallel/distributed.py:2552`):
-    construction-time facts (world size, bucket layout) and per-step wall
-    times.
+    construction-time facts (world size, bucket layout), per-step wall
+    times, and the forward / backward / communication / optimizer
+    component times that `DistributedDataParallel.profile_breakdown`
+    fills (torch's reducer timers, `reducer.hpp:468-472`).
 The reference's `exception_logger` / `time_logger` decorators have no
-caller there and are not ported, nor are the component times its
-`profile_breakdown` fills (ROADMAP).
+caller there and are not ported.
 """
 
 from __future__ import annotations
@@ -55,13 +56,19 @@ class DDPLogger:
 
     With `enable_step_timing()` the train step records its wall time: it
     synchronizes the card after each step, trading the host running ahead
-    for true step times, which is what a profiling run wants."""
+    for true step times, which is what a profiling run wants. The four
+    component times stay 0.0 until `DistributedDataParallel.profile_breakdown`
+    measures them."""
 
     def __init__(self, ddp) -> None:
         self._ddp = ddp
         self.step_times: list = []
         self._step_start: Optional[float] = None
         self.timing_enabled: bool = False
+        self.avg_forward_compute_time_s: float = 0.0
+        self.avg_backward_compute_time_s: float = 0.0
+        self.avg_backward_comm_time_s: float = 0.0
+        self.avg_optimizer_time_s: float = 0.0
 
     def enable_step_timing(self, enabled: bool = True) -> None:
         self.timing_enabled = enabled
@@ -103,4 +110,8 @@ class DDPLogger:
             "avg_step_time_s": (sum(times) / len(times)) if times else 0.0,
             "num_steps": len(self.step_times),
             "find_unused_parameters": self._ddp.find_unused_parameters,
+            "avg_forward_compute_time_s": self.avg_forward_compute_time_s,
+            "avg_backward_compute_time_s": self.avg_backward_compute_time_s,
+            "avg_backward_comm_time_s": self.avg_backward_comm_time_s,
+            "avg_optimizer_time_s": self.avg_optimizer_time_s,
         }

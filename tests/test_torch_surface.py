@@ -1,0 +1,194 @@
+"""The port's surface covers the JAX package's, name by name.
+
+Parsed with `ast`, importing neither package. For every file of the JAX
+package, the port has the file at the same path, or `NOT_OWED_FILES` says
+why not. For every module, each public top-level name (a def, a class, an
+assignment, and in an `__init__.py` a name re-exported from within the
+package), and each public method of a class the two modules share, exists
+in the port's module or stands in `NOT_OWED` with its reason. A row of
+either table must still name a gap: one that the port closes goes.
+
+"No caller in the reference" is a reason: a name that nothing in the JAX
+package calls is not ported only to make this count (the c10d
+decorators). So is a second implementation of what the port computes
+once (the native bucket planner and host copies, whose Python and numpy
+counterparts the port has).
+"""
+
+import ast
+import os
+from pathlib import Path
+
+import pytest
+
+from tests._mp_util import REPO
+
+REF = Path(REPO) / "pytorch_distributed_example_tpu"
+PORT = Path(REPO) / "pytorch_distributed_example_tpu_torch"
+
+# the reference's files without a counterpart (ROADMAP.md, "Not owed a module")
+NOT_OWED_FILES = {
+    "_compat.py": "jax-version shims; the port runs no JAX",
+    "backends/xla.py": "its roles are backends/stacked.py (driver mode) and "
+                       "backends/process.py (multiproc mode)",
+    "ops/conv.py": "its custom VJP is a CPU-only XLA schedule (ops/conv.py:83-85); "
+                   "F.conv2d is its counterpart",
+    "ops/flash_tuned.json": "block sizes measured on a TPU, which the port must not read",
+    "csrc/Makefile": "_native.build compiles the same csrc sources with g++, keyed by their "
+                     "hash, so the port needs no Makefile",
+}
+
+# "module.py:name" (a top-level name) or "module.py:Class.method"
+NOT_OWED = {
+    "_native.py:count_nonfinite_f32":
+        "the port's count_nonfinite takes a tensor on any device in its place",
+    "_native.py:compute_buckets":
+        "a second bucket planner; the port's compute_bucket_assignment_by_size is its one",
+    "_native.py:pack_f32":
+        "a second host-bucket copy; the port's flatten_host_bucket (numpy) is its one",
+    "_native.py:unpack_f32":
+        "a second host-bucket split; the port's unflatten_host_bucket (numpy) is its one",
+    "backends/__init__.py:XlaBackend":
+        "backends/xla.py is not owed: StackedBackend and ProcessBackend take its role",
+    "mesh.py:DeviceMesh.jax_mesh": "the jax.sharding.Mesh; the port's mesh is torch devices",
+    "mesh.py:DeviceMesh.devices":
+        "an ndarray of JAX devices; the port's mesh gives device_list and device",
+    "models/resnet.py:ModuleDef": "flax's module-type alias; the port builds torch modules",
+    "parallel/sharding.py:constrain":
+        "lax.with_sharding_constraint inside jit; the port places tensors eagerly",
+    "parallel/sharding.py:constrain_dim0":
+        "the same JAX constraint on dim 0; the port's ZeRO rows are placed eagerly (zero.py)",
+    "parallel/sharding.py:path_of":
+        "joins a jax tree_util key path; the port's params are dicts keyed by name",
+    "parallel/zero.py:opt_state_specs":
+        "PartitionSpecs for the state's placement; the port holds (n, k) shard rows",
+    "parallel/zero.py:place_sharded": "jax.device_put with NamedShardings (JAX placement)",
+    "parallel/zero.py:shard_view":
+        "a traced view for jax.eval_shape; the port's templates use the meta device",
+    "parallel/zero.py:assert_donation_contract":
+        "checks XLA buffer donation, which the eager port does not make",
+    "parallel/zero.py:OPT_STATE_ARGNUM": "the donated argument's index (XLA donation)",
+    "serve/prewarm.py:attach_precompiled":
+        "pre-warm keeps no executable in the port: precompiled= runs each program once at "
+        "construction",
+    "tensor.py:DistTensor.array": "the jax.Array; the port's DistTensor holds .tensor",
+    "tools/_lintcore.py:load_pyproject_section":
+        "the port's guard planes read tools/lint.toml, not pyproject.toml",
+    "tools/proglint.py:COLLECTIVE_PRIMS":
+        "jaxpr collective primitives; the port fingerprints the collectives a program "
+        "issues",
+    "tools/proglint.py:fingerprint_traced":
+        "fingerprints a traced jaxpr; the port's fingerprint_program taps a call",
+    "types.py:lower_reduce_op":
+        "lowers a ReduceOp to a lax collective; the port's backends reduce with torch ops",
+    "types.py:ArrayWork": "Work over jax.Arrays; the port's is TensorWork",
+    "utils/logger.py:exception_logger": "no caller in the reference",
+    "utils/logger.py:time_logger": "no caller in the reference",
+    "utils/logger.py:logger": "the two decorators' logging.Logger; no caller in the reference",
+    "utils/__init__.py:exception_logger": "no caller in the reference",
+    "utils/__init__.py:time_logger": "no caller in the reference",
+}
+
+SKIP_PARTS = {"__pycache__"}
+SKIP_SUFFIXES = {".pyc", ".so"}  # build outputs
+
+
+def _files(root: Path):
+    return sorted(
+        p.relative_to(root).as_posix() for p in root.rglob("*")
+        if p.is_file() and not SKIP_PARTS & set(p.parts) and p.suffix not in SKIP_SUFFIXES)
+
+
+def _bound(body, out: set, imports: str) -> None:
+    """Names a module body binds: defs, classes, assignments, and imports:
+    "all" of them, those from within the "package" (an `__init__.py`'s
+    re-exports) or "none". Looks inside module-level if/try/with blocks."""
+    for node in body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign, ast.AugAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            for t in targets:
+                out.update(n.id for n in ast.walk(t) if isinstance(n, ast.Name))
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            relative = isinstance(node, ast.ImportFrom) and node.level > 0
+            if imports == "all" or (imports == "package" and relative):
+                out.update((a.asname or a.name).split(".")[0] for a in node.names)
+        elif isinstance(node, (ast.If, ast.Try, ast.With)):
+            for block in ("body", "orelse", "finalbody"):
+                _bound(getattr(node, block, []), out, imports)
+            for h in getattr(node, "handlers", []):
+                _bound(h.body, out, imports)
+
+
+def _surface(path: Path, ref: bool):
+    """(top-level names, {class: method names}) of a module. The
+    reference's surface counts the imports of an `__init__.py` from within
+    the package; the port's counts every import, since a name it imports
+    is one a user can reach there."""
+    tree = ast.parse(path.read_text(), str(path))
+    names: set = set()
+    imports = ("package" if path.name == "__init__.py" else "none") if ref else "all"
+    _bound(tree.body, names, imports)
+    methods = {n.name: {m.name for m in n.body
+                        if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))}
+               for n in tree.body if isinstance(n, ast.ClassDef)}
+    return names, methods
+
+
+def _public(names):
+    return {n for n in names if not n.startswith("_")}
+
+
+REF_MODULES = [f for f in _files(REF) if f.endswith(".py")]
+
+
+def _gaps(rel):
+    """The reference module's public names and methods the port lacks."""
+    ref_names, ref_methods = _surface(REF / rel, ref=True)
+    port_names, port_methods = _surface(PORT / rel, ref=False)
+    gaps = {f"{rel}:{n}" for n in _public(ref_names) - port_names}
+    for cls in _public(set(ref_methods) & set(port_methods)):
+        gaps.update(f"{rel}:{cls}.{m}" for m in _public(ref_methods[cls]) - port_methods[cls])
+    return gaps
+
+
+def test_every_reference_file_has_a_counterpart():
+    port = set(_files(PORT))
+    missing = {f for f in _files(REF) if f not in port}
+    assert missing == set(NOT_OWED_FILES), (
+        f"without a counterpart or a reason: {sorted(missing - set(NOT_OWED_FILES))}; "
+        f"listed but present: {sorted(set(NOT_OWED_FILES) - missing)}")
+
+
+@pytest.mark.parametrize("rel", [m for m in REF_MODULES if m not in NOT_OWED_FILES])
+def test_module_surface_is_ported(rel):
+    unlisted = sorted(g for g in _gaps(rel) if g not in NOT_OWED)
+    assert not unlisted, f"the port lacks {unlisted}: port them or give NOT_OWED a reason"
+
+
+def test_not_owed_rows_name_live_gaps():
+    """Every row names a gap that still exists, in a module the port has,
+    and gives a reason."""
+    live = set().union(*(_gaps(m) for m in REF_MODULES if m not in NOT_OWED_FILES))
+    assert NOT_OWED and all(reason.strip() for reason in NOT_OWED.values())
+    assert all(reason.strip() for reason in NOT_OWED_FILES.values())
+    stale = sorted(set(NOT_OWED) - live)
+    assert not stale, f"NOT_OWED rows the port has closed (take them out): {stale}"
+
+
+def test_the_roadmap_lists_the_files_not_owed():
+    roadmap = Path(REPO, "ROADMAP.md").read_text()
+    for rel in NOT_OWED_FILES:
+        if rel != "csrc/Makefile":
+            assert f"`{rel}`" in roadmap, rel
+
+
+def test_the_parser_sees_what_it_should():
+    """The walk itself: the reference's `__init__` re-exports count, its
+    stdlib imports do not; a method gap shows."""
+    names, _ = _surface(REF / "__init__.py", ref=True)
+    assert {"DistributedDataParallel", "DTensor", "Reducer"} <= names
+    assert "os" not in names
+    assert "tensor.py:DistTensor.array" in _gaps("tensor.py")
+    assert os.path.isdir(PORT)
