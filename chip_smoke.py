@@ -10,25 +10,27 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
 2. build: nvcc builds csrc/flash_attention.cu (with csrc/flash_wgmma.cuh)
    for sm_90a; each instance's registers and spills from ptxas, and the
    wgmma instances' dynamic shared memory, are printed. A wgmma instance
-   that spills fails the phase.
+   that spills, or asks for more than a block's 232,448 bytes of shared
+   memory, fails the phase.
 3. kernels: the forward (F), dK/dV (KV) and dQ (Q) kernels against their
    plain versions at the ~1B train step's shapes (B*H 64, L 1024, D 128,
    bf16, causal), plus a non-causal and a D=64 case; F also with float32
-   output. `fa.kernel_route` names each kernel's instance: F, KV and Q
-   take the wgmma route (bf16 at D 64 and 128), held to its declared
-   tolerance; a float32 D 128 case holds the SIMT F, KV and Q. Time by
-   CUDA events beside the plain version, the bound, and the
-   library: for F `scaled_dot_product_attention`, for KV and Q together
-   the flash backward behind it (timed here only; the port never calls
-   either).
+   output. `fa.kernel_route` names each kernel's instance: bf16 takes the
+   wgmma route at every head dim, held to its declared tolerance, float32
+   the SIMT route. Timed by CUDA events beside the plain version, the
+   bound, and the library (timed here only; the port never calls it):
+   for bf16 `scaled_dot_product_attention` for F and its flash backward
+   for KV and Q together, for float32 the efficient backend's forward and
+   backward (the flash backend refuses float32). Timed at the same work
+   (B*H*D 8192, L 1024, causal): bf16 D 128, 32 (B*H 256) and 256 (B*H
+   32) on wgmma, float32 D 128 and 32 on SIMT.
 4. kernels-long: F (bf16 and float32 output), KV and Q against their plain
    versions in the reference's streamed regime (B*H 16, L 16384, D 128,
    bf16, causal; L*D = 2.1M elements), timed as in phase 3 except that
    each plain version is timed once, by the call that checks it; F with
    float32 output (ring attention's partials) at the same shape,
-   non-causal; and the head dims without an instance of their own, D 32,
-   96 (the wgmma route, padded to 128) and 256 (bf16 and, at 256,
-   float32: the SIMT route), at L 512.
+   non-causal; bf16 D 32 and 256 at L 512 and 1024, causal and full, D 96
+   (padded to 128), all on the wgmma route, and float32 D 256 on SIMT.
 5. reference: a small float32 TransformerLM on the card against the same
    weights on the CPU (the plain versions): logits, loss and grads.
 6. slice: the trainer (`examples/lm.py`) at the ~1B configuration's full
@@ -40,6 +42,12 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    memory); then one
    step under torch.profiler: device time by kernel group and the
    device's busy share of the step.
+6b. headdims: the trainer at the other bf16 head dims, as the slice:
+   (a) its own defaults with --bf16 (vocab 512, d 256, 4 layers, 8 heads
+   of 32, seq 256, batch 16); (b) CFG_1B's width as 8 heads of 256 (its
+   attention the slice's operations), the first-step check on 2 layers as
+   in [long]. F, KV and Q on the wgmma route, n_layers * 3 launches each;
+   (b)'s step beside the slice's from the same run.
 7. ring: `make_cp_attention(4, mode="ring", causal=True)` (driver mode) over
    4 shards of 16384 tokens (B 1, H 16, D 128, bf16), forward and
    backward: one untimed warm-up call, then two timed calls (their mean
@@ -301,11 +309,13 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    world 2 (the bandwidth gang) must fail `plan.traced.prepare` on both
    processes naming eqn #1.
 21. report: one JSON line of kernels (each Hopper kernel once per Pallas
-   lowering it replaces, with its design, "wgmma" or "simt", and its
-   launches per phase, `serve_fleet`, `cifar`, `bert`, `dryrun`, `ckpt`,
-   `train_utils`, `multiproc` ((a)'s and (c)'s gang processes' counted
-   launches, in the resident rows), `multiproc_ring` ((b)'s, in the
-   streamed rows) and `planner` ((b)'s two profiled steps) among them),
+   lowering it replaces at D 128, and once for each of its D 32 and D 256
+   instances with [headdims]' launches, with its design, "wgmma" or
+   "simt", and its launches per phase, `serve_fleet`, `cifar`, `bert`,
+   `dryrun`, `ckpt`, `train_utils`, `multiproc` ((a)'s and (c)'s gang
+   processes' counted launches, in the resident rows), `multiproc_ring`
+   ((b)'s, in the streamed rows) and `planner` ((b)'s two profiled steps)
+   among them),
    the card's name and power limit, then the `ok` line.
 
 Every float32 card-vs-CPU check computes its CPU side under
@@ -372,6 +382,7 @@ SLICE_ARGV = ["--vocab-size", "32000", "--d-model", "2048", "--n-layers", "16",
 WARMUP_STEPS = 2
 TIMED_STEPS = 3
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
+SMEM_PER_BLOCK = 232448  # the most shared memory a block may use on the H100
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 LONG_ARGV = ["--vocab-size", "32000", "--d-model", "2048", "--n-layers", "16",
              "--n-heads", "16", "--seq", "16384", "--batch-size", "1", "--bf16",
@@ -490,15 +501,15 @@ BF16_TOL = dict(rtol=2 ** -7, atol_frac=1e-3)
 # float32 outputs: the same f32 arithmetic in another order
 F32_TOL = dict(rtol=1e-4, atol_frac=1e-5)
 LSE_TOL = dict(rtol=1e-5, atol_frac=1e-6)
-# the wgmma route (F, KV and Q, bf16 operands at D 64 and 128) also rounds P
-# and dS to bf16: its tolerance is declared, with its reason, beside the route
+# the wgmma route (F, KV and Q, bf16 operands at every head dim) also rounds
+# P and dS to bf16: its tolerance is declared, with its reason, beside the route
 WGMMA_TOL = fa.WGMMA_BF16_TOL
 
 
-def tol_for(dtype, route="simt"):
-    if route == "wgmma":
-        return WGMMA_TOL
-    return BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+def tol_for(route):
+    """The kernels' tolerance on a route: the declared one on wgmma (bf16
+    operands), the float32 one on SIMT (float32 operands)."""
+    return WGMMA_TOL if route == "wgmma" else F32_TOL
 
 
 def tol_text(tol):
@@ -540,18 +551,24 @@ def timed_once(fn):
 
 
 def kernel_checks(BH, L, D, causal, timed, dtype=torch.bfloat16, B=4, iters=20,
-                  plain_once=False):
-    """Each kernel against its plain version on the same inputs. With
-    `timed`, also each kernel's time (mean of `iters` launches), the plain
-    version's (the checking call itself when `plain_once`, else a mean of
-    5), the bound, and the library's call on (B, BH/B, L, D)."""
+                  plain_once=False, want_route=None):
+    """Each kernel against its plain version on the same inputs, on the
+    route `kernel_route` names (which must be `want_route` where given).
+    With `timed`, also each kernel's time (mean of `iters` launches), the
+    plain version's (the checking call itself when `plain_once`, else a
+    mean of 5), the bound, and the library's call on (B, BH/B, L, D): the
+    flash backend for bf16, the efficient one for float32, which the flash
+    backend refuses."""
     gen = torch.Generator(device="cuda").manual_seed(L + D + causal)
     q, k, v, do = (torch.randn((BH, L, D), device="cuda", generator=gen,
                                dtype=dtype) for _ in range(4))
     scale = 1.0 / math.sqrt(D)
     bq, bk = fa.resolved_block_sizes(L)
     design = {name: fa.kernel_route(dtype, D) for name in REPLACES}
-    tol = {name: tol_for(dtype, route) for name, route in design.items()}
+    if want_route is not None:
+        check(set(design.values()) == {want_route},
+              f"{dtype} at D {D} takes the {design} route, not {want_route}")
+    tol = {name: tol_for(route) for name, route in design.items()}
     plain_ms = {}
     o, lse = fa._fwd_cuda(q, k, v, scale, causal)
     o32, _ = fa._fwd_cuda(q, k, v, scale, causal, out_dtype=torch.float32)
@@ -559,8 +576,7 @@ def kernel_checks(BH, L, D, causal, timed, dtype=torch.bfloat16, B=4, iters=20,
     (po32, plse), plain_ms["flash_fwd"] = timed_once(
         lambda: fa._fwd_plain(q, k, v, scale, causal, bq, bk, out_dtype=torch.float32))
     po = po32.to(dtype)
-    # float32 output from bf16 operands: the SIMT route keeps the f32 tolerance
-    tol32 = tol_for(torch.float32, design["flash_fwd"])
+    tol32 = tol_for(design["flash_fwd"])
     delta = (do.float() * po.float()).sum(-1, keepdim=True)
     dk, dv = fa._dkdv_cuda(q, k, v, do, plse, delta, scale, causal)
     (pdk, pdv), plain_ms["flash_dkdv"] = timed_once(
@@ -602,32 +618,45 @@ def kernel_checks(BH, L, D, causal, timed, dtype=torch.bfloat16, B=4, iters=20,
     }
     H = BH // B
     q4, k4, v4, do4 = (x.view(B, H, L, D) for x in (q, k, v, do))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    # The library has no dK/dV-only or dQ-only call: its flash backward
-    # computes dQ, dK and dV together from its own forward's output and lse,
-    # so that one call is the yardstick of KV and Q as a pair
-    lib_fwd = torch.ops.aten._scaled_dot_product_flash_attention(
-        q4, k4, v4, 0.0, causal, False, scale=scale)
-    lib_o, lib_lse, cum_q, cum_k, max_q, max_k, seed, offset = lib_fwd[:8]
+    aten = torch.ops.aten
+    # The library has no dK/dV-only or dQ-only call: its backward computes
+    # dQ, dK and dV together from its own forward's output and lse, so that
+    # one call is the yardstick of KV and Q as a pair
+    if dtype == torch.bfloat16:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_o, lib_lse, cum_q, cum_k, max_q, max_k, seed, offset = (
+            aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, causal, False,
+                                                     scale=scale)[:8])
+        fwd_call = ("scaled_dot_product_attention", lambda: sdpa(q4, k4, v4, is_causal=causal))
+        bwd_name = "aten._scaled_dot_product_flash_attention_backward (dQ, dK, dV)"
 
-    def sdpa_backward():
-        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            do4, q4, k4, v4, lib_o, lib_lse, cum_q, cum_k, max_q, max_k, 0.0, causal,
-            seed, offset, scale=scale)
+        def sdpa_backward():
+            return aten._scaled_dot_product_flash_attention_backward(
+                do4, q4, k4, v4, lib_o, lib_lse, cum_q, cum_k, max_q, max_k, 0.0, causal,
+                seed, offset, scale=scale)
+    else:
+        def lib_forward():
+            return aten._scaled_dot_product_efficient_attention(q4, k4, v4, None, True, 0.0,
+                                                                causal, scale=scale)
 
+        lib_o, lib_lse, seed, offset = lib_forward()
+        fwd_call = ("aten._scaled_dot_product_efficient_attention", lib_forward)
+        bwd_name = "aten._scaled_dot_product_efficient_attention_backward (dQ, dK, dV)"
+
+        def sdpa_backward():
+            return aten._scaled_dot_product_efficient_attention_backward(
+                do4, q4, k4, v4, None, lib_o, lib_lse, seed, offset, 0.0,
+                [True, True, True, False], causal, scale=scale)[:3]
+
+    lib_rel = compare(lib_o.reshape(BH, L, D), po32, **tol["flash_fwd"])[1]
     lib_grads = [g.reshape(BH, L, D) for g in sdpa_backward()]
-    lib_rel = max(compare(g, w, **BF16_TOL)[1] for g, w in zip(lib_grads, (pdq, pdk, pdv)))
-    print(f"  sdpa flash backward vs the plain versions: max_abs_err/max|plain| = "
-          f"{lib_rel:.3e} (timed only)")
+    lib_grel = max(compare(g, w, **tol["flash_dq"])[1]
+                   for g, w in zip(lib_grads, (pdq, pdk, pdv)))
+    print(f"  library vs the plain versions (timed only): {fwd_call[0]} "
+          f"max_abs_err/max|plain| = {lib_rel:.3e}, {bwd_name.split(' ')[0]} {lib_grel:.3e}")
     del lib_grads
-    library = {
-        "flash_fwd": ("scaled_dot_product_attention",
-                      lambda: sdpa(q4, k4, v4, is_causal=causal)),
-        "flash_dkdv": ("aten._scaled_dot_product_flash_attention_backward (dQ, dK, dV)",
-                       sdpa_backward),
-        "flash_dq": ("aten._scaled_dot_product_flash_attention_backward (dQ, dK, dV)",
-                     sdpa_backward),
-    }
+    library = {"flash_fwd": fwd_call, "flash_dkdv": (bwd_name, sdpa_backward),
+               "flash_dq": (bwd_name, sdpa_backward)}
     lib_ms = {}
     for name in kern:
         r = results[name]
@@ -652,9 +681,8 @@ def kernel_checks(BH, L, D, causal, timed, dtype=torch.bfloat16, B=4, iters=20,
 
 def fwd_f32_out_check(BH, L, D, causal):
     """F with float32 output from bf16 operands (the ring's per-step
-    partials) against its plain version, at the tolerance of the route that
-    serves it: the float32 one on the SIMT route (both keep the f32
-    accumulator), the declared one on the wgmma route (P is rounded)."""
+    partials) against its plain version, at the declared tolerance of the
+    wgmma route that serves bf16 (P is rounded)."""
     gen = torch.Generator(device="cuda").manual_seed(L + D + 2)
     q, k, v = (torch.randn((BH, L, D), device="cuda", generator=gen,
                            dtype=torch.bfloat16) for _ in range(3))
@@ -665,7 +693,7 @@ def fwd_f32_out_check(BH, L, D, causal):
         lambda: fa._fwd_plain(q, k, v, scale, causal, bq, bk, out_dtype=torch.float32))
     check(o.dtype == torch.float32, f"flash_fwd returned {o.dtype} for out_dtype float32")
     route = fa.kernel_route(torch.bfloat16, D)
-    tol = tol_for(torch.float32, route)
+    tol = tol_for(route)
     (err, rel, ok), (lerr, _, lok) = compare(o, po, **tol), compare(lse, plse, **LSE_TOL)
     print(f"  flash_fwd [{route}] bf16 -> float32 output, BH={BH} L={L} D={D} causal={causal}: "
           f"max_abs_err={err:.3e} max_abs_err/max|plain|={rel:.3e}, lse {lerr:.3e}; within "
@@ -787,12 +815,15 @@ def first_step_check(model, tokens):
           "(|dloss| <= 1e-2, rms ratio <= 3e-2)")
 
 
+TRAIN_STEPS = {}  # argv -> (mean step ms, tokens/s, MFU) of its timed steps
+
+
 def train_phase(argv, warmup_steps, timed_steps, card, check_layers=None):
     """The trainer (`examples/lm.py`) built from `argv`: the first-step
     check (on the model itself, or on a `check_layers`-layer model of the
     same width), warm-up steps, timed steps whose kernel launches are
-    counted, then one profiled step. Returns the launches of the timed
-    steps."""
+    counted (all on the wgmma route), then one profiled step. Returns the
+    launches of the timed steps."""
     args = lm.parse_args(argv)
     model, opt, next_tokens = lm.build(args, world=1)
     cfg = model.cfg
@@ -834,6 +865,7 @@ def train_phase(argv, warmup_steps, timed_steps, card, check_layers=None):
     model_flops = ((6.0 * n_params + 12.0 * cfg.n_layers * cfg.d_model * args.seq)
                    * args.batch_size * args.seq)
     mfu = model_flops / mean_s / PEAK_FLOPS[torch.bfloat16]
+    TRAIN_STEPS[tuple(argv)] = (mean_s * 1e3, tok_s, mfu)
     print(f"  losses {losses}; step times (s) {step_s}")
     print(f"  mean step {mean_s * 1e3:.2f} ms, {tok_s:.0f} tokens/s, MFU {mfu:.4f} "
           f"({model_flops:.4g} model FLOPs per step over 989 TFLOP/s), "
@@ -851,6 +883,37 @@ def train_phase(argv, warmup_steps, timed_steps, card, check_layers=None):
     del model, opt
     torch.cuda.empty_cache()
     return routes
+
+
+# [headdims]: the trainer at the bf16 head dims beside the slice's 128: its
+# own defaults (vocab 512, d 256, 4 layers, 8 heads of 32, seq 256, batch 16)
+# and CFG_1B's full width as 8 heads of 256 (later flags win), whose
+# attention does the slice's operations
+HEADDIMS = (32, 256)
+HEADDIMS_ARGV = {32: ["--bf16"], 256: SLICE_ARGV + ["--n-heads", "8"]}
+HEADDIMS_CHECK_LAYERS = {32: None, 256: LONG_CHECK_LAYERS}  # None: the whole model
+
+
+def headdims_phase(card):
+    """`train_phase` at each of HEADDIMS, the first step checked on
+    HEADDIMS_CHECK_LAYERS layers (CFG_1B's width on 2, as [long]'s); then
+    that width's step beside [slice]'s from this run. Returns the timed
+    steps' launches by head dim."""
+    launches = {}
+    for D in HEADDIMS:
+        argv = HEADDIMS_ARGV[D]
+        args = lm.parse_args(argv)
+        check(args.d_model // args.n_heads == D,
+              f"{argv} gives head dim {args.d_model // args.n_heads}, not {D}")
+        print(f"  head dim {D}:")
+        launches[f"headdims D {D}"] = train_phase(argv, WARMUP_STEPS, TIMED_STEPS, card,
+                                                  check_layers=HEADDIMS_CHECK_LAYERS[D])
+    (ms, tok_s, mfu), (s_ms, s_tok_s, s_mfu) = (TRAIN_STEPS[tuple(HEADDIMS_ARGV[256])],
+                                               TRAIN_STEPS[tuple(SLICE_ARGV)])
+    print(f"  CFG_1B width as 8 heads of 256: {ms:.2f} ms a step, {tok_s:.0f} tokens/s, "
+          f"MFU {mfu:.4f}; as [slice]'s 16 heads of 128 in this run: {s_ms:.2f} ms, "
+          f"{s_tok_s:.0f} tokens/s, MFU {s_mfu:.4f}  [{card}]")
+    return launches
 
 
 # The ring's gradients: each ring step's dQ/dK/dV partial leaves the kernels
@@ -5836,9 +5899,12 @@ def main():
         if "wgmma" in name:
             D = int(name.rsplit("D ", 1)[1].rstrip(">"))
             role = ("fwd", "dkdv", "dq").index(name.split("_")[1])
-            smem = f"; {lib.flash_wgmma_smem_bytes(role, D)} bytes of dynamic shared memory"
+            smem_bytes = lib.flash_wgmma_smem_bytes(role, D)
+            smem = f"; {smem_bytes} bytes of dynamic shared memory"
             check(spills.startswith("0 bytes stack frame, 0 bytes spill stores"),
                   f"ptxas: {name} spills: {spills}")
+            check(0 < smem_bytes <= SMEM_PER_BLOCK,
+                  f"{name} asks for {smem_bytes} bytes of shared memory")
         print(f"  ptxas: {name}: {regs}; {spills}{smem}")
 
     # 3. kernels against their plain versions
@@ -5848,7 +5914,15 @@ def main():
     results["resident"] = kernel_checks(BH, L, D, causal=True, timed=True)
     kernel_checks(BH, L, D, causal=False, timed=False)
     kernel_checks(BH, L, 64, causal=True, timed=False)
-    kernel_checks(16, L, D, causal=True, timed=False, dtype=torch.float32)  # SIMT F, KV, Q
+    # the other bf16 instances at the same work (B*H*D 8192): the trainer's
+    # default head dim and the largest
+    for D_ in HEADDIMS:
+        results[f"resident D {D_}"] = kernel_checks(BH * D // D_, L, D_, causal=True, timed=True,
+                                                    want_route="wgmma")
+    # float32, the SIMT route: CFG_1B's shape and the trainer's head dim
+    for D_ in (D, 32):
+        kernel_checks(BH * D // D_, L, D_, causal=True, timed=True, dtype=torch.float32,
+                      want_route="simt")
 
     # 4. the same in the reference's streamed regime, and the new head dims
     t0 = time.perf_counter()
@@ -5856,9 +5930,12 @@ def main():
     results["streamed"] = kernel_checks(16, 16384, 128, causal=True, timed=True, B=1,
                                         iters=3, plain_once=True)
     fwd_f32_out_check(16, 16384, 128, causal=False)
-    for D_, dtype in ((32, torch.bfloat16), (96, torch.bfloat16), (256, torch.bfloat16),
-                      (256, torch.float32)):
-        kernel_checks(8, 512, D_, causal=True, timed=False, dtype=dtype)
+    for D_ in HEADDIMS:
+        for L_ in (512, 1024):
+            for causal in (True, False):
+                kernel_checks(8, L_, D_, causal=causal, timed=False, want_route="wgmma")
+    kernel_checks(8, 512, 96, causal=True, timed=False, want_route="wgmma")  # padded to 128
+    kernel_checks(8, 512, 256, causal=True, timed=False, dtype=torch.float32, want_route="simt")
     torch.cuda.empty_cache()
     print(f"  kernels-long in {time.perf_counter() - t0:.1f} s")
 
@@ -5869,6 +5946,12 @@ def main():
     # 6. the slice: the ~1B train step
     print("[slice]")
     phase_launches = {"slice": train_phase(SLICE_ARGV, WARMUP_STEPS, TIMED_STEPS, card)}
+
+    # 6b. the trainer at head dims 32 and 256
+    t0 = time.perf_counter()
+    print("[headdims]")
+    phase_launches.update(headdims_phase(card))
+    print(f"  headdims in {time.perf_counter() - t0:.1f} s")
 
     # 7. ring attention over 4 shards of 16384
     t0 = time.perf_counter()
@@ -5975,9 +6058,16 @@ def main():
                                                     "train_utils", "elastic")}
             kernels.append({"name": name, "route": "cuda",
                             "source": WGMMA_SOURCE if design == "wgmma" else SOURCE,
-                            "replaces": replaces, "regime": regime,
+                            "replaces": replaces, "regime": regime, "head_dim": 128,
                             "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
                             **results[regime][name]})
+        # the same kernel's other bf16 instances, launched by [headdims]
+        for D_ in HEADDIMS:
+            n = phase_launches[f"headdims D {D_}"][f"{name}:wgmma"]
+            kernels.append({"name": name, "route": "cuda", "source": WGMMA_SOURCE,
+                            "replaces": lowerings["resident"], "regime": "resident",
+                            "head_dim": D_, "launches": n, "launches_by_phase": {"headdims": n},
+                            **results[f"resident D {D_}"][name]})
     print(f"[done] in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -30,24 +30,22 @@
 // warp, so a row reduction is four xor shuffles. Shared tiles carry one extra
 // 32-bit word per row, so 16 lanes reading 16 rows at one column hit 16 banks.
 //
-// Head dims (SIMT). Instances exist for D = 32, 64, 128 and 256; the Python wrapper
-// zero-pads any other D <= 256 up to the next one (zero columns leave QK^T and
-// the kept output columns unchanged, and it passes the true 1/sqrt(D)). TILE is
-// 64 rows up to D = 128 and 32 rows at D = 256: four f32 operand tiles of
-// 64 x 257 words (263 KB) would not fit the 227 KB of shared memory a block may
-// use, and dK/dV's register accumulators (2 * R * D/16 floats a thread) would
-// double past what 255 registers hold.
+// Head dims. Instances exist for D = 32, 64, 128 and 256 on both routes; the
+// Python wrapper zero-pads any other D <= 256 up to the next one (zero columns
+// leave QK^T and the kept output columns unchanged, and it passes the true
+// 1/sqrt(D)). The SIMT TILE is 64 rows up to D = 128 and 32 rows at D = 256:
+// four f32 operand tiles of 64 x 257 words (263 KB) would not fit the 227 KB
+// of shared memory a block may use, and dK/dV's register accumulators
+// (2 * R * D/16 floats a thread) would double past what 255 registers hold.
 //
-// Two designs, routed by ops/flash_attention.py (`kernel_route`), one
-// instance per (dtype, head dim) and no fallback between them:
+// Two designs, routed by ops/flash_attention.py (`kernel_route`) by dtype,
+// one instance per (dtype, head dim) and no fallback between them:
 //
-//   wgmma (flash_wgmma.cuh): F, KV and Q for bf16 operands at D 64 and 128,
-//     the trainer's and the ring's case (CFG_1B is 16 heads of dim 128).
-//     Products on the tensor cores, bf16 tiles fed by TMA.
-//   SIMT (this file): F, KV and Q for float32 operands and for D 32 and 256.
-//     Float32 FMAs on the SIMT cores from bf16 or f32 loads, in the Pallas
-//     kernels' order: the forward scales q before QK^T, the backward scales
-//     QK^T after.
+//   wgmma (flash_wgmma.cuh): F, KV and Q for bf16 operands at every head
+//     dim. Products on the tensor cores, bf16 tiles fed by TMA.
+//   SIMT (this file): F, KV and Q for float32 operands. Float32 FMAs on the
+//     SIMT cores from f32 loads, in the Pallas kernels' order: the forward
+//     scales q before QK^T, the backward scales QK^T after.
 //
 // Both keep the Pallas numerics: masked logits are -1e30, never -inf, with the
 // m_safe guard and the l >= 1e-30 clamp; lse is float32; l sums the float32
@@ -67,10 +65,10 @@
 // per visiting tile and the score tile never leaves the SM, so what bounds a
 // kernel is how fast it multiplies and exponentiates.
 //
-// The SIMT route runs its products as f32 FMAs (67 TFLOP/s peak; it reaches
-// 21-26) from tiles that all 256 threads load with scalar loads, a barrier
-// between load and compute, and the score tile round-tripping through shared
-// memory as f32. The wgmma route answers each of those: the products are
+// The SIMT route runs its products as f32 FMAs (67 TFLOP/s peak; it reached
+// 21-26 on bf16 operands, which it no longer serves) from tiles that all 256
+// threads load with scalar loads, a barrier between load and compute, and the
+// score tile round-tripping through shared memory as f32. The wgmma route answers each of those: the products are
 // wgmma.mma_async on bf16 tiles (989 TFLOP/s), one producer warp keeps TMA
 // loads of the next tiles in flight behind full/empty mbarriers while two
 // consumer warpgroups compute, and the score tile stays in registers: the
@@ -78,7 +76,9 @@
 // register A operand of the next product. dQ runs the forward's shape (Q and dO
 // resident, K and V streamed, dQ += dS K with K read MN-major) on 64-key
 // tiles, since S, dP and dQ together fill a consumer's registers at 128.
-// What is left in its way: the exponentials
+// At D 256 the forward and dQ stream smaller tiles and dK/dV splits dK and
+// dV between the warpgroups (flash_wgmma.cuh); at D 32 the same kernels read
+// 64-byte swizzled rows. What is left in its way: the exponentials
 // (MUFU, 16 a clock per SM) run while the tensor cores idle, as nothing yet
 // overlaps one warpgroup's softmax with its own next product, and both
 // warpgroups wait for each product to finish before the next step.
@@ -101,23 +101,11 @@ __host__ __device__ constexpr int tile_rows() {
   return D > 128 ? 32 : 64;
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+// Row stride, in floats, of a shared (TILE, D) tile: D plus one word.
+template <int D>
+__host__ __device__ constexpr int stride() {
+  return D + 1;
 }
-
-// Row stride, in elements, of a shared (TILE, D) tile of S: D plus one 32-bit word.
-template <typename S, int D>
-struct Stride {
-  static constexpr int value = D + static_cast<int>(4 / sizeof(S));
-};
 
 // Max and sum over the 16 lanes that own one row.
 __device__ __forceinline__ float row_max(float x) {
@@ -133,16 +121,15 @@ __device__ __forceinline__ float row_sum(float x) {
 
 // Copy rows row0 .. row0+TILE of a (L, D) slice into a shared tile, times
 // `mul`; rows at or past L read as zero.
-template <typename T, typename S, int D, int TILE>
-__device__ __forceinline__ void load_tile(S* dst, const T* __restrict__ src, int row0, int L,
-                                          float mul) {
-  constexpr int kStride = Stride<S, D>::value;
+template <int D, int TILE>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0,
+                                          int L, float mul) {
+  constexpr int kStride = stride<D>();
   for (int idx = threadIdx.x; idx < TILE * D; idx += kThreads) {
     const int r = idx / D;
     const int c = idx % D;
     const int row = row0 + r;
-    const float x = row < L ? to_f32(src[static_cast<size_t>(row) * D + c]) * mul : 0.f;
-    dst[r * kStride + c] = from_f32<S>(x);
+    dst[r * kStride + c] = row < L ? src[static_cast<size_t>(row) * D + c] * mul : 0.f;
   }
 }
 
@@ -160,30 +147,31 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
 // forward: o = softmax(q k^T * scale) v, lse = logsumexp of the same logits
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 constexpr size_t fwd_smem_bytes() {
   constexpr int kTile = tile_rows<D>();
-  return sizeof(float) * kTile * Stride<float, D>::value     // q, f32, pre-scaled
-         + 2 * sizeof(T) * kTile * Stride<T, D>::value       // k, v
-         + sizeof(float) * kTile * (kTile + 1);               // p
+  return sizeof(float) * kTile * stride<D>()        // q, pre-scaled
+         + 2 * sizeof(float) * kTile * stride<D>()  // k, v
+         + sizeof(float) * kTile * (kTile + 1);     // p
 }
 
-template <typename T, typename TO, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 TO* __restrict__ o, float* __restrict__ lse, int L, float scale, int causal) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int L, float scale, int causal) {
   constexpr int kTile = tile_rows<D>();
   constexpr int kRows = kTile / 16;      // tile rows per thread
   constexpr int kCols = kTile / 16;      // score columns per thread
   constexpr int kPStride = kTile + 1;    // row stride of a float score tile
-  constexpr int kQS = Stride<float, D>::value;
-  constexpr int kKS = Stride<T, D>::value;
+  constexpr int kQS = stride<D>();
+  constexpr int kKS = stride<D>();
   constexpr int kDC = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
-  T* Ks = reinterpret_cast<T*>(Qs + kTile * kQS);
-  T* Vs = Ks + kTile * kKS;
-  float* Ps = reinterpret_cast<float*>(Vs + kTile * kKS);
+  float* Ks = Qs + kTile * kQS;
+  float* Vs = Ks + kTile * kKS;
+  float* Ps = Vs + kTile * kKS;
 
   const int bh = blockIdx.x;
   // the last q-tiles see the most k-tiles under the causal mask: start them first
@@ -193,7 +181,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int ty = threadIdx.x >> 4;
 
   // q is scaled in f32 before QK^T, as _fwd_kernel does
-  load_tile<T, float, D, kTile>(Qs, q + base, q0, L, scale);
+  load_tile<D, kTile>(Qs, q + base, q0, L, scale);
 
   float m[kRows], l[kRows], acc[kRows][kDC];
 #pragma unroll
@@ -209,8 +197,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int kt = 0; kt < num_k; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's readers are done with Ks, Vs, Ps
-    load_tile<T, T, D, kTile>(Ks, k + base, k0, L, 1.f);
-    load_tile<T, T, D, kTile>(Vs, v + base, k0, L, 1.f);
+    load_tile<D, kTile>(Ks, k + base, k0, L, 1.f);
+    load_tile<D, kTile>(Vs, v + base, k0, L, 1.f);
     __syncthreads();
 
     float s[kRows][kCols];
@@ -224,7 +212,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int i = 0; i < kRows; ++i) qv[i] = Qs[(ty * kRows + i) * kQS + d];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = to_f32(Ks[(tx + 16 * j) * kKS + d]);
+      for (int j = 0; j < kCols; ++j) kv[j] = Ks[(tx + 16 * j) * kKS + d];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -266,7 +254,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int i = 0; i < kRows; ++i) pv[i] = Ps[(ty * kRows + i) * kPStride + kk];
 #pragma unroll
-      for (int c = 0; c < kDC; ++c) vv[c] = to_f32(Vs[kk * kKS + tx + 16 * c]);
+      for (int c = 0; c < kDC; ++c) vv[c] = Vs[kk * kKS + tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -281,7 +269,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float l_safe = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kDC; ++c)
-      o[base + static_cast<size_t>(row) * D + tx + 16 * c] = from_f32<TO>(acc[i][c] / l_safe);
+      o[base + static_cast<size_t>(row) * D + tx + 16 * c] = acc[i][c] / l_safe;
     if (tx == 0) lse[static_cast<size_t>(bh) * L + row] = m[i] + logf(l_safe);
   }
 }
@@ -291,32 +279,33 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 //   p = exp(q k^T * scale - lse), dV += p^T dO, dK += (p * (dO v^T - delta))^T q * scale
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 constexpr size_t dkdv_smem_bytes() {
   constexpr int kTile = tile_rows<D>();
-  return 4 * sizeof(T) * kTile * Stride<T, D>::value   // k, v, q, dO
+  return 4 * sizeof(float) * kTile * stride<D>()       // k, v, q, dO
          + 2 * sizeof(float) * kTile * (kTile + 1)      // p^T, dlogits^T
          + 2 * sizeof(float) * kTile;                   // lse, delta
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const T* __restrict__ dout, const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int L,
-                  float scale, int causal) {
+flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  float* __restrict__ dk, float* __restrict__ dv, int L, float scale,
+                  int causal) {
   constexpr int kTile = tile_rows<D>();
   constexpr int kRows = kTile / 16;      // tile rows per thread
   constexpr int kCols = kTile / 16;      // score columns per thread
   constexpr int kPStride = kTile + 1;    // row stride of a float score tile
-  constexpr int kS = Stride<T, D>::value;
+  constexpr int kS = stride<D>();
   constexpr int kDC = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + kTile * kS;
-  T* Qs = Vs + kTile * kS;
-  T* Gs = Qs + kTile * kS;  // dO
-  float* Pt = reinterpret_cast<float*>(Gs + kTile * kS);
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + kTile * kS;
+  float* Qs = Vs + kTile * kS;
+  float* Gs = Qs + kTile * kS;  // dO
+  float* Pt = Gs + kTile * kS;
   float* St = Pt + kTile * kPStride;  // dlogits^T
   float* lse_s = St + kTile * kPStride;
   float* delta_s = lse_s + kTile;
@@ -329,8 +318,8 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<T, T, D, kTile>(Ks, k + base, k0, L, 1.f);
-  load_tile<T, T, D, kTile>(Vs, v + base, k0, L, 1.f);
+  load_tile<D, kTile>(Ks, k + base, k0, L, 1.f);
+  load_tile<D, kTile>(Vs, v + base, k0, L, 1.f);
 
   float dka[kRows][kDC], dva[kRows][kDC];
 #pragma unroll
@@ -347,8 +336,8 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   for (int qt = first_q; qt < num_q; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // the previous tile's readers are done with Qs, Gs, Pt, St
-    load_tile<T, T, D, kTile>(Qs, q + base, q0, L, 1.f);
-    load_tile<T, T, D, kTile>(Gs, dout + base, q0, L, 1.f);
+    load_tile<D, kTile>(Qs, q + base, q0, L, 1.f);
+    load_tile<D, kTile>(Gs, dout + base, q0, L, 1.f);
     load_rows<kTile>(lse_s, lse_bh, q0, L);
     load_rows<kTile>(delta_s, delta_bh, q0, L);
     __syncthreads();
@@ -367,13 +356,13 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       float kv[kRows], vv[kRows], qv[kCols], gv[kCols];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        kv[i] = to_f32(Ks[(ty * kRows + i) * kS + d]);
-        vv[i] = to_f32(Vs[(ty * kRows + i) * kS + d]);
+        kv[i] = Ks[(ty * kRows + i) * kS + d];
+        vv[i] = Vs[(ty * kRows + i) * kS + d];
       }
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        qv[j] = to_f32(Qs[(tx + 16 * j) * kS + d]);
-        gv[j] = to_f32(Gs[(tx + 16 * j) * kS + d]);
+        qv[j] = Qs[(tx + 16 * j) * kS + d];
+        gv[j] = Gs[(tx + 16 * j) * kS + d];
       }
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
@@ -410,8 +399,8 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       }
 #pragma unroll
       for (int c = 0; c < kDC; ++c) {
-        gv[c] = to_f32(Gs[qq * kS + tx + 16 * c]);
-        qv[c] = to_f32(Qs[qq * kS + tx + 16 * c]);
+        gv[c] = Gs[qq * kS + tx + 16 * c];
+        qv[c] = Qs[qq * kS + tx + 16 * c];
       }
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
@@ -430,8 +419,8 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 #pragma unroll
     for (int c = 0; c < kDC; ++c) {
       const size_t at = base + static_cast<size_t>(krow) * D + tx + 16 * c;
-      dk[at] = from_f32<T>(dka[i][c] * scale);
-      dv[at] = from_f32<T>(dva[i][c]);
+      dk[at] = dka[i][c] * scale;
+      dv[at] = dva[i][c];
     }
   }
 }
@@ -441,32 +430,32 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 //   dQ += (p * (dO v^T - delta)) k * scale
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 constexpr size_t dq_smem_bytes() {
   constexpr int kTile = tile_rows<D>();
-  return 4 * sizeof(T) * kTile * Stride<T, D>::value   // q, dO, k, v
+  return 4 * sizeof(float) * kTile * stride<D>()       // q, dO, k, v
          + sizeof(float) * kTile * (kTile + 1)          // dlogits
          + 2 * sizeof(float) * kTile;                   // lse, delta
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int L, float scale,
-                int causal) {
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dq, int L, float scale, int causal) {
   constexpr int kTile = tile_rows<D>();
   constexpr int kRows = kTile / 16;      // tile rows per thread
   constexpr int kCols = kTile / 16;      // score columns per thread
   constexpr int kPStride = kTile + 1;    // row stride of a float score tile
-  constexpr int kS = Stride<T, D>::value;
+  constexpr int kS = stride<D>();
   constexpr int kDC = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Gs = Qs + kTile * kS;  // dO
-  T* Ks = Gs + kTile * kS;
-  T* Vs = Ks + kTile * kS;
-  float* Ss = reinterpret_cast<float*>(Vs + kTile * kS);  // dlogits
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Gs = Qs + kTile * kS;  // dO
+  float* Ks = Gs + kTile * kS;
+  float* Vs = Ks + kTile * kS;
+  float* Ss = Vs + kTile * kS;  // dlogits
   float* lse_s = Ss + kTile * kPStride;
   float* delta_s = lse_s + kTile;
 
@@ -476,8 +465,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<T, T, D, kTile>(Qs, q + base, q0, L, 1.f);
-  load_tile<T, T, D, kTile>(Gs, dout + base, q0, L, 1.f);
+  load_tile<D, kTile>(Qs, q + base, q0, L, 1.f);
+  load_tile<D, kTile>(Gs, dout + base, q0, L, 1.f);
   load_rows<kTile>(lse_s, lse + static_cast<size_t>(bh) * L, q0, L);
   load_rows<kTile>(delta_s, delta + static_cast<size_t>(bh) * L, q0, L);
 
@@ -492,8 +481,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   for (int kt = 0; kt < num_k; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's readers are done with Ks, Vs, Ss
-    load_tile<T, T, D, kTile>(Ks, k + base, k0, L, 1.f);
-    load_tile<T, T, D, kTile>(Vs, v + base, k0, L, 1.f);
+    load_tile<D, kTile>(Ks, k + base, k0, L, 1.f);
+    load_tile<D, kTile>(Vs, v + base, k0, L, 1.f);
     __syncthreads();
 
     float s[kRows][kCols], dp[kRows][kCols];
@@ -509,13 +498,13 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       float qv[kRows], gv[kRows], kv[kCols], vv[kCols];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        qv[i] = to_f32(Qs[(ty * kRows + i) * kS + d]);
-        gv[i] = to_f32(Gs[(ty * kRows + i) * kS + d]);
+        qv[i] = Qs[(ty * kRows + i) * kS + d];
+        gv[i] = Gs[(ty * kRows + i) * kS + d];
       }
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        kv[j] = to_f32(Ks[(tx + 16 * j) * kS + d]);
-        vv[j] = to_f32(Vs[(tx + 16 * j) * kS + d]);
+        kv[j] = Ks[(tx + 16 * j) * kS + d];
+        vv[j] = Vs[(tx + 16 * j) * kS + d];
       }
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
@@ -546,7 +535,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
       for (int i = 0; i < kRows; ++i) sv[i] = Ss[(ty * kRows + i) * kPStride + kk];
 #pragma unroll
-      for (int c = 0; c < kDC; ++c) kv[c] = to_f32(Ks[kk * kS + tx + 16 * c]);
+      for (int c = 0; c < kDC; ++c) kv[c] = Ks[kk * kS + tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -560,7 +549,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     if (row >= L) continue;
 #pragma unroll
     for (int c = 0; c < kDC; ++c)
-      dq[base + static_cast<size_t>(row) * D + tx + 16 * c] = from_f32<T>(dqa[i][c] * scale);
+      dq[base + static_cast<size_t>(row) * D + tx + 16 * c] = dqa[i][c] * scale;
   }
 }
 
@@ -576,56 +565,52 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T, typename TO, int D>
+template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
                        int L, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<T, D>();
-  auto kernel = flash_fwd_kernel<T, TO, D>;
+  constexpr size_t smem = fwd_smem_bytes<D>();
+  auto kernel = flash_fwd_kernel<D>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(BH, (L + tile_rows<D>() - 1) / tile_rows<D>());
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<TO*>(o), static_cast<float*>(lse), L, scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), L, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, void* dk, void* dv, int BH, int L,
                         float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = dkdv_smem_bytes<T, D>();
-  auto kernel = flash_dkdv_kernel<T, D>;
+  constexpr size_t smem = dkdv_smem_bytes<D>();
+  auto kernel = flash_dkdv_kernel<D>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(BH, (L + tile_rows<D>() - 1) / tile_rows<D>());
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), L, scale,
-      causal);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), L,
+      scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int BH, int L, float scale,
                       int causal, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<T, D>();
-  auto kernel = flash_dq_kernel<T, D>;
+  constexpr size_t smem = dq_smem_bytes<D>();
+  auto kernel = flash_dq_kernel<D>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(BH, (L + tile_rows<D>() - 1) / tile_rows<D>());
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), L, scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), L, scale, causal);
   return cudaGetLastError();
 }
-
-// The SIMT kernels serve bf16 only where the wgmma route does not
-// (flash_wgmma.cuh: D 64 and 128).
-constexpr bool simt_serves_bf16(int D) { return D != 64 && D != 128; }
 
 // Calls f(std::integral_constant<int, D>) for a head dim that has an instance.
 template <typename F>
@@ -653,17 +638,9 @@ const char* flash_error_string(int err) { return cudaGetErrorString(static_cast<
 int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int L,
               int D, float scale, int causal, int dtype, int out_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != kF32 || out_dtype != kF32) return cudaErrorInvalidValue;
   return by_head_dim(D, [&](auto d) {
-    constexpr int kD = decltype(d)::value;
-    if constexpr (simt_serves_bf16(kD)) {
-      if (dtype == kBF16 && out_dtype == kBF16)
-        return launch_fwd<__nv_bfloat16, __nv_bfloat16, kD>(q, k, v, o, lse, BH, L, scale, causal, st);
-      if (dtype == kBF16 && out_dtype == kF32)
-        return launch_fwd<__nv_bfloat16, float, kD>(q, k, v, o, lse, BH, L, scale, causal, st);
-    }
-    if (dtype == kF32 && out_dtype == kF32)
-      return launch_fwd<float, float, kD>(q, k, v, o, lse, BH, L, scale, causal, st);
-    return cudaErrorInvalidValue;
+    return launch_fwd<decltype(d)::value>(q, k, v, o, lse, BH, L, scale, causal, st);
   });
 }
 
@@ -671,15 +648,10 @@ int flash_dkdv(const void* q, const void* k, const void* v, const void* dout, co
                const void* delta, void* dk, void* dv, int BH, int L, int D, float scale,
                int causal, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != kF32) return cudaErrorInvalidValue;
   return by_head_dim(D, [&](auto d) {
-    constexpr int kD = decltype(d)::value;
-    if constexpr (simt_serves_bf16(kD)) {
-      if (dtype == kBF16)
-        return launch_dkdv<__nv_bfloat16, kD>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale, causal, st);
-    }
-    if (dtype == kF32)
-      return launch_dkdv<float, kD>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale, causal, st);
-    return cudaErrorInvalidValue;
+    return launch_dkdv<decltype(d)::value>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale,
+                                           causal, st);
   });
 }
 
@@ -687,19 +659,13 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout, cons
              const void* delta, void* dq, int BH, int L, int D, float scale, int causal,
              int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != kF32) return cudaErrorInvalidValue;
   return by_head_dim(D, [&](auto d) {
-    constexpr int kD = decltype(d)::value;
-    if constexpr (simt_serves_bf16(kD)) {
-      if (dtype == kBF16)
-        return launch_dq<__nv_bfloat16, kD>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
-    }
-    if (dtype == kF32)
-      return launch_dq<float, kD>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
-    return cudaErrorInvalidValue;
+    return launch_dq<decltype(d)::value>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
   });
 }
 
-// The wgmma route (flash_wgmma.cuh): bf16 operands at D 64 and 128 only, the
+// The wgmma route (flash_wgmma.cuh): bf16 operands at every head dim, the
 // forward's output bf16 or float32. The same arguments as flash_fwd /
 // flash_dkdv / flash_dq.
 int flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
@@ -707,15 +673,14 @@ int flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* 
                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != kBF16) return cudaErrorInvalidValue;
-  if (D == 64 && out_dtype == kBF16)
-    return flash_wgmma::launch_fwd<__nv_bfloat16, 64>(q, k, v, o, lse, BH, L, scale, causal, st);
-  if (D == 64 && out_dtype == kF32)
-    return flash_wgmma::launch_fwd<float, 64>(q, k, v, o, lse, BH, L, scale, causal, st);
-  if (D == 128 && out_dtype == kBF16)
-    return flash_wgmma::launch_fwd<__nv_bfloat16, 128>(q, k, v, o, lse, BH, L, scale, causal, st);
-  if (D == 128 && out_dtype == kF32)
-    return flash_wgmma::launch_fwd<float, 128>(q, k, v, o, lse, BH, L, scale, causal, st);
-  return cudaErrorInvalidValue;
+  return by_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if (out_dtype == kBF16)
+      return flash_wgmma::launch_fwd<__nv_bfloat16, kD>(q, k, v, o, lse, BH, L, scale, causal, st);
+    if (out_dtype == kF32)
+      return flash_wgmma::launch_fwd<float, kD>(q, k, v, o, lse, BH, L, scale, causal, st);
+    return cudaErrorInvalidValue;
+  });
 }
 
 int flash_dkdv_wgmma(const void* q, const void* k, const void* v, const void* dout,
@@ -723,11 +688,10 @@ int flash_dkdv_wgmma(const void* q, const void* k, const void* v, const void* do
                      float scale, int causal, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != kBF16) return cudaErrorInvalidValue;
-  if (D == 64)
-    return flash_wgmma::launch_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale, causal, st);
-  if (D == 128)
-    return flash_wgmma::launch_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, BH, L, scale, causal, st);
-  return cudaErrorInvalidValue;
+  return by_head_dim(D, [&](auto d) {
+    return flash_wgmma::launch_dkdv<decltype(d)::value>(q, k, v, dout, lse, delta, dk, dv, BH, L,
+                                                        scale, causal, st);
+  });
 }
 
 int flash_dq_wgmma(const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -735,26 +699,27 @@ int flash_dq_wgmma(const void* q, const void* k, const void* v, const void* dout
                    int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != kBF16) return cudaErrorInvalidValue;
-  if (D == 64)
-    return flash_wgmma::launch_dq<64>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
-  if (D == 128)
-    return flash_wgmma::launch_dq<128>(q, k, v, dout, lse, delta, dq, BH, L, scale, causal, st);
-  return cudaErrorInvalidValue;
+  return by_head_dim(D, [&](auto d) {
+    return flash_wgmma::launch_dq<decltype(d)::value>(q, k, v, dout, lse, delta, dq, BH, L, scale,
+                                                      causal, st);
+  });
 }
 
 // Dynamic shared memory a wgmma instance asks for at launch (role 0 the
 // forward, 1 dK/dV, 2 dQ), in bytes, or -1 for a role or head dim without
 // one: ptxas -v reports static shared memory only.
 int flash_wgmma_smem_bytes(int role, int D) {
-  if (D != 64 && D != 128) return -1;
-  size_t bytes;
-  switch (role) {
-    case 0: bytes = D == 64 ? flash_wgmma::fwd_smem_bytes<64>() : flash_wgmma::fwd_smem_bytes<128>(); break;
-    case 1: bytes = D == 64 ? flash_wgmma::dkdv_smem_bytes<64>() : flash_wgmma::dkdv_smem_bytes<128>(); break;
-    case 2: bytes = D == 64 ? flash_wgmma::dq_smem_bytes<64>() : flash_wgmma::dq_smem_bytes<128>(); break;
-    default: return -1;
-  }
-  return static_cast<int>(bytes);
+  size_t bytes = 0;
+  const cudaError_t found = by_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    switch (role) {
+      case 0: bytes = flash_wgmma::fwd_smem_bytes<kD>(); return cudaSuccess;
+      case 1: bytes = flash_wgmma::dkdv_smem_bytes<kD>(); return cudaSuccess;
+      case 2: bytes = flash_wgmma::dq_smem_bytes<kD>(); return cudaSuccess;
+      default: return cudaErrorInvalidValue;
+    }
+  });
+  return found == cudaSuccess ? static_cast<int>(bytes) : -1;
 }
 
 }  // extern "C"

@@ -30,11 +30,12 @@ of the true D); a head dim above 256, as in the reference's `_flash_ok`
 gate, raises.
 
 Routes. `kernel_route` is the one rule that says which instance serves a
-(dtype, head dim) on the card, for all three roles: the forward, dK/dV and
-dQ for bf16 operands at (padded) D 64 and 128 run on the tensor cores
-("wgmma": wgmma on bf16 tiles fed by TMA, `csrc/flash_wgmma.cuh`); every
-other case runs the float32 SIMT kernels ("simt"). It routes by shape:
-nothing catches a failed build or launch and tries the other instance.
+(dtype, head dim) on the card, for all three roles, by dtype: the forward,
+dK/dV and dQ for bf16 operands run on the tensor cores at every (padded)
+head dim ("wgmma": wgmma on bf16 tiles fed by TMA, `csrc/flash_wgmma.cuh`);
+float32 operands run the SIMT kernels ("simt", float32 FMAs,
+`csrc/flash_attention.cu`). Nothing catches a failed build or launch and
+tries the other instance.
 """
 
 from __future__ import annotations
@@ -49,12 +50,9 @@ from . import _build
 
 NEG_INF = -1e30
 
-# head dims the Hopper kernels are instantiated for; others up to the last
-# are zero-padded to the next one
+# head dims the Hopper kernels are instantiated for, on both routes; others
+# up to the last are zero-padded to the next one
 HEAD_DIMS = (32, 64, 128, 256)
-
-# padded head dims whose bf16 kernels run on the wgmma route
-WGMMA_HEAD_DIMS = (64, 128)
 
 # launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one where it launches its kernel, and nowhere else. LAUNCHES counts by
@@ -98,10 +96,14 @@ _SIGNATURES = {
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _kernel_tile(D: int) -> int:
-    """Rows per block of the SIMT kernels (`tile_rows`) for head dim D; the
-    wgmma kernels' blocks own 128 rows."""
-    return 32 if D > 128 else 64
+def _kernel_tile(name: str, Dp: int, route: str) -> int:
+    """Rows of the output tile one block of the instance that `name`
+    launches owns at padded head dim Dp: its grid is ceil(L / this) blocks
+    high. The SIMT kernels' `tile_rows`; the wgmma kernels' 128 rows, but
+    64 keys for dK/dV at D 256 (`Shape<D>::kKvRows`)."""
+    if route == "simt":
+        return 32 if Dp > 128 else 64
+    return 64 if name == "flash_dkdv" and Dp > 128 else 128
 
 
 def reset_launch_counts() -> None:
@@ -248,16 +250,16 @@ def _unpad(x, D: int):
 
 def kernel_route(dtype, D: int) -> str:
     """The instance that serves the forward, dK/dV and dQ for `dtype`
-    operands at head dim D on the card: "wgmma" for bf16 at a padded D in
-    WGMMA_HEAD_DIMS, else "simt". Raises for D above 256 and for a dtype
-    with no kernel."""
-    Dp = kernel_head_dim(D)
+    operands at head dim D on the card: "wgmma" for bf16, "simt" for
+    float32, at every head dim. Raises for D above 256 and for a dtype with
+    no kernel."""
+    kernel_head_dim(D)  # raises above 256
     if dtype not in _DTYPE_CODES:
         raise ValueError(
             f"dtype {dtype} has no Hopper kernel; supported dtypes are "
             f"{tuple(_DTYPE_CODES)}"
         )
-    return "wgmma" if dtype == torch.bfloat16 and Dp in WGMMA_HEAD_DIMS else "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def _check_kernel_operands(name, q, *others):
@@ -269,7 +271,7 @@ def _check_kernel_operands(name, q, *others):
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
     Dp = kernel_head_dim(D)
-    if -(-L // _kernel_tile(Dp)) > 65535:
+    if -(-L // _kernel_tile(name, Dp, route)) > 65535:
         raise ValueError(f"{name}: seq len {L} exceeds the kernel grid")
     for t in (q, *others):
         if t.device != q.device:

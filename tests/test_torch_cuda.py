@@ -31,25 +31,23 @@ def _need_card():
     torch.backends.cudnn.allow_tf32 = False
 
 
-# On the SIMT route kernel and plain version both compute in float32 from the
-# same operands, in another order; bf16 outputs then round once more on each
-# side (2**-8 relative each), so bf16 is held to rtol 2**-7 and an atol of
-# 1e-3 of the plain output's largest entry, as chip_smoke.py holds it. The
-# wgmma route (bf16 at D 64 and 128) also rounds P and dS to bf16, and is held
-# to the tolerance declared with it, `WGMMA_BF16_TOL`.
+# On the SIMT route (float32 operands) kernel and plain version compute in
+# float32 in another order, and are held to _F32_TOL. The wgmma route (bf16
+# operands at every head dim) rounds P and dS to bf16 beside rounding its
+# bf16 outputs once, and is held to the tolerance declared with it,
+# `WGMMA_BF16_TOL`.
 _F32_TOL = dict(rtol=1e-4, atol=1e-5)
 # float32 against the CPU path: the same arithmetic in another order on both
 # sides, the atol a share of the largest entry, as chip_smoke.py's F32_TOL
 _F32_ATOL_FRAC = 1e-5
 
 
-def _assert_close(got, want, dtype, msg=None, D=None):
+def _assert_close(got, want, dtype, D, msg=None):
+    """`got` against `want` at the tolerance of the route (dtype, D) takes."""
     got, want = got.float(), want.float()
     top = float(want.abs().max())
-    if D is not None and tfa.kernel_route(dtype, D) == "wgmma":
+    if tfa.kernel_route(dtype, D) == "wgmma":
         tol = dict(rtol=tfa.WGMMA_BF16_TOL["rtol"], atol=tfa.WGMMA_BF16_TOL["atol_frac"] * top)
-    elif dtype == torch.bfloat16:
-        tol = dict(rtol=2 ** -7, atol=1e-3 * top)
     else:
         tol = _F32_TOL
     torch.testing.assert_close(got, want, **tol, msg=msg)
@@ -93,15 +91,16 @@ def test_kernels_match_plain(dtype, D, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 48, 64, 128, 200, 256])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("L, blk", [(5, 5), (17, 17), (200, 40), (1000, 40), (1024, 128)])
 def test_wgmma_routes_match_plain(D, causal, L, blk):
     """The wgmma forward (bf16 and float32 output), dK/dV and dQ against
     their plain versions, with a ragged L and four heads of different
     scales: a tile that read past L into the next head's rows would show.
-    L 5 and 17 are shorter than one TMA box. Every launch takes the wgmma
-    route."""
+    L 5 and 17 are shorter than one TMA box. Every instance: D 32 (64-byte
+    swizzle), 64, 128, 256 (dK/dV split between the warpgroups), and 48 and
+    200, zero-padded to 64 and 256. Every launch takes the wgmma route."""
     _need_card()
     assert tfa.kernel_route(torch.bfloat16, D) == "wgmma"
     gen = torch.Generator(device="cuda").manual_seed(L + D)
@@ -134,7 +133,7 @@ def test_wgmma_routes_match_plain(D, causal, L, blk):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, D, route", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 48, "wgmma"),
-    (torch.bfloat16, 32, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 256, "wgmma"), (torch.float32, 128, "simt"),
 ])
 def test_route_counts_on_the_autograd_path(dtype, D, route):
     """`flash_attention` forward and backward on CUDA tensors: one launch of
@@ -192,11 +191,12 @@ def test_flash_attention_goes_through_the_kernels():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, D", [
     (torch.float32, 64), (torch.float32, 128), (torch.bfloat16, 64), (torch.bfloat16, 128),
+    (torch.bfloat16, 32), (torch.bfloat16, 256),
 ])
 def test_kernels_are_bitwise_steady(dtype, D):
     """F, KV and Q on the same inputs three times give the same bits: none
     of them uses atomics or reads another block's output. float32 runs the
-    SIMT kernels, bf16 at D 64 and 128 the wgmma ones."""
+    SIMT kernels, bf16 the wgmma ones."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(D)
     q, k, v, do = (torch.randn((4, 1000, D), device="cuda", generator=gen).to(dtype)
@@ -217,6 +217,22 @@ def test_kernels_are_bitwise_steady(dtype, D):
     for again in runs[1:]:
         for name, a, b in zip(("o", "lse", "dk", "dv", "dq"), runs[0], again):
             assert torch.equal(a, b), f"{name} ({route}) changed between runs"
+
+
+@pytest.mark.cuda
+def test_wgmma_instances_fit_shared_memory():
+    """Every wgmma instance asks for at most the 232,448 bytes of shared
+    memory a block may use on the H100; a head dim or role without an
+    instance answers -1."""
+    _need_card()
+    from pytorch_distributed_example_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attention", tfa._SIGNATURES)
+    for D in tfa.HEAD_DIMS:
+        for role in range(3):
+            assert 0 < lib.flash_wgmma_smem_bytes(role, D) <= 232448, (role, D)
+    assert lib.flash_wgmma_smem_bytes(0, 48) == -1
+    assert lib.flash_wgmma_smem_bytes(3, 128) == -1
 
 
 @pytest.mark.cuda

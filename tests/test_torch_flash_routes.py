@@ -2,11 +2,12 @@
 wgmma route's declared tolerance, on the CPU.
 
 `kernel_route` says which instance serves a (dtype, head dim) on the card:
-the forward, dK/dV and dQ for bf16 at a padded D of 64 or 128 run on the
-tensor cores ("wgmma"), the rest on the float32 SIMT kernels ("simt"). The
-wgmma route rounds P and dS to bf16 as wgmma operands, so it is held to
+the forward, dK/dV and dQ for bf16 at every padded head dim run on the
+tensor cores ("wgmma"), float32 on the SIMT kernels ("simt"). The wgmma
+route rounds P and dS to bf16 as wgmma operands, so it is held to
 `WGMMA_BF16_TOL`; the last tests show that rounding alone, done in a copy of
-the plain versions kept in this file, stays inside it. The kernels themselves
+the plain versions kept in this file, stays inside it at head dims 32, 128
+and 256. The kernels themselves
 are held against the plain versions on the card by `tests/test_torch_cuda.py`
 and `chip_smoke.py`.
 """
@@ -30,8 +31,9 @@ def test_every_head_dim_has_exactly_one_route(dtype):
     for D in range(1, 257):
         route = tfa.kernel_route(dtype, D)
         Dp = tfa.kernel_head_dim(D)
-        want = "wgmma" if dtype == torch.bfloat16 and Dp in (64, 128) else "simt"
+        want = "wgmma" if dtype == torch.bfloat16 else "simt"
         assert route == want, (dtype, D, route)
+        assert Dp in tfa.HEAD_DIMS and Dp >= D
         assert f"flash_fwd:{route}" in tfa.ROUTE_LAUNCHES
         assert f"flash_dkdv:{route}" in tfa.ROUTE_LAUNCHES
         assert f"flash_dq:{route}" in tfa.ROUTE_LAUNCHES
@@ -48,12 +50,26 @@ def test_route_raises_off_the_instances(dtype, D):
 
 @pytest.mark.parametrize("dtype, D, want", [
     (torch.bfloat16, 128, (128, "wgmma")), (torch.bfloat16, 96, (128, "wgmma")),
-    (torch.bfloat16, 48, (64, "wgmma")), (torch.bfloat16, 32, (32, "simt")),
-    (torch.bfloat16, 200, (256, "simt")), (torch.float32, 128, (128, "simt")),
+    (torch.bfloat16, 48, (64, "wgmma")), (torch.bfloat16, 32, (32, "wgmma")),
+    (torch.bfloat16, 200, (256, "wgmma")), (torch.float32, 128, (128, "simt")),
 ])
 def test_operand_check_names_the_padded_dim_and_route(dtype, D, want):
     q = torch.zeros(2, 64, D, dtype=dtype)
     assert tfa._check_kernel_operands("flash_fwd", q, q, q) == want
+
+
+@pytest.mark.parametrize("name, Dp, route, rows", [
+    ("flash_fwd", 128, "wgmma", 128), ("flash_dkdv", 128, "wgmma", 128),
+    ("flash_dq", 256, "wgmma", 128), ("flash_dkdv", 256, "wgmma", 64),
+    ("flash_dkdv", 32, "wgmma", 128), ("flash_fwd", 128, "simt", 64),
+    ("flash_dq", 256, "simt", 32),
+])
+def test_grid_limit_follows_the_launched_instance(name, Dp, route, rows):
+    """The row tile the grid check divides L by is the one the launched
+    instance's blocks own: dK/dV at D 256 owns 64 keys a block (its two
+    warpgroups split dK and dV), the other wgmma instances 128 rows, the
+    SIMT ones their `tile_rows`."""
+    assert tfa._kernel_tile(name, Dp, route) == rows
 
 
 def test_wgmma_route_refuses_unaligned_operands():
@@ -102,8 +118,9 @@ def test_signatures_declare_every_c_function():
 # versions, against the unchanged plain versions
 # ---------------------------------------------------------------------------
 
-BH, L, D = 4, 256, 128  # the slice's head dim, a small L
+BH, L = 4, 256  # a small L; the head dim is each test's
 BLOCK = 64
+HEAD_DIMS = [32, 128, 256]  # the trainer's default, the slice's, the largest
 
 
 def _bf16(x):
@@ -113,6 +130,7 @@ def _bf16(x):
 def _fwd_rounding_p(q, k, v, scale, causal):
     """`_fwd_plain` with P rounded to bf16 before P.V, as the wgmma forward
     feeds it to the tensor cores; l still sums the f32 probabilities."""
+    D = q.shape[-1]
     o = torch.empty(q.shape, dtype=torch.float32)
     for i in range(L // BLOCK):
         q_start = i * BLOCK
@@ -141,6 +159,7 @@ def _fwd_rounding_p(q, k, v, scale, causal):
 def _dkdv_rounding_p_ds(q, k, v, do, lse, delta, scale, causal):
     """`_dkdv_plain` with P and dS rounded to bf16 before dV += P^T dO and
     dK += dS^T Q, as the wgmma dK/dV kernel feeds them."""
+    D = q.shape[-1]
     dk = torch.empty(q.shape, dtype=torch.float32)
     dv = torch.empty_like(dk)
     for j in range(L // BLOCK):
@@ -165,6 +184,7 @@ def _dkdv_rounding_p_ds(q, k, v, do, lse, delta, scale, causal):
 def _dq_rounding_ds(q, k, v, do, lse, delta, scale, causal):
     """`_dq_plain` with dS rounded to bf16 before dQ += dS K, as the wgmma
     dQ kernel feeds it."""
+    D = q.shape[-1]
     dq = torch.empty(q.shape, dtype=torch.float32)
     for i in range(L // BLOCK):
         rows = slice(i * BLOCK, (i + 1) * BLOCK)
@@ -191,25 +211,27 @@ def _within_wgmma_tol(got, want, name):
     assert worst <= 0, f"{name}: {worst:.3e} past the declared tolerance {tol}"
 
 
-def _inputs(seed):
+def _inputs(seed, D):
     gen = np.random.default_rng(seed)
     return [torch.tensor(gen.standard_normal((BH, L, D)), dtype=torch.float32)
             .to(torch.bfloat16) for _ in range(4)]
 
 
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-def test_rounding_p_stays_within_declared_tolerance(causal, out_dtype):
-    q, k, v, _ = _inputs(40 + causal)
+def test_rounding_p_stays_within_declared_tolerance(causal, out_dtype, D):
+    q, k, v, _ = _inputs(40 + causal, D)
     scale = D ** -0.5
     want, _ = tfa._fwd_plain(q, k, v, scale, causal, BLOCK, BLOCK, out_dtype=out_dtype)
     got = _fwd_rounding_p(q, k, v, scale, causal).to(out_dtype)
     _within_wgmma_tol(got, want, "o")
 
 
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("causal", [False, True])
-def test_rounding_p_and_ds_stays_within_declared_tolerance(causal):
-    q, k, v, do = _inputs(50 + causal)
+def test_rounding_p_and_ds_stays_within_declared_tolerance(causal, D):
+    q, k, v, do = _inputs(50 + causal, D)
     scale = D ** -0.5
     o, lse = tfa._fwd_plain(q, k, v, scale, causal, BLOCK, BLOCK)
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
@@ -219,9 +241,10 @@ def test_rounding_p_and_ds_stays_within_declared_tolerance(causal):
         _within_wgmma_tol(g.to(torch.bfloat16), w, name)
 
 
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("causal", [False, True])
-def test_rounding_ds_in_dq_stays_within_declared_tolerance(causal):
-    q, k, v, do = _inputs(60 + causal)
+def test_rounding_ds_in_dq_stays_within_declared_tolerance(causal, D):
+    q, k, v, do = _inputs(60 + causal, D)
     scale = D ** -0.5
     o, lse = tfa._fwd_plain(q, k, v, scale, causal, BLOCK, BLOCK)
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
