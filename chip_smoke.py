@@ -7,32 +7,43 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
 
 1. card: name, count, power limit; TF32 off, so the plain versions
    compute in full float32.
-2. build: nvcc builds csrc/flash_attention.cu (with csrc/flash_wgmma.cuh)
-   for sm_90a; each instance's registers and spills from ptxas, and the
-   wgmma instances' dynamic shared memory, are printed. A wgmma instance
-   that spills, or asks for more than a block's 232,448 bytes of shared
-   memory, fails the phase.
+2. build: nvcc builds csrc/flash_attention.cu (with csrc/flash_wgmma.cuh
+   and csrc/flash_tf32x3.cuh) for sm_90a; each instance's registers and
+   spills from ptxas, and the tensor-core instances' dynamic shared memory,
+   are printed. A wgmma or tf32x3 instance that spills, or asks for more
+   than a block's 232,448 bytes of shared memory, fails the phase.
 3. kernels: the forward (F), dK/dV (KV) and dQ (Q) kernels against their
    plain versions at the ~1B train step's shapes (B*H 64, L 1024, D 128,
    bf16, causal), plus a non-causal and a D=64 case; F also with float32
-   output. `fa.kernel_route` names each kernel's instance: bf16 takes the
-   wgmma route at every head dim, held to its declared tolerance, float32
-   the SIMT route. Timed by CUDA events beside the plain version, the
-   bound, and the library (timed here only; the port never calls it):
+   output. `fa.kernel_route` names each kernel's instance by role: bf16
+   takes the wgmma route at every head dim, held to its declared
+   tolerance; float32 the SIMT forward and the tf32x3 dK/dV and dQ (three
+   TF32 passes on the tensor cores), held to the float32 tolerance. Timed
+   by CUDA events beside the plain version, the bound (at the peak of
+   the route's instructions: bf16 wgmma, float32 FMAs, or TF32 mma.sync
+   over its three passes), and the library (timed here only; the port
+   never calls it):
    for bf16 `scaled_dot_product_attention` for F and its flash backward
    for KV and Q together, for float32 the efficient backend's forward and
    backward (the flash backend refuses float32). Timed at the same work
    (B*H*D 8192, L 1024, causal): bf16 D 128, 32 (B*H 256) and 256 (B*H
-   32) on wgmma, float32 D 128 and 32 on SIMT.
+   32) on wgmma, float32 D 128, 32, 64 and 256 on the float32 routes.
 4. kernels-long: F (bf16 and float32 output), KV and Q against their plain
    versions in the reference's streamed regime (B*H 16, L 16384, D 128,
    bf16, causal; L*D = 2.1M elements), timed as in phase 3 except that
    each plain version is timed once, by the call that checks it; F with
    float32 output (ring attention's partials) at the same shape,
    non-causal; bf16 D 32 and 256 at L 512 and 1024, causal and full, D 96
-   (padded to 128), all on the wgmma route, and float32 D 256 on SIMT.
+   (padded to 128), all on the wgmma route, and float32 at D 32, 64, 128
+   and 256 (L 512, causal and full) on the float32 routes. Then float32
+   dK/dV and dQ on heads scaled by 1 to 4 (B*H 8, L 1024, every head dim,
+   causal and full) against a float64 copy of the same arithmetic: within
+   the float32 tolerance of it, and no farther from it than twice the plain
+   float32 version.
 5. reference: a small float32 TransformerLM on the card against the same
-   weights on the CPU (the plain versions): logits, loss and grads.
+   weights on the CPU (the plain versions): logits, loss and grads; its
+   launches on the card (head dim 128) must be one a layer of each role
+   on the float32 routes.
 6. slice: the trainer (`examples/lm.py`) at the ~1B configuration's full
    width (vocab 32000, d 2048, 16 layers, 16 heads, d_ff 5504, seq 1024,
    batch 4, bf16, AdamW): the first step's loss and logits against the
@@ -48,6 +59,9 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    attention the slice's operations), the first-step check on 2 layers as
    in [long]. F, KV and Q on the wgmma route, n_layers * 3 launches each;
    (b)'s step beside the slice's from the same run.
+6c. float32: the trainer at its own defaults without --bf16 (8 heads of
+   32, 4 layers), as the slice: F on the SIMT route, KV and Q on tf32x3,
+   n_layers * 3 launches each.
 7. ring: `make_cp_attention(4, mode="ring", causal=True)` (driver mode) over
    4 shards of 16384 tokens (B 1, H 16, D 128, bf16), forward and
    backward: one untimed warm-up call, then two timed calls (their mean
@@ -55,7 +69,7 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    output), KV and Q, all on the wgmma route; output and dQ/dK/dV
    against `flash_with_lse` over the whole 65536-token sequence on the
    same kernels, timed the same way. Then a small float32 ring (the SIMT
-   kernels) against dense attention.
+   forward, the tf32x3 dK/dV and dQ) against dense attention.
 8. long: the trainer at seq 16384, batch 1, at the same full width: the
    first-step check on a 2-layer model (flash against dense on the same
    weights), one warm-up step, 2 timed steps after which F, KV and Q
@@ -89,7 +103,7 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
 11. fsdp_tp: the trainer over an ("fsdp", "tp") mesh of 2 x 2 in driver
    mode on cuda:0 (`examples/lm.py` with --tp 2 at 4 ranks: fully_shard by
    the reference's transformer rules, the batch split over fsdp, AdamW on
-   the shards), at the slice's full width, depth and global work. Its
+   the shards), at the slice's full width and global work, 4 layers. Its
    first step's loss and every gathered gradient against the single-card
    step on the same weights and tokens (|dloss| <= 1e-2, rms(diff)/rms <=
    3e-2), three steps with a finite, falling loss, two warm-up steps, 3
@@ -97,7 +111,7 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    memory, per-rank bytes of params and optimizer state), then one
    profiled step in which F, KV and Q must launch once a layer for all
    four ranks, on the wgmma route. The MoE (8 experts, top-1) with its
-   depth cut to 4 layers: its first step against the single card in
+   depth cut to 2 layers: its first step against the single card in
    float32 (loss and gradients; bf16 rounding moves a few tokens to other
    experts), then the same run as the dense one in bf16 (loss against the
    single card), with the aux values; then `make_ep_moe` at 4 ranks
@@ -110,13 +124,14 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    generate() greedy and sampled (T 0.8, top-k 8) token for token, and a
    12-request engine trace (a pool that preempts, chunked prefill at 8,
    the prefix cache on; float and int8 pools) with equal completions.
-   Then CFG_1B at full width, max_seq_len 2048, bf16: prefill logits of
-   4 x 512 tokens through the decode path against the flash forward
-   (rms(diff)/rms <= 3e-2); 48 requests of the bimodal new-token mix on
+   Then CFG_1B at full width and 4 layers, max_seq_len 2048, bf16:
+   prefill logits of 4 x 512 tokens through the decode path against the
+   flash forward (rms(diff)/rms <= 3e-2); 24 requests of the bimodal
+   new-token mix on
    prompts of 256 or 512 tokens with chunked prefill at 256, once with the
    full pool and once with 192 blocks, which must preempt, and every
    greedy stream identical across the two; the bimodal burst of
-   `benchmarks/serve_bench.py` (48 requests, prompts 8-64, 8 slots,
+   `benchmarks/serve_bench.py` (its first 24 requests, prompts 8-64, 8 slots,
    unchunked) timed with a float and an int8 pool (tokens/s, TTFT and TPOT
    p50/p99, peak memory, pool bytes; the int8 pool's greedy match rate
    reported); one steady 8-slot decode step by CUDA events and under
@@ -130,8 +145,8 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    greedy tokens, float and int8 pools; a 1 x 1 `DisaggRouter` over
    `HashStore` gives the colocated engine's completions, greedy and
    sampled, one migration a request; a republished migration is byte for
-   byte the first (bf16 and int8 pools). Then CFG_1B at full width,
-   max_seq_len 2048, bf16, block 16: tp 2 prefill logits (4 x 512 through
+   byte the first (bf16 and int8 pools). Then CFG_1B at full width and
+   4 layers, max_seq_len 2048, bf16, block 16: tp 2 prefill logits (4 x 512 through
    the paged programs) against the single-card engine (rms(diff)/rms <=
    3e-2); the [serve] bimodal burst through tp 1 and tp 2 engines of 8
    slots (tokens/s, TTFT and TPOT p50/p99, pool bytes a rank, peak memory;
@@ -151,7 +166,7 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    mid-flight `remove_replica` on the determinism construct, sealed into
    HashStore, whose greedy tokens must equal one unscaled engine's (the
    colocated run of the disagg construct). The MoE's tensor-parallel
-   decode at MOE_ARGV's shape (d 2048, 4 layers, 8 experts, top-1) at tp
+   decode at MOE_ARGV's shape (d 2048, 2 layers, 8 experts, top-1) at tp
    2 against the single-card engine: float32 (TF32 off) prefill logits
    within rms 1e-4, bf16 within rms 3e-2, and so each decode step's
    logits with the single card's greedy tokens fed in (8 prompts of 48
@@ -192,24 +207,24 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    `vmap` over 4 stages at CFG_1B's attention: one launch each of F, KV
    and Q, bitwise the per-stage loop. (b) CFG_1B over dp 2 x fsdp 2 x tp
    2 (8 driver-mode ranks): the `[fsdp_tp]` checks, times, memory and
-   launch counts on the 3-D mesh. (c) CFG_1B's 16 blocks as a pp 4
-   pipeline (4 a stage, bf16, flash), M 8 microbatches of 1 x 1024
+   launch counts on the 3-D mesh. (c) 8 of CFG_1B's blocks as a pp 4
+   pipeline (2 a stage, bf16, flash), M 8 microbatches of 1 x 1024
    tokens from the embedding, the loss the final norm, LM head and
    cross-entropy: 1F1B's loss and stage gradients against the
    unpipelined blocks and GPipe's against 1F1B (|dloss| <= 1e-2, rms
-   ratio <= 3e-2), the timed 1F1B step (launches: 8 F, 4 KV, 4 Q a
+   ratio <= 3e-2), the timed 1F1B step (launches: 4 F, 2 KV, 2 Q a
    tick) and its profile, 1F1B's peak memory at M 8 and 16 within 10%,
    GPipe's at M 4 and 8 growing by more than 10%, and the interleaved
-   schedule (V 2: 8 stages of 2 blocks over pp 4) against the sequential
+   schedule (V 2: 8 stages of 1 block over pp 4) against the sequential
    forward (rms ratio <= 3e-2).
 17. ckpt: checkpoints, after `[dryrun]`. CFG_1B's single-card trainer
-   (`examples/lm.py` at the slice's argv, f32 params, AdamW): 2 steps,
-   `save_checkpoint` (~11.29 GB: seconds and GB/s of the device->host
+   at 2 layers (`examples/lm.py` at the slice's width, f32 params, AdamW):
+   2 steps, `save_checkpoint` (~2.8 GB: seconds and GB/s of the device->host
    copy, the npz write and the CRC + fsync, beside the free disk), step 3;
    a model and optimizer from another seed, `load_checkpoint` (CRC
    verify, npz read, host->device), and step 3 again: the loaded state
    bitwise the saved one on the card, step 3's loss and params bitwise
-   the uninterrupted run's. Then CFG_1B over fsdp 2 x tp 2 after one
+   the uninterrupted run's. Then the same over fsdp 2 x tp 2 after one
    step: `dcp_save` (each rank's shard its own DCP entry), `dcp_load`
    into the same layout and one step from that state against the live
    one, 4 -> 1 into `resharded_template`'s single-card layout (bitwise
@@ -247,20 +262,22 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    cuda:0 over gloo (`backend="cuda:gloo"`; nccl refuses two ranks on
    one GPU), each rank a `python3 chip_smoke.py --worker PART RANK WORLD
    PORT BACKEND` process, the files they exchange under `.multiproc_smoke/`
-   (removed after), each gang under a timeout: (a) CFG_1B dense at full
-   width and depth over fsdp 2 x tp 2 as 4 processes: the first step
+   (removed after), each gang under a timeout; (a)-(d) are one gang of 4
+   processes and (e) and (g) one of 2, whose processes run their parts in
+   turn, each over a process group of its own: (a) CFG_1B dense at full
+   width, 4 layers, over fsdp 2 x tp 2 as 4 processes: the first step
    against the single card on the same weights and tokens (|dloss| <=
    1e-2, every gathered gradient's rms ratio <= 3e-2, the worst printed),
    the three steps' losses within 1e-2 of `[fsdp_tp]`'s driver-mode ones,
    a warm-up and 2 timed steps (the bytes each process hands gloo, the
    host seconds inside the collectives, the backend's staged bytes and
-   seconds), one step with its launches counted (16 each of F, KV, Q a
+   seconds), one step with its launches counted (4 each of F, KV, Q a
    process, wgmma; rank 0 under the profiler); (b) the ring (flash
    block) at `[ring]`'s shape as 4 processes, output and gradients
    against the driver-mode ring on the card under `RING_GRAD_TOL`,
    process r launching F, KV and Q r + 1 times a call, its sends staged
    through pinned memory; Ulysses (flash inside) against its driver-mode
-   form; (c) 1F1B of CFG_1B's 16 blocks at pp 4, M 8, a stage a process,
+   form; (c) 1F1B of 8 of CFG_1B's blocks at pp 4, M 8, a stage a process,
    loss and every stage's gradients against driver mode's 1F1B (the bf16
    tolerance above), each process's launches (2 F, 1 KV, 1 Q a block a
    microbatch, wgmma) and the peak memory of its timed step, the process
@@ -271,9 +288,10 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    (ResNet-18, SyncBN, float32, `cudnn.deterministic`): the first step's
    loss, batch statistics and params against driver mode at world 2
    (rtol 1e-4, atol 1e-6); (f) (a)'s step at 4 layers as a world-1 nccl
-   gang against the single card; (g) CFG_1B (max_seq_len 2048, bf16)
-   served at tp 2 as 2 processes, a `ServeEngine(mesh=init_device_mesh(
-   ("tp",), (2,)))` a process: the bimodal burst's first 16 requests, the
+   gang against the single card; (g) CFG_1B's width at 4 layers
+   (max_seq_len 2048, bf16) served at tp 2 as 2 processes, a
+   `ServeEngine(mesh=init_device_mesh(("tp",), (2,)))` a process: the
+   bimodal burst's first 8 requests, the
    two processes' tokens the same; in float32 (TF32 off, float pool) the
    greedy streams token for token the driver-mode tp 2 engine's in the
    same call; in bf16 (float and int8 pools) the prefill logits (2 x 128)
@@ -309,9 +327,10 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    world 2 (the bandwidth gang) must fail `plan.traced.prepare` on both
    processes naming eqn #1.
 21. report: one JSON line of kernels (each Hopper kernel once per Pallas
-   lowering it replaces at D 128, and once for each of its D 32 and D 256
-   instances with [headdims]' launches, with its design, "wgmma" or
-   "simt", and its launches per phase, `serve_fleet`, `cifar`, `bert`,
+   lowering it replaces at D 128, once for each of its bf16 D 32 and D 256
+   instances with [headdims]' launches, and once for each float32 instance
+   at D 128 and 32 with [reference]'s and [float32]'s, with its design, "wgmma" or
+   "simt" or "tf32x3", and its launches per phase, `serve_fleet`, `cifar`, `bert`,
    `dryrun`, `ckpt`, `train_utils`, `multiproc` ((a)'s and (c)'s gang
    processes' counted launches, in the resident rows), `multiproc_ring`
    ((b)'s, in the streamed rows) and `planner` ((b)'s two profiled steps)
@@ -384,6 +403,10 @@ TIMED_STEPS = 3
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
 SMEM_PER_BLOCK = 232448  # the most shared memory a block may use on the H100
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the peak rate of the instructions each kernel route does its products with:
+# bf16 wgmma; float32 FMAs on the CUDA cores; TF32 mma.sync at 495 TFLOP/s
+# dense, three passes to a float32-accurate product
+ROUTE_PEAK_FLOPS = {"wgmma": 989e12, "simt": 67e12, "tf32x3": 495e12 / 3}
 LONG_ARGV = ["--vocab-size", "32000", "--d-model", "2048", "--n-layers", "16",
              "--n-heads", "16", "--seq", "16384", "--batch-size", "1", "--bf16",
              "--lr", "1e-3"]
@@ -392,10 +415,12 @@ LONG_WARMUP_STEPS = 1
 LONG_TIMED_STEPS = 2
 RING_WORLD, RING_SHARD = 4, 16384
 # the sharded trainer: fsdp 2 x tp 2 in driver mode on cuda:0, the slice's
-# global work; the MoE at the same width, its depth cut to 4 layers
+# width and global work at 4 of its 16 layers (the full depth until the
+# whole run neared its time limit; [slice] and [dryrun] keep all 16); the
+# MoE at the same width, its depth cut to 2 layers (4 until then)
 FSDP_TP_WORLD, FSDP_TP_TP = 4, 2
-FSDP_TP_ARGV = SLICE_ARGV + ["--tp", str(FSDP_TP_TP)]
-MOE_ARGV = ["--vocab-size", "32000", "--d-model", "2048", "--n-layers", "4", "--n-heads", "16",
+FSDP_TP_ARGV = SLICE_ARGV + ["--n-layers", "4", "--tp", str(FSDP_TP_TP)]
+MOE_ARGV = ["--vocab-size", "32000", "--d-model", "2048", "--n-layers", "2", "--n-heads", "16",
             "--seq", "1024", "--batch-size", "4", "--bf16", "--lr", "1e-3",
             "--tp", str(FSDP_TP_TP), "--n-experts", "8"]
 FSDP_TP_STEPS = 3  # checked steps, which warm up the timed ones
@@ -405,6 +430,8 @@ SHARDED_LOSS_TOL, SHARDED_GRAD_RMS = 1e-2, 3e-2
 EP_WORLD, EP_EXPERTS = 4, 8
 SOURCE = "pytorch_distributed_example_tpu_torch/csrc/flash_attention.cu"
 WGMMA_SOURCE = "pytorch_distributed_example_tpu_torch/csrc/flash_wgmma.cuh"
+F32_SOURCES = {"simt": SOURCE,
+               "tf32x3": "pytorch_distributed_example_tpu_torch/csrc/flash_tf32x3.cuh"}
 PALLAS = "pytorch_distributed_example_tpu/ops/flash_attention.py"
 # Each Hopper kernel streams its counterpart tiles through shared memory at
 # every L, so it replaces both of the reference's lowerings: the resident
@@ -460,10 +487,11 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound(kernel, BH, L, D, dtype, causal):
+def bound(kernel, BH, L, D, dtype, causal, route):
     """Least time on the card: each input read once, each output written
-    once, over HBM; the products over the (causal) score matrix at the
-    operands' peak rate. Returns (ms, "bytes" | "operations", flops)."""
+    once, over HBM; the products over the (causal) score matrix at the peak
+    rate of the route's instructions (`ROUTE_PEAK_FLOPS`). Returns (ms,
+    "bytes" | "operations", flops)."""
     es = dtype.itemsize
     pairs = L * (L + 1) // 2 if causal else L * L
     tile, rows = BH * L * D * es, BH * L * 4
@@ -472,9 +500,18 @@ def bound(kernel, BH, L, D, dtype, causal):
         "flash_dkdv": (6 * tile + 2 * rows, 8 * D * pairs * BH),  # + dO lse delta -> dk dv; 4 products
         "flash_dq": (5 * tile + 2 * rows, 6 * D * pairs * BH),    # -> dq; 3 products
     }[kernel]
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / ROUTE_PEAK_FLOPS[route]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             flops)
+
+
+def fma_bound(kernel, BH, L, D, dtype, causal, route):
+    """For a float32 route on the tensor cores, its bound at the float32 FMA
+    peak beside it (", ... at 67 TFLOP/s"); else ""."""
+    if route != "tf32x3":
+        return ""
+    ms = bound(kernel, BH, L, D, dtype, causal, "simt")[0]
+    return f"; {ms:.4f} ms at the float32 FMA peak of 67 TFLOP/s"
 
 
 def compare(got, want, rtol, atol_frac):
@@ -508,7 +545,7 @@ WGMMA_TOL = fa.WGMMA_BF16_TOL
 
 def tol_for(route):
     """The kernels' tolerance on a route: the declared one on wgmma (bf16
-    operands), the float32 one on SIMT (float32 operands)."""
+    operands), the float32 one on SIMT and tf32x3 (float32 operands)."""
     return WGMMA_TOL if route == "wgmma" else F32_TOL
 
 
@@ -524,7 +561,7 @@ def ptxas_entries(log):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            m = re.search(r"\d(flash_[a-z_]+_kernel)I(\w*?)Li(\d+)E", mangled)
+            m = re.search(r"\d(flash_[a-z]+(?:_[a-z0-9]+)*?_kernel)I(\w*?)Li(\d+)E", mangled)
             name = mangled
             if m:
                 types = ["bf16" if t != "f" else "f32"
@@ -553,7 +590,8 @@ def timed_once(fn):
 def kernel_checks(BH, L, D, causal, timed, dtype=torch.bfloat16, B=4, iters=20,
                   plain_once=False, want_route=None):
     """Each kernel against its plain version on the same inputs, on the
-    route `kernel_route` names (which must be `want_route` where given).
+    route `kernel_route` names for its role (which must be `want_route`'s,
+    one route for all roles or a dict by role, where given).
     With `timed`, also each kernel's time (mean of `iters` launches), the
     plain version's (the checking call itself when `plain_once`, else a
     mean of 5), the bound, and the library's call on (B, BH/B, L, D): the
@@ -564,10 +602,10 @@ def kernel_checks(BH, L, D, causal, timed, dtype=torch.bfloat16, B=4, iters=20,
                                dtype=dtype) for _ in range(4))
     scale = 1.0 / math.sqrt(D)
     bq, bk = fa.resolved_block_sizes(L)
-    design = {name: fa.kernel_route(dtype, D) for name in REPLACES}
+    design = {name: fa.kernel_route(dtype, D, name) for name in REPLACES}
     if want_route is not None:
-        check(set(design.values()) == {want_route},
-              f"{dtype} at D {D} takes the {design} route, not {want_route}")
+        want = want_route if isinstance(want_route, dict) else dict.fromkeys(REPLACES, want_route)
+        check(design == want, f"{dtype} at D {D} takes the {design} routes, not {want}")
     tol = {name: tol_for(route) for name, route in design.items()}
     plain_ms = {}
     o, lse = fa._fwd_cuda(q, k, v, scale, causal)
@@ -664,7 +702,8 @@ def kernel_checks(BH, L, D, causal, timed, dtype=torch.bfloat16, B=4, iters=20,
         r["ms"] = time_ms(kern[name], iters=iters, warmup=2 if iters > 5 else 1)
         r["plain_ms"] = (plain_ms[name] if plain_once
                          else time_ms(plain[name], iters=5, warmup=1))
-        r["bound_ms"], r["bound_by"], flops = bound(name, BH, L, D, q.dtype, causal)
+        r["bound_ms"], r["bound_by"], flops = bound(name, BH, L, D, q.dtype, causal,
+                                                    design[name])
         r["library_call"], lib_fn = library[name]
         if lib_fn not in lib_ms:
             lib_ms[lib_fn] = time_ms(lib_fn, iters=iters, warmup=2 if iters > 5 else 1)
@@ -672,7 +711,8 @@ def kernel_checks(BH, L, D, causal, timed, dtype=torch.bfloat16, B=4, iters=20,
         print(f"  {name}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain"
               f"{' (one call)' if plain_once else ''}, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-              f"({r['ms'] / r['bound_ms']:.1f}x the bound, {flops / r['ms'] / 1e9:.1f} TFLOP/s), "
+              f"({r['ms'] / r['bound_ms']:.1f}x the bound, {flops / r['ms'] / 1e9:.1f} TFLOP/s"
+              f"{fma_bound(name, BH, L, D, q.dtype, causal, design[name])}), "
               f"library {r['library_ms']:.4f} ms ({r['library_call']})")
     print(f"  backward pair: KV + Q {results['flash_dkdv']['ms'] + results['flash_dq']['ms']:.4f} "
           f"ms against the library's one call {lib_ms[sdpa_backward]:.4f} ms")
@@ -692,7 +732,7 @@ def fwd_f32_out_check(BH, L, D, causal):
     (po, plse), plain_ms = timed_once(
         lambda: fa._fwd_plain(q, k, v, scale, causal, bq, bk, out_dtype=torch.float32))
     check(o.dtype == torch.float32, f"flash_fwd returned {o.dtype} for out_dtype float32")
-    route = fa.kernel_route(torch.bfloat16, D)
+    route = fa.kernel_route(torch.bfloat16, D, "flash_fwd")
     tol = tol_for(route)
     (err, rel, ok), (lerr, _, lok) = compare(o, po, **tol), compare(lse, plse, **LSE_TOL)
     print(f"  flash_fwd [{route}] bf16 -> float32 output, BH={BH} L={L} D={D} causal={causal}: "
@@ -702,10 +742,72 @@ def fwd_f32_out_check(BH, L, D, causal):
                       f"at BH={BH} L={L} D={D} causal={causal}")
 
 
+def f64_backward(q, k, v, do, lse, delta, scale, causal):
+    """dK, dV and dQ by the plain versions' arithmetic in float64, from the
+    same float32 lse and delta, over the whole sequence at once."""
+    L = q.shape[1]
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    s = q @ k.transpose(1, 2) * scale
+    if causal:
+        above = torch.ones(L, L, dtype=torch.bool, device=q.device).triu(1)
+        s = s.masked_fill(above, fa.NEG_INF)
+    p = torch.exp(s - lse.double())
+    ds = p * (do @ v.transpose(1, 2) - delta.double())
+    return ds.transpose(1, 2) @ q * scale, p.transpose(1, 2) @ do, ds @ k * scale
+
+
+def f32_large_logit_check(D, causal, BH=8, L=1024):
+    """The float32 dK/dV and dQ kernels on heads scaled by 1 to 4 (logits up
+    to 16 times randn's), against a float64 copy of the same arithmetic:
+    each output within the float32 tolerance of the copy, and no farther
+    from it than twice the plain float32 version. On such logits the plain
+    version itself may lie past the float32 tolerance from the copy, so
+    the copy, not the plain version, is the reference here; how many
+    entries of each lie past it is printed."""
+    gen = torch.Generator(device="cuda").manual_seed(L + D + causal + 3)
+    heads = (torch.arange(BH, device="cuda", dtype=torch.float32) % 4 + 1).view(BH, 1, 1)
+    q, k, v, do = (torch.randn((BH, L, D), device="cuda", generator=gen) * heads
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    bq, bk = fa.resolved_block_sizes(L)
+    o, lse = fa._fwd_plain(q, k, v, scale, causal, bq, bk)
+    delta = (do * o).sum(-1, keepdim=True)
+    got = (*fa._dkdv_cuda(q, k, v, do, lse, delta, scale, causal),
+           fa._dq_cuda(q, k, v, do, lse, delta, scale, causal))
+    plain = (*fa._dkdv_plain(q, k, v, do, lse, delta, scale, causal, bq, bk),
+             fa._dq_plain(q, k, v, do, lse, delta, scale, causal, bq, bk))
+    exact = f64_backward(q, k, v, do, lse, delta, scale, causal)
+    routes = {n: fa.kernel_route(torch.float32, D, n) for n in ("flash_dkdv", "flash_dq")}
+    out, text = {}, []
+    for name, g, pl, ex in zip(("dk", "dv", "dq"), got, plain, exact):
+        top = float(ex.abs().max())
+        allowed = F32_TOL["atol_frac"] * top + F32_TOL["rtol"] * ex.abs()
+        errs = [(t.double() - ex).abs() for t in (g, pl)]
+        (kerr, kpast), (perr, ppast) = ((float(e.max()) / top, int((e > allowed).sum()))
+                                        for e in errs)
+        out[name] = (kerr, perr)
+        text.append(f"{name} {kerr:.3e} (plain {perr:.3e}; past {tol_text(F32_TOL)} of the "
+                    f"copy: {kpast}, plain {ppast})")
+        check(kpast == 0 and kerr <= 2 * perr,
+              f"{name} at D {D} causal={causal} on large logits: {kpast} entries past the "
+              f"float32 tolerance of the float64 copy, {kerr:.3e} of max from it against the "
+              f"plain float32 version's {perr:.3e}")
+    print(f"  large logits, {routes} BH={BH} L={L} D={D} float32 causal={causal}, heads x1..4, "
+          f"max|err|/max|f64| against the float64 copy: " + "; ".join(text))
+    return out
+
+
+# the route of each role for float32 operands: the SIMT forward, dK/dV and
+# dQ as three TF32 passes on the tensor cores
+F32_ROUTES = {"flash_fwd": "simt", "flash_dkdv": "tf32x3", "flash_dq": "tf32x3"}
+
+
 def want_routes(n, design="wgmma"):
-    """ROUTE_LAUNCHES after n launches of each role, all on `design`."""
+    """ROUTE_LAUNCHES after n launches of each role, all on `design`, or
+    each on its route in `design`, a dict by role."""
+    routes = design if isinstance(design, dict) else dict.fromkeys(REPLACES, design)
     want = {name: 0 for name in fa.ROUTE_LAUNCHES}
-    want.update({f"{name}:{design}": n for name in REPLACES})
+    want.update({f"{name}:{routes[name]}": n for name in REPLACES})
     return want
 
 
@@ -765,6 +867,7 @@ def reference_check():
     gpu.load_state_dict(cpu.state_dict())
     toks = torch.randint(0, 256, (2, 256), generator=torch.Generator().manual_seed(0))
     out = {}
+    fa.reset_launch_counts()  # the CPU side runs the plain versions: only the card's count
     for name, model in (("cpu", cpu), ("cuda", gpu)):
         t = toks.to(next(model.parameters()).device)
         with cpu_side(name):
@@ -773,6 +876,9 @@ def reference_check():
             loss.backward()
         out[name] = (logits.detach().cpu(), loss.item(),
                      {n: p.grad.cpu() for n, p in model.named_parameters()})
+    routes = dict(fa.ROUTE_LAUNCHES)
+    check(routes == want_routes(cfg.n_layers, F32_ROUTES),
+          f"the float32 model should launch F, KV and Q once a layer on {F32_ROUTES}: {routes}")
     (cl, closs, cg), (gl, gloss, gg) = out["cpu"], out["cuda"]
     check(gl.shape == (2, 256, 256) and torch.isfinite(gl).all(), "bad logits on the card")
     lerr = float((gl - cl).abs().max())
@@ -782,6 +888,8 @@ def reference_check():
     # float32 throughout (TF32 off): only summation order differs
     check(lerr <= 1e-4 and abs(gloss - closs) <= 1e-5 and gerr <= 1e-4,
           "the port on the card disagrees with the CPU reference")
+    print(f"  launches on the card (head dim 128, float32): {routes}")
+    return routes
 
 
 def first_step_check(model, tokens):
@@ -818,12 +926,13 @@ def first_step_check(model, tokens):
 TRAIN_STEPS = {}  # argv -> (mean step ms, tokens/s, MFU) of its timed steps
 
 
-def train_phase(argv, warmup_steps, timed_steps, card, check_layers=None):
+def train_phase(argv, warmup_steps, timed_steps, card, check_layers=None, routes="wgmma"):
     """The trainer (`examples/lm.py`) built from `argv`: the first-step
     check (on the model itself, or on a `check_layers`-layer model of the
     same width), warm-up steps, timed steps whose kernel launches are
-    counted (all on the wgmma route), then one profiled step. Returns the
-    launches of the timed steps."""
+    counted (all on the wgmma route, or each role on its route in `routes`,
+    a dict), then one profiled step. Returns the launches of the timed
+    steps."""
     args = lm.parse_args(argv)
     model, opt, next_tokens = lm.build(args, world=1)
     cfg = model.cfg
@@ -856,33 +965,36 @@ def train_phase(argv, warmup_steps, timed_steps, card, check_layers=None):
         losses.append(lm.train_step(model, opt, batch))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    launches, routes = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
+    launches, got_routes = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
     losses = [float(x) for x in losses]
     peak = torch.cuda.max_memory_allocated()
     mean_s = sum(step_s) / len(step_s)
     tok_s = args.batch_size * args.seq / mean_s
-    # bench.py's analytic model FLOPs per step (PaLM form), over the bf16 peak
+    # bench.py's analytic model FLOPs per step (PaLM form), over the peak of
+    # the step's dtype
     model_flops = ((6.0 * n_params + 12.0 * cfg.n_layers * cfg.d_model * args.seq)
                    * args.batch_size * args.seq)
-    mfu = model_flops / mean_s / PEAK_FLOPS[torch.bfloat16]
+    mfu = model_flops / mean_s / PEAK_FLOPS[cfg.dtype]
     TRAIN_STEPS[tuple(argv)] = (mean_s * 1e3, tok_s, mfu)
     print(f"  losses {losses}; step times (s) {step_s}")
     print(f"  mean step {mean_s * 1e3:.2f} ms, {tok_s:.0f} tokens/s, MFU {mfu:.4f} "
-          f"({model_flops:.4g} model FLOPs per step over 989 TFLOP/s), "
+          f"({model_flops:.4g} model FLOPs per step over {PEAK_FLOPS[cfg.dtype] / 1e12:.0f} "
+          f"TFLOP/s), "
           f"peak memory {peak / 2 ** 30:.2f} GiB  [{card}]")
-    print(f"  launches in the timed steps: {launches}; by route: {routes}")
+    print(f"  launches in the timed steps: {launches}; by route: {got_routes}")
     check(all(math.isfinite(x) for x in losses), "non-finite loss")
     want = cfg.n_layers * timed_steps
     check(all(launches[n] == want for n in REPLACES),
           f"each kernel should have launched {want} times: {launches}")
-    check(routes == want_routes(want),
-          f"F, KV and Q should have launched {want} times each on the wgmma route: {routes}")
+    check(got_routes == want_routes(want, routes),
+          f"F, KV and Q should have launched {want} times each on the {routes} route: "
+          f"{got_routes}")
     print("[profile] one more step under torch.profiler")
     tokens = next_tokens()
     profile_step(lambda: lm.train_step(model, opt, tokens), mean_s * 1e3)
     del model, opt
     torch.cuda.empty_cache()
-    return routes
+    return got_routes
 
 
 # [headdims]: the trainer at the bf16 head dims beside the slice's 128: its
@@ -914,6 +1026,21 @@ def headdims_phase(card):
           f"MFU {mfu:.4f}; as [slice]'s 16 heads of 128 in this run: {s_ms:.2f} ms, "
           f"{s_tok_s:.0f} tokens/s, MFU {s_mfu:.4f}  [{card}]")
     return launches
+
+
+# [float32]: the trainer at its own defaults without --bf16 (vocab 512, d 256,
+# 4 layers, 8 heads of 32, seq 256, batch 16): float32 operands, so the SIMT
+# forward and the tf32x3 dK/dV and dQ at head dim 32
+FLOAT32_ARGV = []
+
+
+def float32_phase(card):
+    """`train_phase` at the trainer's float32 defaults, each role on its
+    float32 route. Returns the timed steps' launches."""
+    args = lm.parse_args(FLOAT32_ARGV)
+    check(not args.bf16 and args.d_model // args.n_heads == 32,
+          f"the trainer's defaults are no longer float32 at head dim 32: {args}")
+    return train_phase(FLOAT32_ARGV, WARMUP_STEPS, TIMED_STEPS, card, routes=F32_ROUTES)
 
 
 # The ring's gradients: each ring step's dQ/dK/dV partial leaves the kernels
@@ -1031,8 +1158,9 @@ def small_ring_check():
     o = cp.ring_attention(*(shard(x) for x in xs), causal=True, block_kernel="flash")
     o = o.transpose(0, 1).reshape(B, L, H, D)
     o.backward(do)
-    check(dict(fa.ROUTE_LAUNCHES) == want_routes(W, "simt"),
-          f"the small float32 ring did not run on the SIMT kernels: {fa.ROUTE_LAUNCHES}")
+    check(dict(fa.ROUTE_LAUNCHES) == want_routes(W, F32_ROUTES),
+          f"the small float32 ring did not run on the float32 routes {F32_ROUTES}: "
+          f"{fa.ROUTE_LAUNCHES}")
     rs = [x.clone().requires_grad_() for x in (q, k, v)]
     want = dense_attention(*rs, causal=True)
     want.backward(do)
@@ -1736,12 +1864,12 @@ def ep_moe_check(T_=4096, D=2048, F_=5504, E=EP_EXPERTS, device="cuda"):
 
 
 def fsdp_tp_phase(card):
-    """The sharded trainer, dense at CFG_1B's full width and depth and MoE
-    at full width with 4 layers, then the ep-sharded MoE. Returns the
+    """The sharded trainer, dense and MoE at CFG_1B's full width with 4
+    layers, then the ep-sharded MoE. Returns the
     dense profiled step's routes."""
     print("  dense:")
     routes, _ = sharded_train(FSDP_TP_ARGV, card, TIMED_STEPS)
-    print("  MoE (8 experts, top-1, capacity 1.25; depth cut to 4 layers), float32 first "
+    print("  MoE (8 experts, top-1, capacity 1.25; depth cut to 2 layers), float32 first "
           "step:")
     # in bf16 the tp ranks' rounding can move a token to another expert (a
     # discrete choice), whose experts' gradients then differ by far more
@@ -1758,8 +1886,10 @@ def fsdp_tp_phase(card):
 # serving: the KV-cache decode path, generate() and the paged engine
 SERVE_SMALL = dict(vocab_size=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
                    max_seq_len=64, use_flash=False)
-# CFG_1B (benchmarks/llama_scaled.py:33) at max_seq_len 2048, bf16
-SERVE_ARGV = ["--vocab-size", "32000", "--d-model", "2048", "--n-layers", "16",
+# CFG_1B (benchmarks/llama_scaled.py:33) at max_seq_len 2048, bf16, at 4 of
+# its 16 layers (the full depth until the whole run neared its time limit;
+# [elastic]'s serving gang keeps all 16)
+SERVE_ARGV = ["--vocab-size", "32000", "--d-model", "2048", "--n-layers", "4",
               "--n-heads", "16", "--seq", "2048", "--bf16"]
 SERVE_SLOTS, SERVE_BLOCK = 8, 16
 SERVE_GATE = (4, 512)  # prompts x tokens for the decode-path logits gate
@@ -1962,7 +2092,7 @@ def serve_timing(model, card, quant, want=None):
 
 def serve_phase(card):
     """Serving: small float32 card-against-CPU checks, then CFG_1B at full
-    width in bf16: the logits gate, token-identical greedy streams between
+    width (4 layers) in bf16: the logits gate, token-identical greedy streams between
     a full and a preemption-forcing pool, the bimodal timings, a profiled
     decode step, and the generate example. No flash kernel may launch on
     the serve path."""
@@ -2180,7 +2310,7 @@ def forced_rms(got, want):
 
 
 def fleet_bimodal(model, card, mesh=None):
-    """The [serve] phase's bimodal burst (48 requests, 8 slots, unchunked)
+    """The [serve] phase's bimodal burst (24 requests, 8 slots, unchunked)
     through a tp 1 or a tp `mesh` engine: tok/s, TTFT and TPOT p50/p99,
     pool bytes a rank, peak memory. Returns (completions, tok/s)."""
     from pytorch_distributed_example_tpu_torch.serve.metrics import percentile
@@ -2359,7 +2489,7 @@ MOE_TP_F32_RMS = 1e-4  # float32 (TF32 off): the tp ranks' partial sums in anoth
 
 
 def fleet_moe_tp(card):
-    """The MoE's tensor-parallel decode at MOE_ARGV's shape (d 2048, 4
+    """The MoE's tensor-parallel decode at MOE_ARGV's shape (d 2048, 2
     layers, 8 experts, top-1) in driver mode at tp 2, against the
     single-card engine on the same weights: the prefill logits through the
     paged programs, float32 (TF32 off) within MOE_TP_F32_RMS and bf16
@@ -2660,7 +2790,7 @@ def fleet_router(model, card, one_engine_rate, want):
 
 def serve_fleet_phase(card):
     """Serving across ranks and pools: small float32 card-against-CPU
-    checks, then CFG_1B at full width in bf16: tensor-parallel decode,
+    checks, then CFG_1B at full width (4 layers) in bf16: tensor-parallel decode,
     the disagg trace and the replica router. No flash kernel may launch.
     Returns the phase's launch counts by route."""
     t0 = time.perf_counter()
@@ -3091,7 +3221,9 @@ def bert_phase(card):
 DRYRUN_N = 8
 DRYRUN_DIMS = dryrun._factor_mesh(DRYRUN_N)  # (dp, fsdp, tp) = (2, 2, 2)
 DRYRUN_TOL = dict(rtol=1e-5, atol_frac=1e-5)
-PIPE_ARGV = SLICE_ARGV  # CFG_1B: its 16 blocks, 4 a stage over pp 4
+# CFG_1B's width at 8 of its 16 blocks, 2 a stage over pp 4 (the full depth
+# until the whole run neared its time limit)
+PIPE_ARGV = SLICE_ARGV + ["--n-layers", "8"]
 PIPE_STAGES, PIPE_VIRTUAL = 4, 2
 PIPE_MICRO, PIPE_MICRO_BIG = 8, 16  # microbatches of 1 x seq tokens
 # GPipe's peak memory is read at M 4 and 8: each tick keeps ~3.2 GB for the
@@ -3203,11 +3335,11 @@ def pipeline_run(fn, *args):
 
 
 def pipeline_check(card):
-    """(c) CFG_1B's 16 blocks over pp 4 (4 a stage), bf16, flash on; M
+    """(c) 8 of CFG_1B's blocks over pp 4 (2 a stage), bf16, flash on; M
     microbatches of 1 x seq tokens from the embedding; the loss the final
     norm, LM head and cross-entropy on the same weights. 1F1B's loss and
     stage gradients against the unpipelined blocks; GPipe against 1F1B;
-    interleaved (8 stages of 2 over 4) against the sequential forward; the
+    interleaved (8 stages of 1 over 4) against the sequential forward; the
     peak memory of 1F1B flat in M, GPipe's growing. Returns the flash
     routes of the timed 1F1B step."""
     args = lm.parse_args(PIPE_ARGV)
@@ -3233,7 +3365,8 @@ def pipeline_check(card):
     M = PIPE_MICRO
     print(f"  config: CFG_1B blocks (d {cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.ffn_dim}, "
           f"{cfg.dtype}, flash), {cfg.n_layers} blocks as pp {S} x {per}; M {M} microbatches "
-          f"of 1 x {L} tokens (and M {PIPE_MICRO_BIG} for the memory check); no cuts")
+          f"of 1 x {L} tokens (and M {PIPE_MICRO_BIG} for the memory check); depth cut "
+          f"to {cfg.n_layers} of CFG_1B's 16 blocks")
     # the unpipelined blocks on the same weights and tokens, a microbatch at a time
     cos, sin = rope_freqs(cfg.head_dim, L, cfg.rope_theta, device="cuda")
     want_loss = 0.0
@@ -3318,7 +3451,7 @@ def pipeline_check(card):
     check(peak[("gpipe", G2)] > peak[("gpipe", G1)] * (1 + PIPE_MEM_FLAT),
           "GPipe's peak memory should grow with M")
     torch.cuda.empty_cache()
-    # interleaved: 8 stages of 2 blocks over the 4 pp ranks, forward
+    # interleaved: V * S stages over the 4 pp ranks, forward
     V = PIPE_VIRTUAL
     per_v = cfg.n_layers // (V * S)
     with torch.no_grad():
@@ -3501,14 +3634,15 @@ def same_state(a, b):
     return True
 
 
-# both checkpoints at 8 of CFG_1B's 16 layers (the full depth until
-# [elastic] needed the time)
-CKPT_ARGV = SLICE_ARGV + ["--n-layers", "8"]
-CKPT_SHARDED_ARGV = FSDP_TP_ARGV + ["--n-layers", "8"]
+# both checkpoints at CFG_1B's width and 2 layers (16 until [elastic], 8
+# until the float32 large-logit checks, 4 until the whole run neared its
+# time limit): the disk's writes dominate the phase
+CKPT_ARGV = SLICE_ARGV + ["--n-layers", "2"]
+CKPT_SHARDED_ARGV = FSDP_TP_ARGV + ["--n-layers", "2"]
 
 
 def sharded_ckpt(card):
-    """CFG_1B's width at 8 layers over fsdp 2 x tp 2 after one step: `dcp_save` (each rank's
+    """CFG_1B's width at 2 layers over fsdp 2 x tp 2 after one step: `dcp_save` (each rank's
     shard its own entry); `dcp_load` into the same layout, bitwise, and a
     step from that restored state against the live step, bitwise; 4 -> 1
     into `resharded_template`'s single-card layout, bitwise
@@ -4212,26 +4346,35 @@ def mp_gang(part, world=MP_WORLD, backend=MP_BACKEND):
     """Run `mp_worker(part, ...)` as ranks 0..world-1 of one gang, each a
     `python3 chip_smoke.py --worker ...` process on cuda:0. Prints rank 0's
     report (every rank's output when one fails) and returns each rank's
-    JSON result. A rank that fails or a gang past its timeout fails the
-    phase; every process is ended either way."""
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
+    JSON result. `part` may be a tuple of parts, which the same processes
+    run one after another, each over a process group of its own (one
+    start-up for all); the results then come as {part: [rank's result]}.
+    A rank that fails or a gang past its timeout (the parts' summed) fails
+    the phase; every process is ended either way."""
+    parts = part if isinstance(part, tuple) else (part,)
+    name = "+".join(parts)
+    with contextlib.ExitStack() as stack:  # held together, so the ports differ
+        socks = [stack.enter_context(socket.socket()) for _ in parts]
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        ports = ",".join(str(sk.getsockname()[1]) for sk in socks)
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
     for r in range(world):
-        with contextlib.suppress(FileNotFoundError):
-            os.remove(mp_path(f"{part}_{r}.json"))
+        for p in parts:
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(mp_path(f"{p}_{r}.json"))
+    timeout = sum(MP_TIMEOUT_S[p] for p in parts)
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker", part,
-                               str(r), str(world), str(port), backend],
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker",
+                               ",".join(parts), str(r), str(world), ports, backend],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
                               cwd=root) for r in range(world)]
     outs, timed_out = [], False
     try:
         for p in procs:
-            left = max(1.0, MP_TIMEOUT_S[part] - (time.perf_counter() - t0))
+            left = max(1.0, timeout - (time.perf_counter() - t0))
             try:
                 outs.append(p.communicate(timeout=left)[0].decode(errors="replace"))
             except subprocess.TimeoutExpired:
@@ -4248,15 +4391,17 @@ def mp_gang(part, world=MP_WORLD, backend=MP_BACKEND):
         if r == 0 or failed:
             for line in text.splitlines():
                 print(f"    [rank {r}] {line}" if failed else f"  {line}")
-    check(not timed_out, f"[multiproc] {part}: the gang hung past {MP_TIMEOUT_S[part]} s")
-    check(not failed, f"[multiproc] {part}: a rank failed (exit codes "
+    check(not timed_out, f"[multiproc] {name}: the gang hung past {timeout} s")
+    check(not failed, f"[multiproc] {name}: a rank failed (exit codes "
           f"{[p.returncode for p in procs]})")
-    results = []
-    for r in range(world):
-        with open(mp_path(f"{part}_{r}.json")) as f:
-            results.append(json.load(f))
-    print(f"  {part}: gang of {world} over {backend} in {time.perf_counter() - t0:.1f} s")
-    return results
+    results = {}
+    for p in parts:
+        results[p] = []
+        for r in range(world):
+            with open(mp_path(f"{p}_{r}.json")) as f:
+                results[p].append(json.load(f))
+    print(f"  {name}: gang of {world} over {backend} in {time.perf_counter() - t0:.1f} s")
+    return results if isinstance(part, tuple) else results[part]
 
 
 def mp_init(rank, world, port, backend):
@@ -4366,7 +4511,7 @@ def mp_fsdp_tp(card):
           f"{cfg.n_heads} heads, seq {lm.parse_args(FSDP_TP_ARGV).seq}, global batch "
           f"{lm.parse_args(FSDP_TP_ARGV).batch_size}, {cfg.dtype}; {n_params / 1e6:.1f}M params) "
           f"over fsdp 2 x tp 2 as {MP_WORLD} processes on cuda:0 over {MP_BACKEND}")
-    res = mp_gang("fsdp_tp")
+    res = yield "fsdp_tp"
     os.remove(mp_path("ref_grads.pt"))
     r0 = res[0]
     losses = r0["losses"]
@@ -4490,7 +4635,7 @@ def mp_ring(card):
     torch.cuda.empty_cache()
     print(f"  (b) the ring (flash block) and Ulysses, {W} shards of {RING_SHARD} (B 1, H 16, "
           f"D 128, bf16, causal) as {W} processes, against driver mode on the card")
-    res = mp_gang("ring")
+    res = yield "ring"
     for r, rr in enumerate(res):
         names = ("o", "dq", "dk", "dv")
         text = ", ".join(f"{n} {e:.2e} ({ok})" for n, (e, _, ok) in zip(names, rr["ring"]))
@@ -4580,12 +4725,12 @@ def mp_pipeline(card):
     for s in range(S):
         torch.save((float(loss), {k: g[s].cpu() for k, g in grads.items()}),
                    mp_path(f"pp_{s}.pt"))
-    del params, grads, hidden
+    del params, grads, hidden, stage, head_loss
     torch.cuda.empty_cache()
     print(f"  (c) 1F1B of CFG_1B's {cfg.n_layers} blocks at pp {S}, M {M} microbatches of 1 x "
           f"{tokens.shape[-1]} tokens, bf16, as {S} processes (a stage each), against driver "
           f"mode's 1F1B on the card")
-    res = mp_gang("pipeline")
+    res = yield "pipeline"
     per = cfg.n_layers // S
     want = {"flash_fwd": 2 * per * M, "flash_dkdv": per * M, "flash_dq": per * M}
     want_r = {**{k: 0 for k in fa.ROUTE_LAUNCHES}, **{f"{k}:wgmma": n for k, n in want.items()}}
@@ -4651,7 +4796,7 @@ def mp_ep(card):
     torch.cuda.empty_cache()
     print(f"  (d) make_ep_moe at {EP_WORLD} ep ranks, {EP_EXPERTS} experts, ep_moe_check's "
           f"shapes in float32 (TF32 off), as {EP_WORLD} processes against driver mode")
-    res = mp_gang("ep")
+    res = yield "ep"
     for r, rr in enumerate(res):
         print(f"  rank {r}: y max |diff| {rr['y'][0]:.3e}, |daux| {rr['aux']:.3e}, the "
               f"router's summed gradient max |diff| {rr['grad'][0]:.3e}; {rr['s'] * 1e3:.1f} ms")
@@ -4671,8 +4816,11 @@ def mp_cifar_argv(world):
 
 def mp_cifar_worker(rank, world, port, backend):
     torch.backends.cudnn.deterministic = True
-    out = cifar.main(mp_cifar_argv(world) + ["--backend", backend, "--init-method",
-                                            f"tcp://127.0.0.1:{port}", "--rank", str(rank)])
+    try:
+        out = cifar.main(mp_cifar_argv(world) + ["--backend", backend, "--init-method",
+                                                f"tcp://127.0.0.1:{port}", "--rank", str(rank)])
+    finally:
+        torch.backends.cudnn.deterministic = False
     if rank == 0:
         torch.save(({k: v.cpu() for k, v in out["params"].items()},
                     {k: v.cpu() for k, v in out["stats"].items()}), mp_path("cifar.pt"))
@@ -4688,12 +4836,12 @@ def mp_cifar(card):
     try:
         with contextlib.redirect_stdout(io.StringIO()):
             want = cifar.main(mp_cifar_argv(W))
-        print(f"  (e) ResNet-18 SyncBN, world {W} x {CIFAR_BATCH} images, one step of "
-              f"`examples/cifar.main(... --init-method ...)` as {W} processes against driver "
-              f"mode at world {W} (float32, cudnn.deterministic)")
-        res = mp_gang("cifar", world=W)
     finally:
         torch.backends.cudnn.deterministic = False
+    print(f"  (e) ResNet-18 SyncBN, world {W} x {CIFAR_BATCH} images, one step of "
+          f"`examples/cifar.main(... --init-method ...)` as {W} processes against driver "
+          f"mode at world {W} (float32, cudnn.deterministic)")
+    res = yield "cifar"
     params, stats = torch.load(mp_path("cifar.pt"))
     os.remove(mp_path("cifar.pt"))
     loss, want_loss = res[0]["losses"][0], want["losses"][0]
@@ -4733,7 +4881,7 @@ def mp_nccl_worker(rank, world):
 
 
 def mp_nccl(card):
-    res = mp_gang("nccl", world=1, backend="nccl")[0]
+    res = (yield "nccl")[0]
     print(f"  (f) a world-1 nccl gang of (a)'s step at 4 layers: torch backend "
           f"{res['backend']}, collectives {res['ops']}; first loss {res['losses'][0]:.5f} vs "
           f"{res['single']:.5f} on the single card; losses {res['losses']}")
@@ -4750,8 +4898,9 @@ MP_SERVE_REQUESTS = 8  # (16 until [elastic] needed the time)
 MP_SERVE_GATE = (2, 128)  # prompts x tokens of the gang's prefill-logits gate
 MP_SERVE_F32_RMS = 1e-5  # float32 (TF32 off): the same sums in another kernel's order
 MP_SERVE_FORCED_RMS = {"bf16": SERVE_RMS_TOL, "float32": MP_SERVE_F32_RMS}
-# CFG_1B's width at 8 of its 16 layers (16 until [elastic] needed the time)
-MP_SERVE_ARGV = SERVE_ARGV + ["--n-layers", "8"]
+# [serve]'s model: CFG_1B's width at 4 of its 16 layers (16 until
+# [elastic], 8 until the whole run neared its time limit)
+MP_SERVE_ARGV = SERVE_ARGV
 MP_SERVE_RUNS = (("bf16", MP_SERVE_ARGV, (False, True)),
                  ("float32", [a for a in MP_SERVE_ARGV if a != "--bf16"], (False,)))
 
@@ -4874,7 +5023,7 @@ def mp_serve_tp(card):
     print(f"  (g) CFG_1B serving at tp 2 as 2 processes (a tp rank each, its KV-head shard of "
           f"the pool, the lanes replicated), {MP_SERVE_REQUESTS} requests of the bimodal burst, "
           f"bf16 (float and int8 pools) and float32, against the driver-mode tp 2 engine")
-    res = mp_gang("serve_tp", world=2)
+    res = yield "serve_tp"
     for key in want:
         check(res[0][key]["tokens"] == res[1][key]["tokens"],
               f"the gang's two processes emitted different tokens ({key})")
@@ -5316,22 +5465,39 @@ MP_WORKERS = {"fsdp_tp": mp_fsdp_tp_worker, "ring": mp_ring_worker,
 
 
 def mp_worker(argv):
-    """`chip_smoke.py --worker PART RANK WORLD PORT BACKEND`: one rank of a
-    [multiproc] gang; writes its result as JSON for the phase."""
-    part, rank, world, port, backend = argv[0], int(argv[1]), int(argv[2]), int(argv[3]), argv[4]
+    """`chip_smoke.py --worker PARTS RANK WORLD PORTS BACKEND`: one rank of a
+    gang; runs each of the comma-separated PARTS in turn, over a process
+    group of its own at the matching one of PORTS, and writes each part's
+    result as JSON for the phase."""
+    parts, rank, world = argv[0].split(","), int(argv[1]), int(argv[2])
+    ports, backend = [int(p) for p in argv[3].split(",")], argv[4]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if part == "cifar":  # the example brings its gang up itself
-        res = mp_cifar_worker(rank, world, port, backend)
-    else:
-        mp_init(rank, world, port, backend)
-        try:
-            res = MP_WORKERS[part](rank, world)
-        finally:
-            tdx.destroy_process_group()
-    with open(mp_path(f"{part}_{rank}.json"), "w") as f:
-        json.dump(res, f)
+    for part, port in zip(parts, ports, strict=True):
+        torch.cuda.reset_peak_memory_stats()
+        if part == "cifar":  # the example brings its gang up itself
+            res = mp_cifar_worker(rank, world, port, backend)
+        else:
+            mp_init(rank, world, port, backend)
+            try:
+                res = MP_WORKERS[part](rank, world)
+            finally:
+                tdx.destroy_process_group()
+        with open(mp_path(f"{part}_{rank}.json"), "w") as f:
+            json.dump(res, f)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
     return 0
+
+
+# [multiproc]'s gangs: (parts, world, backend), each part a generator that
+# sets up its driver-mode reference, yields its worker's name, takes the
+# gang's results and checks them; a gang's processes run its parts in turn
+MP_GANGS = (((("multiproc", mp_fsdp_tp), ("multiproc_ring", mp_ring),
+              ("multiproc", mp_pipeline), (None, mp_ep)), MP_WORLD, MP_BACKEND),
+            (((None, mp_cifar), (None, mp_serve_tp)), 2, MP_BACKEND),
+            (((None, mp_nccl),), 1, "nccl"))
 
 
 def multiproc_phase(card):
@@ -5339,7 +5505,8 @@ def multiproc_phase(card):
     gloo ("cuda:gloo"): (a) CFG_1B over fsdp 2 x tp 2, (b) the ring and
     Ulysses, (c) 1F1B at pp 4, (d) make_ep_moe, (e) SyncBN through the
     CIFAR example, (f) a world-1 nccl gang, (g) CFG_1B tensor-parallel
-    serving at tp 2, an engine a process. Returns the gangs' counted
+    serving at tp 2, an engine a process. (a)-(d) share one gang of 4
+    processes and (e) and (g) one of 2. Returns the gangs' counted
     flash launches by route, by the regime each part puts the kernels in:
     (a)'s and (c)'s under "multiproc" (resident), (b)'s ring under
     "multiproc_ring" (streamed)."""
@@ -5347,17 +5514,27 @@ def multiproc_phase(card):
     os.makedirs(MP_DIR)
     launches = {key: {name: 0 for name in fa.ROUTE_LAUNCHES}
                 for key in ("multiproc", "multiproc_ring")}
-    parts = (("multiproc", mp_fsdp_tp), ("multiproc_ring", mp_ring), ("multiproc", mp_pipeline),
-             (None, mp_ep), (None, mp_cifar), (None, mp_nccl), (None, mp_serve_tp))
     try:
-        for key, part in parts:
-            t0 = time.perf_counter()
-            got = part(card)
-            if key is not None:
-                for k, v in got.items():
-                    launches[key][k] += v
+        for parts, world, backend in MP_GANGS:
+            runs = []
+            for key, part in parts:
+                t0 = time.perf_counter()
+                run = part(card)
+                runs.append((key, part.__name__, run, next(run)))
+                print(f"  {part.__name__} set up in {time.perf_counter() - t0:.1f} s")
+            res = mp_gang(tuple(name for _, _, _, name in runs), world=world, backend=backend)
+            for key, fn_name, run, name in runs:
+                t0 = time.perf_counter()
+                try:
+                    run.send(res[name])
+                    check(False, f"[multiproc] {fn_name} asked for a second gang")
+                except StopIteration as stop:
+                    got = stop.value
+                if key is not None:
+                    for k, v in got.items():
+                        launches[key][k] += v
+                print(f"  {fn_name} checked in {time.perf_counter() - t0:.1f} s")
             torch.cuda.empty_cache()
-            print(f"  {part.__name__} in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(MP_DIR, ignore_errors=True)
     print(f"  counted flash launches by regime: {launches}")
@@ -5896,10 +6073,11 @@ def main():
     lib = _build.load("flash_attention", fa._SIGNATURES)
     for name, regs, spills in ptxas_entries(_build.build_log("flash_attention")):
         smem = ""
-        if "wgmma" in name:
+        if "wgmma" in name or "tf32x3" in name:
             D = int(name.rsplit("D ", 1)[1].rstrip(">"))
             role = ("fwd", "dkdv", "dq").index(name.split("_")[1])
-            smem_bytes = lib.flash_wgmma_smem_bytes(role, D)
+            smem_bytes = (lib.flash_wgmma_smem_bytes if "wgmma" in name
+                          else lib.flash_tf32x3_smem_bytes)(role, D)
             smem = f"; {smem_bytes} bytes of dynamic shared memory"
             check(spills.startswith("0 bytes stack frame, 0 bytes spill stores"),
                   f"ptxas: {name} spills: {spills}")
@@ -5908,6 +6086,7 @@ def main():
         print(f"  ptxas: {name}: {regs}; {spills}{smem}")
 
     # 3. kernels against their plain versions
+    t0 = time.perf_counter()
     print("[kernels]")
     results = {}
     BH, L, D = 4 * 16, 1024, 128
@@ -5919,10 +6098,12 @@ def main():
     for D_ in HEADDIMS:
         results[f"resident D {D_}"] = kernel_checks(BH * D // D_, L, D_, causal=True, timed=True,
                                                     want_route="wgmma")
-    # float32, the SIMT route: CFG_1B's shape and the trainer's head dim
-    for D_ in (D, 32):
-        kernel_checks(BH * D // D_, L, D_, causal=True, timed=True, dtype=torch.float32,
-                      want_route="simt")
+    # float32, the SIMT forward and the tf32x3 dK/dV and dQ: CFG_1B's shape,
+    # the trainer's head dim and the other two instances
+    for D_ in (D, 32, 64, 256):
+        results[f"float32 D {D_}"] = kernel_checks(BH * D // D_, L, D_, causal=True, timed=True,
+                                                   dtype=torch.float32, want_route=F32_ROUTES)
+    print(f"  kernels in {time.perf_counter() - t0:.1f} s")
 
     # 4. the same in the reference's streamed regime, and the new head dims
     t0 = time.perf_counter()
@@ -5935,23 +6116,37 @@ def main():
             for causal in (True, False):
                 kernel_checks(8, L_, D_, causal=causal, timed=False, want_route="wgmma")
     kernel_checks(8, 512, 96, causal=True, timed=False, want_route="wgmma")  # padded to 128
-    kernel_checks(8, 512, 256, causal=True, timed=False, dtype=torch.float32, want_route="simt")
+    for D_ in fa.HEAD_DIMS:  # float32: every tf32x3 instance, causal and full
+        for causal in (True, False):
+            kernel_checks(8, 512, D_, causal=causal, timed=False, dtype=torch.float32,
+                          want_route=F32_ROUTES)
+            f32_large_logit_check(D_, causal)
     torch.cuda.empty_cache()
     print(f"  kernels-long in {time.perf_counter() - t0:.1f} s")
 
     # 5. small-input reference
+    t0 = time.perf_counter()
     print("[reference]")
-    reference_check()
+    phase_launches = {"reference": reference_check()}
+    print(f"  reference in {time.perf_counter() - t0:.1f} s")
 
     # 6. the slice: the ~1B train step
+    t0 = time.perf_counter()
     print("[slice]")
-    phase_launches = {"slice": train_phase(SLICE_ARGV, WARMUP_STEPS, TIMED_STEPS, card)}
+    phase_launches["slice"] = train_phase(SLICE_ARGV, WARMUP_STEPS, TIMED_STEPS, card)
+    print(f"  slice in {time.perf_counter() - t0:.1f} s")
 
     # 6b. the trainer at head dims 32 and 256
     t0 = time.perf_counter()
     print("[headdims]")
     phase_launches.update(headdims_phase(card))
     print(f"  headdims in {time.perf_counter() - t0:.1f} s")
+
+    # 6c. the trainer's float32 defaults: the float32 routes at head dim 32
+    t0 = time.perf_counter()
+    print("[float32]")
+    phase_launches["float32"] = float32_phase(card)
+    print(f"  float32 in {time.perf_counter() - t0:.1f} s")
 
     # 7. ring attention over 4 shards of 16384
     t0 = time.perf_counter()
@@ -6068,6 +6263,15 @@ def main():
                             "replaces": lowerings["resident"], "regime": "resident",
                             "head_dim": D_, "launches": n, "launches_by_phase": {"headdims": n},
                             **results[f"resident D {D_}"][name]})
+        # its float32 instances: D 128 launched by [reference], D 32 by [float32]
+        for D_, phase in ((128, "reference"), (32, "float32")):
+            design = F32_ROUTES[name]
+            n = phase_launches[phase][f"{name}:{design}"]
+            kernels.append({"name": name, "route": "cuda",
+                            "source": F32_SOURCES[design], "replaces": lowerings["resident"],
+                            "regime": "resident", "head_dim": D_, "dtype": "float32",
+                            "launches": n, "launches_by_phase": {phase: n},
+                            **results[f"float32 D {D_}"][name]})
     print(f"[done] in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,7 +2,8 @@
 // 256, on the tensor cores: wgmma on bf16 tiles that TMA brings into shared
 // memory. Included by flash_attention.cu, whose note says what bounds these
 // kernels and what the design does about it; ops/flash_attention.py routes
-// every bf16 head dim here and float32 to the SIMT kernels.
+// every bf16 head dim here, and float32 to flash_tf32x3.cuh (dK/dV, dQ) and
+// the SIMT forward.
 //
 // Layout. q, k, v, dO, o, dK, dV are contiguous (B*H, L, D); lse and delta
 // (B*H, L) float32. Each operand is read through a 3-D tensor map

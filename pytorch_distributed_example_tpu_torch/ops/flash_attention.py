@@ -30,12 +30,13 @@ of the true D); a head dim above 256, as in the reference's `_flash_ok`
 gate, raises.
 
 Routes. `kernel_route` is the one rule that says which instance serves a
-(dtype, head dim) on the card, for all three roles, by dtype: the forward,
-dK/dV and dQ for bf16 operands run on the tensor cores at every (padded)
-head dim ("wgmma": wgmma on bf16 tiles fed by TMA, `csrc/flash_wgmma.cuh`);
-float32 operands run the SIMT kernels ("simt", float32 FMAs,
-`csrc/flash_attention.cu`). Nothing catches a failed build or launch and
-tries the other instance.
+(dtype, head dim, role) on the card. bf16 operands run all three roles on
+the tensor cores at every (padded) head dim ("wgmma": wgmma on bf16 tiles fed
+by TMA, `csrc/flash_wgmma.cuh`). float32 operands run dK/dV and dQ on the
+tensor cores at float32 accuracy ("tf32x3": every product as three TF32
+passes of mma.sync, `csrc/flash_tf32x3.cuh`) and the forward on the SIMT
+kernel ("simt", float32 FMAs, `csrc/flash_attention.cu`). Nothing catches a
+failed build or launch and tries another instance.
 """
 
 from __future__ import annotations
@@ -50,16 +51,22 @@ from . import _build
 
 NEG_INF = -1e30
 
-# head dims the Hopper kernels are instantiated for, on both routes; others
+# head dims the Hopper kernels are instantiated for, on every route; others
 # up to the last are zero-padded to the next one
 HEAD_DIMS = (32, 64, 128, 256)
+
+# the route of each role, by operand dtype, at every head dim
+ROUTES = {
+    torch.bfloat16: {"flash_fwd": "wgmma", "flash_dkdv": "wgmma", "flash_dq": "wgmma"},
+    torch.float32: {"flash_fwd": "simt", "flash_dkdv": "tf32x3", "flash_dq": "tf32x3"},
+}
 
 # launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one where it launches its kernel, and nowhere else. LAUNCHES counts by
 # role, ROUTE_LAUNCHES by role and route ("flash_fwd:wgmma", ...)
 LAUNCHES = {"flash_fwd": 0, "flash_dkdv": 0, "flash_dq": 0}
-ROUTE_LAUNCHES = {"flash_fwd:wgmma": 0, "flash_fwd:simt": 0, "flash_dkdv:wgmma": 0,
-                  "flash_dkdv:simt": 0, "flash_dq:wgmma": 0, "flash_dq:simt": 0}
+ROUTE_LAUNCHES = {f"{role}:{route}": 0 for role in LAUNCHES
+                  for route in sorted({r[role] for r in ROUTES.values()})}
 
 # How far the wgmma route's outputs (o in bf16 or float32, dK, dV, dQ) may
 # stand from the plain versions, which stay float32 throughout: entrywise
@@ -73,7 +80,7 @@ ROUTE_LAUNCHES = {"flash_fwd:wgmma": 0, "flash_fwd:simt": 0, "flash_dkdv:wgmma":
 # tails of many more entries at L 16384. tests/test_torch_flash_routes.py
 # holds the rounding alone to it on the CPU; chip_smoke.py holds the kernels
 # to it on the card and prints how much of the atol each check uses
-# (PERF.md). The SIMT route keeps its tolerance.
+# (PERF.md). The float32 routes (simt, tf32x3) keep the float32 tolerance.
 WGMMA_BF16_TOL = dict(rtol=2 ** -7, atol_frac=4e-3)
 
 # Block sizes measured on the H100, keyed like the reference's
@@ -85,24 +92,29 @@ H100_TUNED: dict = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "flash_fwd": ([_P] * 5 + [_I, _I, _I, _F, _I, _I, _I, _P], _I),
-    "flash_dkdv": ([_P] * 8 + [_I, _I, _I, _F, _I, _I, _P], _I),
-    "flash_dq": ([_P] * 7 + [_I, _I, _I, _F, _I, _I, _P], _I),
     "flash_fwd_wgmma": ([_P] * 5 + [_I, _I, _I, _F, _I, _I, _I, _P], _I),
     "flash_dkdv_wgmma": ([_P] * 8 + [_I, _I, _I, _F, _I, _I, _P], _I),
     "flash_dq_wgmma": ([_P] * 7 + [_I, _I, _I, _F, _I, _I, _P], _I),
+    "flash_dkdv_tf32x3": ([_P] * 8 + [_I, _I, _I, _F, _I, _I, _P], _I),
+    "flash_dq_tf32x3": ([_P] * 7 + [_I, _I, _I, _F, _I, _I, _P], _I),
     "flash_wgmma_smem_bytes": ([_I, _I], _I),
+    "flash_tf32x3_smem_bytes": ([_I, _I], _I),
     "flash_error_string": ([_I], ctypes.c_char_p),
 }
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the C side's DType
 
 
 def _kernel_tile(name: str, Dp: int, route: str) -> int:
     """Rows of the output tile one block of the instance that `name`
     launches owns at padded head dim Dp: its grid is ceil(L / this) blocks
-    high. The SIMT kernels' `tile_rows`; the wgmma kernels' 128 rows, but
-    64 keys for dK/dV at D 256 (`Shape<D>::kKvRows`)."""
+    high. The SIMT forward's `tile_rows`; the wgmma kernels' 128 rows, but
+    64 keys for dK/dV at D 256 (`Shape<D>::kKvRows`); the tf32x3 kernels'
+    128, but 64 keys for dK/dV from D 128 (`KvShape<D>::kKeys`) and 64 rows
+    for dQ at D 256 (`DqShape<D>::kRows`)."""
     if route == "simt":
         return 32 if Dp > 128 else 64
+    if route == "tf32x3":
+        return 64 if Dp > (64 if name == "flash_dkdv" else 128) else 128
     return 64 if name == "flash_dkdv" and Dp > 128 else 128
 
 
@@ -248,18 +260,19 @@ def _unpad(x, D: int):
     return x if x.shape[-1] == D else x[..., :D].contiguous()
 
 
-def kernel_route(dtype, D: int) -> str:
-    """The instance that serves the forward, dK/dV and dQ for `dtype`
-    operands at head dim D on the card: "wgmma" for bf16, "simt" for
-    float32, at every head dim. Raises for D above 256 and for a dtype with
-    no kernel."""
+def kernel_route(dtype, D: int, role: str) -> str:
+    """The instance that serves `role` ("flash_fwd", "flash_dkdv" or
+    "flash_dq") for `dtype` operands at head dim D on the card: "wgmma"
+    for every bf16 role; for float32, "simt" for the forward and "tf32x3"
+    for dK/dV and dQ; at every head dim (`ROUTES`).
+    Raises for D above 256 and for a dtype with no kernel."""
     kernel_head_dim(D)  # raises above 256
-    if dtype not in _DTYPE_CODES:
+    if dtype not in ROUTES:
         raise ValueError(
             f"dtype {dtype} has no Hopper kernel; supported dtypes are "
-            f"{tuple(_DTYPE_CODES)}"
+            f"{tuple(ROUTES)}"
         )
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+    return ROUTES[dtype][role]
 
 
 def _check_kernel_operands(name, q, *others):
@@ -267,7 +280,7 @@ def _check_kernel_operands(name, q, *others):
     the rest."""
     BH, L, D = q.shape
     try:
-        route = kernel_route(q.dtype, D)
+        route = kernel_route(q.dtype, D, name)
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
     Dp = kernel_head_dim(D)
@@ -281,10 +294,10 @@ def _check_kernel_operands(name, q, *others):
     return Dp, route
 
 
-def _check_tma_aligned(name, *ts):
+def _check_tma_aligned(name, route, *ts):
     # TMA reads tiles from 16-byte aligned addresses only
     if any(t.data_ptr() % 16 for t in ts):
-        raise ValueError(f"{name}: the wgmma route needs 16-byte aligned operands")
+        raise ValueError(f"{name}: the {route} route needs 16-byte aligned operands")
 
 
 def _count(name: str, route: str) -> None:
@@ -300,7 +313,7 @@ def _fwd_cuda(q, k, v, scale, causal, out_dtype=None):
         raise ValueError(f"flash_fwd: out_dtype {out_dtype} for {q.dtype} operands")
     q, k, v = (pad_head_dim(t, Dp) for t in (q, k, v))
     if route == "wgmma":
-        _check_tma_aligned("flash_fwd", q, k, v)
+        _check_tma_aligned("flash_fwd", route, q, k, v)
     o = torch.empty((BH, L, Dp), dtype=out_dtype, device=q.device)
     lse = torch.empty((BH, L, 1), dtype=torch.float32, device=q.device)
     _launch(
@@ -317,12 +330,11 @@ def _dkdv_cuda(q, k, v, do, lse, delta, scale, causal):
     BH, L, D = q.shape
     Dp, route = _check_kernel_operands("flash_dkdv", q, k, v, do, lse, delta)
     q, k, v, do = (pad_head_dim(t, Dp) for t in (q, k, v, do))
-    if route == "wgmma":
-        _check_tma_aligned("flash_dkdv", q, k, v, do)
+    _check_tma_aligned("flash_dkdv", route, q, k, v, do)
     dk = torch.empty_like(q)
     dv = torch.empty_like(q)
     _launch(
-        "flash_dkdv_wgmma" if route == "wgmma" else "flash_dkdv", q.device,
+        f"flash_dkdv_{route}", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         BH, L, Dp, float(scale), int(causal), _DTYPE_CODES[q.dtype],
@@ -335,11 +347,10 @@ def _dq_cuda(q, k, v, do, lse, delta, scale, causal):
     BH, L, D = q.shape
     Dp, route = _check_kernel_operands("flash_dq", q, k, v, do, lse, delta)
     q, k, v, do = (pad_head_dim(t, Dp) for t in (q, k, v, do))
-    if route == "wgmma":
-        _check_tma_aligned("flash_dq", q, k, v, do)
+    _check_tma_aligned("flash_dq", route, q, k, v, do)
     dq = torch.empty_like(q)
     _launch(
-        "flash_dq_wgmma" if route == "wgmma" else "flash_dq", q.device,
+        f"flash_dq_{route}", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         BH, L, Dp, float(scale), int(causal), _DTYPE_CODES[q.dtype],

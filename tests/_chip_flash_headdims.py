@@ -1,12 +1,19 @@
 """Time the flash kernels F, KV and Q of the package on PYTHONPATH at the
 shapes of `PERF.md`'s kernel table on one card, and print one line a case
-(`PROBE {...}`: the route each role took and its mean ms by CUDA events).
+(`PROBE {...}`: the route each role took, read from the package's
+`ROUTE_LAUNCHES`, and its mean ms by CUDA events).
 
 At L 1024, causal, the same work as the table's first row (B*H*D 8192):
 bf16 at D 32 (B*H 256), 128 (B*H 64) and 256 (B*H 32), float32 at D 128
-(B*H 64) and 32 (B*H 256). Only the kernel wrappers `_fwd_cuda`,
-`_dkdv_cuda` and `_dq_cuda` and `kernel_route` are called, so the script
-times any tree of the port, whichever route it gives a case.
+(B*H 64), 32 (B*H 256), 64 (B*H 128) and 256 (B*H 32). For each float32
+case one more line (`ACC {...}`) gives KV's and Q's error against the plain
+versions, as max|err| / max|plain| and the count of entries past the
+float32 tolerance (rtol 1e-4, atol 1e-5 of max|plain|), at B*H 8 on inputs
+drawn as the timed ones and on inputs whose heads are scaled by 1 to 4
+(logits up to 16 times as large). Only the kernel wrappers `_fwd_cuda`,
+`_dkdv_cuda` and `_dq_cuda`, the plain versions and the launch counts are
+called, so the script times any tree of the port, whichever route it gives
+a case.
 
 Run from the root of a tree, on a machine with a card:
     PYTHONPATH=. python3 tests/_chip_flash_headdims.py TAG [ITERS]
@@ -22,7 +29,8 @@ import sys
 import torch
 
 CASES = ((torch.bfloat16, 32, 256), (torch.bfloat16, 128, 64), (torch.bfloat16, 256, 32),
-         (torch.float32, 128, 64), (torch.float32, 32, 256))
+         (torch.float32, 128, 64), (torch.float32, 32, 256), (torch.float32, 64, 128),
+         (torch.float32, 256, 32))
 L = 1024
 
 
@@ -38,6 +46,35 @@ def time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def routes(fa, fn):
+    """{role: route} of the launches fn() makes."""
+    fa.reset_launch_counts()
+    fn()
+    return {key.split(":")[0]: key.split(":")[1] for key, n in fa.ROUTE_LAUNCHES.items() if n}
+
+
+def accuracy(fa, D, head_scales):
+    """KV's and Q's error against the plain versions at B*H 8, L 1024,
+    causal, float32: {output: (max|err| / max|plain|, entries past the
+    float32 tolerance)}."""
+    BH, blk = 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(D + head_scales)
+    hs = (torch.arange(BH, device="cuda", dtype=torch.float32) % head_scales + 1).view(BH, 1, 1)
+    q, k, v, do = (torch.randn((BH, L, D), device="cuda", generator=gen) * hs for _ in range(4))
+    scale = D ** -0.5
+    o, lse = fa._fwd_plain(q, k, v, scale, True, blk, blk)
+    delta = (do * o).sum(-1, keepdim=True)
+    got = dict(zip(("dk", "dv"), fa._dkdv_cuda(q, k, v, do, lse, delta, scale, True)))
+    got["dq"] = fa._dq_cuda(q, k, v, do, lse, delta, scale, True)
+    want = dict(zip(("dk", "dv"), fa._dkdv_plain(q, k, v, do, lse, delta, scale, True, blk, blk)))
+    want["dq"] = fa._dq_plain(q, k, v, do, lse, delta, scale, True, blk, blk)
+    out = {}
+    for name, w in want.items():
+        err, top = (got[name] - w).abs(), float(w.abs().max())
+        out[name] = (float(err.max()) / top, int((err > 1e-5 * top + 1e-4 * w.abs()).sum()))
+    return out
 
 
 def main(tag: str, iters: int = 20) -> None:
@@ -58,9 +95,16 @@ def main(tag: str, iters: int = 20) -> None:
             "flash_dq": lambda: fa._dq_cuda(q, k, v, do, lse, delta, scale, True),
         }
         ms = {name: time_ms(fn, iters) for name, fn in calls.items()}
+        route = {name: routes(fa, fn)[name] for name, fn in calls.items()}
         print("PROBE " + json.dumps({
             "tree": tag, "dtype": str(dtype)[6:], "D": D, "BH": BH, "L": L, "causal": True,
-            "route": fa.kernel_route(dtype, D), "ms": ms, "card": card}), flush=True)
+            "route": route, "ms": ms, "card": card}), flush=True)
+        del q, k, v, do, o, lse, delta
+        if dtype == torch.float32:
+            print("ACC " + json.dumps({
+                "tree": tag, "D": D, "route": route,
+                "err_over_max_and_count": {f"heads x1..{n}": accuracy(fa, D, n) for n in (1, 4)},
+                "card": card}), flush=True)
 
 
 if __name__ == "__main__":

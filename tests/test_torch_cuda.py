@@ -31,22 +31,24 @@ def _need_card():
     torch.backends.cudnn.allow_tf32 = False
 
 
-# On the SIMT route (float32 operands) kernel and plain version compute in
-# float32 in another order, and are held to _F32_TOL. The wgmma route (bf16
-# operands at every head dim) rounds P and dS to bf16 beside rounding its
-# bf16 outputs once, and is held to the tolerance declared with it,
-# `WGMMA_BF16_TOL`.
+# On the float32 routes (the SIMT forward; dK/dV and dQ as three TF32 passes
+# on the tensor cores, which keep float32 accuracy) kernel and plain version
+# compute in float32 in another order, and are held to _F32_TOL. The wgmma
+# route (bf16 operands at every head dim) rounds P and dS to bf16 beside
+# rounding its bf16 outputs once, and is held to the tolerance declared with
+# it, `WGMMA_BF16_TOL`.
 _F32_TOL = dict(rtol=1e-4, atol=1e-5)
 # float32 against the CPU path: the same arithmetic in another order on both
 # sides, the atol a share of the largest entry, as chip_smoke.py's F32_TOL
 _F32_ATOL_FRAC = 1e-5
 
 
-def _assert_close(got, want, dtype, D, msg=None):
-    """`got` against `want` at the tolerance of the route (dtype, D) takes."""
+def _assert_close(got, want, dtype, D, role, msg=None):
+    """`got` against `want` at the tolerance of the route that (dtype, D)
+    takes for `role`."""
     got, want = got.float(), want.float()
     top = float(want.abs().max())
-    if tfa.kernel_route(dtype, D) == "wgmma":
+    if tfa.kernel_route(dtype, D, role) == "wgmma":
         tol = dict(rtol=tfa.WGMMA_BF16_TOL["rtol"], atol=tfa.WGMMA_BF16_TOL["atol_frac"] * top)
     else:
         tol = _F32_TOL
@@ -74,9 +76,9 @@ def test_kernels_match_plain(dtype, D, causal):
     po32, _ = tfa._fwd_plain(q, k, v, scale, causal, blk, blk, out_dtype=torch.float32)
     torch.cuda.synchronize()
     assert o.dtype == dtype and o32.dtype == torch.float32
-    _assert_close(o, po, dtype, D=D)
-    if tfa.kernel_route(dtype, D) == "wgmma":
-        _assert_close(o32, po32, dtype, D=D)
+    _assert_close(o, po, dtype, D=D, role="flash_fwd")
+    if tfa.kernel_route(dtype, D, "flash_fwd") == "wgmma":
+        _assert_close(o32, po32, dtype, D=D, role="flash_fwd")
     else:
         torch.testing.assert_close(o32, po32, **_F32_TOL)
     torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
@@ -86,8 +88,9 @@ def test_kernels_match_plain(dtype, D, causal):
     dq = tfa._dq_cuda(q, k, v, do, plse, delta, scale, causal)
     pdq = tfa._dq_plain(q, k, v, do, plse, delta, scale, causal, blk, blk)
     torch.cuda.synchronize()
-    for name, got, want in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
-        _assert_close(got, want, dtype, msg=name, D=D)
+    for name, role, got, want in (("dq", "flash_dq", dq, pdq), ("dk", "flash_dkdv", dk, pdk),
+                                  ("dv", "flash_dkdv", dv, pdv)):
+        _assert_close(got, want, dtype, msg=name, D=D, role=role)
 
 
 @pytest.mark.cuda
@@ -102,7 +105,7 @@ def test_wgmma_routes_match_plain(D, causal, L, blk):
     swizzle), 64, 128, 256 (dK/dV split between the warpgroups), and 48 and
     200, zero-padded to 64 and 256. Every launch takes the wgmma route."""
     _need_card()
-    assert tfa.kernel_route(torch.bfloat16, D) == "wgmma"
+    assert all(tfa.kernel_route(torch.bfloat16, D, n) == "wgmma" for n in tfa.LAUNCHES)
     gen = torch.Generator(device="cuda").manual_seed(L + D)
     head_scale = torch.arange(1, 5, device="cuda", dtype=torch.float32).view(4, 1, 1)
     q, k, v, do = ((torch.randn((4, L, D), device="cuda", generator=gen) * head_scale)
@@ -120,9 +123,10 @@ def test_wgmma_routes_match_plain(D, causal, L, blk):
     pdq = tfa._dq_plain(q, k, v, do, plse, delta, scale, causal, blk, blk)
     torch.cuda.synchronize()
     assert o.dtype == torch.bfloat16 and o32.dtype == torch.float32
-    for name, got, want in (("o", o, po), ("o32", o32, po32), ("dk", dk, pdk), ("dv", dv, pdv),
-                            ("dq", dq, pdq)):
-        _assert_close(got, want, torch.bfloat16, msg=name, D=D)
+    for name, role, got, want in (("o", "flash_fwd", o, po), ("o32", "flash_fwd", o32, po32),
+                                  ("dk", "flash_dkdv", dk, pdk), ("dv", "flash_dkdv", dv, pdv),
+                                  ("dq", "flash_dq", dq, pdq)):
+        _assert_close(got, want, torch.bfloat16, msg=name, D=D, role=role)
     for got in (lse, lse32):
         torch.testing.assert_close(got, plse, rtol=1e-5, atol=1e-5)
     want = {name: 0 for name in tfa.ROUTE_LAUNCHES}
@@ -131,15 +135,19 @@ def test_wgmma_routes_match_plain(D, causal, L, blk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype, D, route", [
-    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 48, "wgmma"),
-    (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 256, "wgmma"), (torch.float32, 128, "simt"),
+@pytest.mark.parametrize("dtype, D, routes", [
+    (torch.bfloat16, 128, "wgmma wgmma wgmma"), (torch.bfloat16, 48, "wgmma wgmma wgmma"),
+    (torch.bfloat16, 32, "wgmma wgmma wgmma"), (torch.bfloat16, 256, "wgmma wgmma wgmma"),
+    (torch.float32, 32, "simt tf32x3 tf32x3"), (torch.float32, 64, "simt tf32x3 tf32x3"),
+    (torch.float32, 128, "simt tf32x3 tf32x3"), (torch.float32, 256, "simt tf32x3 tf32x3"),
 ])
-def test_route_counts_on_the_autograd_path(dtype, D, route):
+def test_route_counts_on_the_autograd_path(dtype, D, routes):
     """`flash_attention` forward and backward on CUDA tensors: one launch of
-    each role, on the route `kernel_route` names for (dtype, D)."""
+    each role, on the route `kernel_route` names for (dtype, D, role): F, KV
+    and Q in `routes`."""
     _need_card()
-    assert tfa.kernel_route(dtype, D) == route
+    fwd, kv, q_route = routes.split()
+    assert [tfa.kernel_route(dtype, D, n) for n in tfa.LAUNCHES] == [fwd, kv, q_route]
     gen = torch.Generator(device="cuda").manual_seed(D)
     q, k, v, do = (torch.randn((2, 256, 2, D), device="cuda", generator=gen).to(dtype)
                    for _ in range(4))
@@ -150,7 +158,7 @@ def test_route_counts_on_the_autograd_path(dtype, D, route):
     torch.cuda.synchronize()
     assert dict(tfa.LAUNCHES) == {"flash_fwd": 1, "flash_dkdv": 1, "flash_dq": 1}
     want = {name: 0 for name in tfa.ROUTE_LAUNCHES}
-    want.update({f"flash_fwd:{route}": 1, f"flash_dkdv:{route}": 1, f"flash_dq:{route}": 1})
+    want.update({f"flash_fwd:{fwd}": 1, f"flash_dkdv:{kv}": 1, f"flash_dq:{q_route}": 1})
     assert dict(tfa.ROUTE_LAUNCHES) == want
     assert all(bool(torch.isfinite(t.grad).all()) for t in ts)
 
@@ -191,12 +199,12 @@ def test_flash_attention_goes_through_the_kernels():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, D", [
     (torch.float32, 64), (torch.float32, 128), (torch.bfloat16, 64), (torch.bfloat16, 128),
-    (torch.bfloat16, 32), (torch.bfloat16, 256),
+    (torch.bfloat16, 32), (torch.bfloat16, 256), (torch.float32, 32), (torch.float32, 256),
 ])
 def test_kernels_are_bitwise_steady(dtype, D):
     """F, KV and Q on the same inputs three times give the same bits: none
     of them uses atomics or reads another block's output. float32 runs the
-    SIMT kernels, bf16 the wgmma ones."""
+    SIMT forward and the tf32x3 dK/dV and dQ, bf16 the wgmma kernels."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(D)
     q, k, v, do = (torch.randn((4, 1000, D), device="cuda", generator=gen).to(dtype)
@@ -212,11 +220,55 @@ def test_kernels_are_bitwise_steady(dtype, D):
         dq = tfa._dq_cuda(q, k, v, do, lse, delta, scale, True)
         runs.append((o, lse, dk, dv, dq))
     torch.cuda.synchronize()
-    route = tfa.kernel_route(dtype, D)
-    assert all(tfa.ROUTE_LAUNCHES[f"{n}:{route}"] == 3 for n in tfa.LAUNCHES)
+    route = {n: tfa.kernel_route(dtype, D, n) for n in tfa.LAUNCHES}
+    assert all(tfa.ROUTE_LAUNCHES[f"{n}:{route[n]}"] == 3 for n in tfa.LAUNCHES)
+    roles = ("flash_fwd", "flash_fwd", "flash_dkdv", "flash_dkdv", "flash_dq")
     for again in runs[1:]:
-        for name, a, b in zip(("o", "lse", "dk", "dv", "dq"), runs[0], again):
-            assert torch.equal(a, b), f"{name} ({route}) changed between runs"
+        for name, role, a, b in zip(("o", "lse", "dk", "dv", "dq"), roles, runs[0], again):
+            assert torch.equal(a, b), f"{name} ({route[role]}) changed between runs"
+
+
+def _f64_backward(q, k, v, do, lse, delta, scale, causal):
+    """dK, dV and dQ by the plain versions' arithmetic in float64, from the
+    same float32 lse and delta."""
+    L = q.shape[1]
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    s = q @ k.transpose(1, 2) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(L, L, dtype=torch.bool, device=q.device).triu(1), tfa.NEG_INF)
+    p = torch.exp(s - lse.double())
+    ds = p * (do @ v.transpose(1, 2) - delta.double())
+    return ds.transpose(1, 2) @ q * scale, p.transpose(1, 2) @ do, ds @ k * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tf32x3_as_exact_as_float32_on_large_logits(D, causal):
+    """Heads scaled by 1 to 4 (logits up to 16 times randn's): the float32
+    dK/dV and dQ kernels (three TF32 passes) stand no farther from a
+    float64 copy of the same arithmetic than twice the plain float32
+    versions do. There the plain versions' own error can pass the float32
+    tolerance, so they are no reference for it."""
+    _need_card()
+    assert [tfa.kernel_route(torch.float32, D, n) for n in ("flash_dkdv", "flash_dq")] == [
+        "tf32x3", "tf32x3"]
+    gen = torch.Generator(device="cuda").manual_seed(D + causal)
+    heads = (torch.arange(8, device="cuda", dtype=torch.float32) % 4 + 1).view(8, 1, 1)
+    q, k, v, do = (torch.randn((8, 1024, D), device="cuda", generator=gen) * heads
+                   for _ in range(4))
+    scale, blk = D ** -0.5, 128
+    o, lse = tfa._fwd_plain(q, k, v, scale, causal, blk, blk)
+    delta = (do * o).sum(-1, keepdim=True)
+    got = (*tfa._dkdv_cuda(q, k, v, do, lse, delta, scale, causal),
+           tfa._dq_cuda(q, k, v, do, lse, delta, scale, causal))
+    plain = (*tfa._dkdv_plain(q, k, v, do, lse, delta, scale, causal, blk, blk),
+             tfa._dq_plain(q, k, v, do, lse, delta, scale, causal, blk, blk))
+    exact = _f64_backward(q, k, v, do, lse, delta, scale, causal)
+    for name, g, pl, ex in zip(("dk", "dv", "dq"), got, plain, exact):
+        kernel_err = float((g.double() - ex).abs().max())
+        plain_err = float((pl.double() - ex).abs().max())
+        assert kernel_err <= 2 * plain_err, (name, kernel_err, plain_err)
 
 
 @pytest.mark.cuda
@@ -233,6 +285,21 @@ def test_wgmma_instances_fit_shared_memory():
             assert 0 < lib.flash_wgmma_smem_bytes(role, D) <= 232448, (role, D)
     assert lib.flash_wgmma_smem_bytes(0, 48) == -1
     assert lib.flash_wgmma_smem_bytes(3, 128) == -1
+
+
+@pytest.mark.cuda
+def test_tf32x3_instances_fit_shared_memory():
+    """Every tf32x3 instance (dK/dV, dQ) asks for at most the 232,448 bytes
+    of shared memory a block may use; the forward has none (-1)."""
+    _need_card()
+    from pytorch_distributed_example_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attention", tfa._SIGNATURES)
+    for D in tfa.HEAD_DIMS:
+        for role in (1, 2):
+            assert 0 < lib.flash_tf32x3_smem_bytes(role, D) <= 232448, (role, D)
+        assert lib.flash_tf32x3_smem_bytes(0, D) == -1
+    assert lib.flash_tf32x3_smem_bytes(1, 48) == -1
 
 
 @pytest.mark.cuda
@@ -489,8 +556,9 @@ def _sharded_first_step(device, experts):
 @pytest.mark.cuda
 @pytest.mark.parametrize("experts", [[], ["--n-experts", "4"]], ids=["dense", "moe"])
 def test_sharded_step_on_the_card_matches_the_cpu(experts):
-    """float32, TF32 off: the SIMT kernels on the card against the plain
-    versions on the CPU, the same arithmetic in another order. The first
+    """float32, TF32 off: the float32 kernels on the card (the SIMT forward,
+    the three-pass TF32 dK/dV and dQ) against the plain versions on the CPU,
+    the same arithmetic in another order. The first
     step's gradients to rtol 1e-4 and 1e-5 of their largest entry, three
     steps' losses to rtol 1e-5."""
     _need_card()
