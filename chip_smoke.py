@@ -17,17 +17,18 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    bf16, causal), plus a non-causal and a D=64 case; F also with float32
    output. `fa.kernel_route` names each kernel's instance by role: bf16
    takes the wgmma route at every head dim, held to its declared
-   tolerance; float32 the SIMT forward and the tf32x3 dK/dV and dQ (three
-   TF32 passes on the tensor cores), held to the float32 tolerance. Timed
+   tolerance; float32 the tf32x3 forward, dK/dV and dQ (three TF32 passes
+   on the tensor cores), held to the float32 tolerance. Timed
    by CUDA events beside the plain version, the bound (at the peak of
-   the route's instructions: bf16 wgmma, float32 FMAs, or TF32 mma.sync
-   over its three passes), and the library (timed here only; the port
+   the route's instructions: bf16 wgmma, or TF32 mma.sync over its three
+   passes, with the bound at the float32 FMA peak beside it), and the
+   library (timed here only; the port
    never calls it):
    for bf16 `scaled_dot_product_attention` for F and its flash backward
    for KV and Q together, for float32 the efficient backend's forward and
    backward (the flash backend refuses float32). Timed at the same work
    (B*H*D 8192, L 1024, causal): bf16 D 128, 32 (B*H 256) and 256 (B*H
-   32) on wgmma, float32 D 128, 32, 64 and 256 on the float32 routes.
+   32) on wgmma, float32 D 128, 32, 64 and 256 on the float32 route.
 4. kernels-long: F (bf16 and float32 output), KV and Q against their plain
    versions in the reference's streamed regime (B*H 16, L 16384, D 128,
    bf16, causal; L*D = 2.1M elements), timed as in phase 3 except that
@@ -35,11 +36,11 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    float32 output (ring attention's partials) at the same shape,
    non-causal; bf16 D 32 and 256 at L 512 and 1024, causal and full, D 96
    (padded to 128), all on the wgmma route, and float32 at D 32, 64, 128
-   and 256 (L 512, causal and full) on the float32 routes. Then float32
-   dK/dV and dQ on heads scaled by 1 to 4 (B*H 8, L 1024, every head dim,
-   causal and full) against a float64 copy of the same arithmetic: within
-   the float32 tolerance of it, and no farther from it than twice the plain
-   float32 version.
+   and 256 (L 512, causal and full) on the float32 route. Then the float32
+   forward (o and lse), dK/dV and dQ on heads scaled by 1 to 4 (B*H 8, L
+   1024, every head dim, causal and full) against a float64 copy of the
+   same arithmetic: within the float32 tolerance of it, and no farther
+   from it than twice the plain float32 version.
 5. reference: a small float32 TransformerLM on the card against the same
    weights on the CPU (the plain versions): logits, loss and grads; its
    launches on the card (head dim 128) must be one a layer of each role
@@ -60,7 +61,7 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    in [long]. F, KV and Q on the wgmma route, n_layers * 3 launches each;
    (b)'s step beside the slice's from the same run.
 6c. float32: the trainer at its own defaults without --bf16 (8 heads of
-   32, 4 layers), as the slice: F on the SIMT route, KV and Q on tf32x3,
+   32, 4 layers), as the slice: F, KV and Q on the tf32x3 route,
    n_layers * 3 launches each.
 7. ring: `make_cp_attention(4, mode="ring", causal=True)` (driver mode) over
    4 shards of 16384 tokens (B 1, H 16, D 128, bf16), forward and
@@ -68,8 +69,8 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    printed), each of which must launch exactly 4 each of F (float32
    output), KV and Q, all on the wgmma route; output and dQ/dK/dV
    against `flash_with_lse` over the whole 65536-token sequence on the
-   same kernels, timed the same way. Then a small float32 ring (the SIMT
-   forward, the tf32x3 dK/dV and dQ) against dense attention.
+   same kernels, timed the same way. Then a small float32 ring (the tf32x3
+   forward, dK/dV and dQ) against dense attention.
 8. long: the trainer at seq 16384, batch 1, at the same full width: the
    first-step check on a 2-layer model (flash against dense on the same
    weights), one warm-up step, 2 timed steps after which F, KV and Q
@@ -330,7 +331,7 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    lowering it replaces at D 128, once for each of its bf16 D 32 and D 256
    instances with [headdims]' launches, and once for each float32 instance
    at D 128 and 32 with [reference]'s and [float32]'s, with its design, "wgmma" or
-   "simt" or "tf32x3", and its launches per phase, `serve_fleet`, `cifar`, `bert`,
+   "tf32x3", and its launches per phase, `serve_fleet`, `cifar`, `bert`,
    `dryrun`, `ckpt`, `train_utils`, `multiproc` ((a)'s and (c)'s gang
    processes' counted launches, in the resident rows), `multiproc_ring`
    ((b)'s, in the streamed rows) and `planner` ((b)'s two profiled steps)
@@ -404,8 +405,10 @@ HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
 SMEM_PER_BLOCK = 232448  # the most shared memory a block may use on the H100
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # the peak rate of the instructions each kernel route does its products with:
-# bf16 wgmma; float32 FMAs on the CUDA cores; TF32 mma.sync at 495 TFLOP/s
-# dense, three passes to a float32-accurate product
+# bf16 wgmma; TF32 mma.sync at 495 TFLOP/s dense, three passes to a
+# float32-accurate product. "simt" is the float32 FMA peak of the CUDA
+# cores, which no route uses: `fma_bound` prints a tf32x3 kernel's bound at
+# it beside its own
 ROUTE_PEAK_FLOPS = {"wgmma": 989e12, "simt": 67e12, "tf32x3": 495e12 / 3}
 LONG_ARGV = ["--vocab-size", "32000", "--d-model", "2048", "--n-layers", "16",
              "--n-heads", "16", "--seq", "16384", "--batch-size", "1", "--bf16",
@@ -428,10 +431,10 @@ FSDP_TP_STEPS = 3  # checked steps, which warm up the timed ones
 # tp where the single card sums in one matmul
 SHARDED_LOSS_TOL, SHARDED_GRAD_RMS = 1e-2, 3e-2
 EP_WORLD, EP_EXPERTS = 4, 8
-SOURCE = "pytorch_distributed_example_tpu_torch/csrc/flash_attention.cu"
-WGMMA_SOURCE = "pytorch_distributed_example_tpu_torch/csrc/flash_wgmma.cuh"
-F32_SOURCES = {"simt": SOURCE,
-               "tf32x3": "pytorch_distributed_example_tpu_torch/csrc/flash_tf32x3.cuh"}
+# the file that holds each route's kernels (`csrc/flash_attention.cu` holds
+# their C interface)
+SOURCES = {"wgmma": "pytorch_distributed_example_tpu_torch/csrc/flash_wgmma.cuh",
+           "tf32x3": "pytorch_distributed_example_tpu_torch/csrc/flash_tf32x3.cuh"}
 PALLAS = "pytorch_distributed_example_tpu/ops/flash_attention.py"
 # Each Hopper kernel streams its counterpart tiles through shared memory at
 # every L, so it replaces both of the reference's lowerings: the resident
@@ -545,7 +548,7 @@ WGMMA_TOL = fa.WGMMA_BF16_TOL
 
 def tol_for(route):
     """The kernels' tolerance on a route: the declared one on wgmma (bf16
-    operands), the float32 one on SIMT and tf32x3 (float32 operands)."""
+    operands), the float32 one on tf32x3 (float32 operands)."""
     return WGMMA_TOL if route == "wgmma" else F32_TOL
 
 
@@ -756,14 +759,29 @@ def f64_backward(q, k, v, do, lse, delta, scale, causal):
     return ds.transpose(1, 2) @ q * scale, p.transpose(1, 2) @ do, ds @ k * scale
 
 
+def f64_forward(q, k, v, scale, causal):
+    """o and lse by the plain forward's arithmetic in float64 (q scaled
+    before q k^T), over the whole sequence at once."""
+    L = q.shape[1]
+    s = (q.double() * scale) @ k.double().transpose(1, 2)
+    if causal:
+        above = torch.ones(L, L, dtype=torch.bool, device=q.device).triu(1)
+        s = s.masked_fill(above, fa.NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    return p @ v.double() / l, m + torch.log(l)
+
+
 def f32_large_logit_check(D, causal, BH=8, L=1024):
-    """The float32 dK/dV and dQ kernels on heads scaled by 1 to 4 (logits up
-    to 16 times randn's), against a float64 copy of the same arithmetic:
-    each output within the float32 tolerance of the copy, and no farther
-    from it than twice the plain float32 version. On such logits the plain
-    version itself may lie past the float32 tolerance from the copy, so
-    the copy, not the plain version, is the reference here; how many
-    entries of each lie past it is printed."""
+    """The float32 kernels on heads scaled by 1 to 4 (logits up to 16 times
+    randn's), against a float64 copy of the same arithmetic: the forward's
+    o and lse, and dK/dV and dQ from the plain forward's lse, each within
+    the float32 tolerance of the copy, and no farther from it than twice
+    the plain float32 version. On such logits the plain version itself may
+    lie past the float32 tolerance from the copy, so the copy, not the
+    plain version, is the reference here; how many entries of each lie
+    past it is printed."""
     gen = torch.Generator(device="cuda").manual_seed(L + D + causal + 3)
     heads = (torch.arange(BH, device="cuda", dtype=torch.float32) % 4 + 1).view(BH, 1, 1)
     q, k, v, do = (torch.randn((BH, L, D), device="cuda", generator=gen) * heads
@@ -772,14 +790,16 @@ def f32_large_logit_check(D, causal, BH=8, L=1024):
     bq, bk = fa.resolved_block_sizes(L)
     o, lse = fa._fwd_plain(q, k, v, scale, causal, bq, bk)
     delta = (do * o).sum(-1, keepdim=True)
-    got = (*fa._dkdv_cuda(q, k, v, do, lse, delta, scale, causal),
+    got = (*fa._fwd_cuda(q, k, v, scale, causal),
+           *fa._dkdv_cuda(q, k, v, do, lse, delta, scale, causal),
            fa._dq_cuda(q, k, v, do, lse, delta, scale, causal))
-    plain = (*fa._dkdv_plain(q, k, v, do, lse, delta, scale, causal, bq, bk),
+    plain = (o, lse, *fa._dkdv_plain(q, k, v, do, lse, delta, scale, causal, bq, bk),
              fa._dq_plain(q, k, v, do, lse, delta, scale, causal, bq, bk))
-    exact = f64_backward(q, k, v, do, lse, delta, scale, causal)
-    routes = {n: fa.kernel_route(torch.float32, D, n) for n in ("flash_dkdv", "flash_dq")}
+    exact = (*f64_forward(q, k, v, scale, causal),
+             *f64_backward(q, k, v, do, lse, delta, scale, causal))
+    routes = {n: fa.kernel_route(torch.float32, D, n) for n in REPLACES}
     out, text = {}, []
-    for name, g, pl, ex in zip(("dk", "dv", "dq"), got, plain, exact):
+    for name, g, pl, ex in zip(("o", "lse", "dk", "dv", "dq"), got, plain, exact):
         top = float(ex.abs().max())
         allowed = F32_TOL["atol_frac"] * top + F32_TOL["rtol"] * ex.abs()
         errs = [(t.double() - ex).abs() for t in (g, pl)]
@@ -797,9 +817,9 @@ def f32_large_logit_check(D, causal, BH=8, L=1024):
     return out
 
 
-# the route of each role for float32 operands: the SIMT forward, dK/dV and
-# dQ as three TF32 passes on the tensor cores
-F32_ROUTES = {"flash_fwd": "simt", "flash_dkdv": "tf32x3", "flash_dq": "tf32x3"}
+# the route of each role for float32 operands: the forward, dK/dV and dQ as
+# three TF32 passes on the tensor cores
+F32_ROUTES = dict.fromkeys(REPLACES, "tf32x3")
 
 
 def want_routes(n, design="wgmma"):
@@ -1029,8 +1049,8 @@ def headdims_phase(card):
 
 
 # [float32]: the trainer at its own defaults without --bf16 (vocab 512, d 256,
-# 4 layers, 8 heads of 32, seq 256, batch 16): float32 operands, so the SIMT
-# forward and the tf32x3 dK/dV and dQ at head dim 32
+# 4 layers, 8 heads of 32, seq 256, batch 16): float32 operands, so the
+# tf32x3 forward, dK/dV and dQ at head dim 32
 FLOAT32_ARGV = []
 
 
@@ -6098,7 +6118,7 @@ def main():
     for D_ in HEADDIMS:
         results[f"resident D {D_}"] = kernel_checks(BH * D // D_, L, D_, causal=True, timed=True,
                                                     want_route="wgmma")
-    # float32, the SIMT forward and the tf32x3 dK/dV and dQ: CFG_1B's shape,
+    # float32, the tf32x3 forward, dK/dV and dQ: CFG_1B's shape,
     # the trainer's head dim and the other two instances
     for D_ in (D, 32, 64, 256):
         results[f"float32 D {D_}"] = kernel_checks(BH * D // D_, L, D_, causal=True, timed=True,
@@ -6252,14 +6272,14 @@ def main():
                         for ph in PHASES[regime] + ("serve_fleet", "cifar", "bert",
                                                     "train_utils", "elastic")}
             kernels.append({"name": name, "route": "cuda",
-                            "source": WGMMA_SOURCE if design == "wgmma" else SOURCE,
+                            "source": SOURCES[design],
                             "replaces": replaces, "regime": regime, "head_dim": 128,
                             "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
                             **results[regime][name]})
         # the same kernel's other bf16 instances, launched by [headdims]
         for D_ in HEADDIMS:
             n = phase_launches[f"headdims D {D_}"][f"{name}:wgmma"]
-            kernels.append({"name": name, "route": "cuda", "source": WGMMA_SOURCE,
+            kernels.append({"name": name, "route": "cuda", "source": SOURCES["wgmma"],
                             "replaces": lowerings["resident"], "regime": "resident",
                             "head_dim": D_, "launches": n, "launches_by_phase": {"headdims": n},
                             **results[f"resident D {D_}"][name]})
@@ -6268,7 +6288,7 @@ def main():
             design = F32_ROUTES[name]
             n = phase_launches[phase][f"{name}:{design}"]
             kernels.append({"name": name, "route": "cuda",
-                            "source": F32_SOURCES[design], "replaces": lowerings["resident"],
+                            "source": SOURCES[design], "replaces": lowerings["resident"],
                             "regime": "resident", "head_dim": D_, "dtype": "float32",
                             "launches": n, "launches_by_phase": {phase: n},
                             **results[f"float32 D {D_}"][name]})

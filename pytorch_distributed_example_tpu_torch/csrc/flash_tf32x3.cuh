@@ -1,8 +1,7 @@
-// Flash dK/dV and dQ for float32 operands at head dims 32, 64, 128 and 256,
-// on the tensor cores at float32 accuracy. Included by flash_attention.cu,
-// whose note says what bounds these kernels; ops/flash_attention.py routes
-// float32 dK/dV and dQ here ("tf32x3") and the float32 forward to the SIMT
-// kernel.
+// Flash forward, dK/dV and dQ for float32 operands at head dims 32, 64, 128
+// and 256, on the tensor cores at float32 accuracy. Included by
+// flash_attention.cu, whose note says what bounds these kernels;
+// ops/flash_attention.py routes every float32 role here ("tf32x3").
 //
 // Three TF32 passes. x = big + small, big = x rounded to nearest TF32 (the
 // top 19 bits, low 13 mantissa bits cleared) and small = x - big, exact in
@@ -27,7 +26,8 @@
 //   * A row-major (K-major) fragment, A[g][t], A[g+8][t], A[g][t+4],
 //     A[g+8][t+4] (g = lane / 4, t = lane % 4), and a K-major B fragment,
 //     B[n = g][k = t], B[g][t+4], are read from the tiles as they lie.
-//   * The accumulation products (dV += P^T dO, dK += dS^T Q, dQ += dS K)
+//   * The accumulation products (O += P V, dV += P^T dO, dK += dS^T Q,
+//     dQ += dS K)
 //     take their A operand from the score accumulator, whose thread holds
 //     columns 2t and 2t+1 of each 8-column block, where the A fragment wants
 //     columns t and t+4. The sum over k does not care about its order, so
@@ -39,21 +39,29 @@
 // which each of the fragment reads above hits 32 distinct banks.
 //
 // Roles. 4 or 8 warps, each owning 16 rows of the block's output tile (the
-// m16 of mma.sync). dQ holds its Q and dO rows resident and streams K and
-// V; dK/dV holds its K and V rows resident and streams Q, dO, lse and delta
-// through a ring of two stages. The loads are TMA's, behind full/empty
-// mbarriers: when every warp has released a stage, thread 0 (warp 0 in
-// dK/dV, whose lanes also copy lse and delta) issues the tile after next
-// into it, so the next stage is in flight while the warps compute. There
-// is no producer warp: 8 warps get 255 registers a thread, where 9 get 168
-// (a third warp on one of the SM's four register files) and a producer
-// warpgroup's setmaxnreg does not lift what ptxas allocates. The numerics
-// are the SIMT route's: the score product is scaled after it, with the
-// accurate expf; masked logits give p = 0; no atomics, and every sum runs
-// in a fixed order, so a result is bitwise the same from run to run.
+// m16 of mma.sync). The forward holds its Q rows resident and streams K and
+// V; dQ holds its Q and dO rows resident and streams K and V; dK/dV holds
+// its K and V rows resident and streams Q, dO, lse and delta through a ring
+// of two stages. The loads are TMA's, behind full/empty mbarriers: when
+// every warp has released a stage, thread 0 (warp 0 in dK/dV, whose lanes
+// also copy lse and delta) issues the tile after next into it, so the next
+// stage is in flight while the warps compute. There is no producer warp: 8
+// warps get 255 registers a thread, where 9 get 168 (a third warp on one of
+// the SM's four register files) and a producer warpgroup's setmaxnreg does
+// not lift what ptxas allocates. The numerics: every score product is
+// scaled after it (the forward's logits are the bits the backward
+// recomputes), with the accurate expf; masked logits are -1e30 and give p =
+// 0; the forward's online softmax keeps each row's max and sum in the
+// registers of the quad (four lanes) that holds the row, reduced over the
+// quad by two xor shuffles; no atomics, and every sum runs in a fixed
+// order, so a result is bitwise the same from run to run.
 //
-// Shapes (`DqShape`, `KvShape`), against 232,448 bytes of shared memory a
-// block and 255 registers a thread:
+// Shapes (`FwdShape`, `DqShape`, `KvShape`), against 232,448 bytes of
+// shared memory a block and 255 registers a thread:
+//   forward: 8 warps (128 rows) at every head dim, streaming 64 keys a
+//     stage at D 32 and 64, 32 at D 128 and 16 at D 256 (Q alone takes 128
+//     KiB there, beside O's 128 accumulators a thread); with no dO it holds
+//     twice dQ's rows at D 256.
 //   dQ: 8 warps (128 rows) up to D 128, streaming 64 keys a stage at D 32
 //     and 32 at D 64 and 128 (Q and dO take 128 KiB there; S, dP and their
 //     cross-term halves are 4 x kBlockK/2 floats a thread); at D 256, 4
@@ -95,9 +103,18 @@ using flash_wgmma::tma_load_3d;
 
 constexpr int kPanel = 32;  // floats of a TMA box row and a swizzled panel: 128 bytes
 constexpr int kStages = 2;  // ring depth of the streamed tiles
+constexpr float kNegInf = -1e30f;  // a masked logit
 // named barriers of the split dK/dV (0 is __syncthreads)
 constexpr int kBarPFull = flash_wgmma::kBarPFull;
 constexpr int kBarPEmpty = flash_wgmma::kBarPEmpty;
+
+template <int D>
+struct FwdShape {
+  static_assert(D == 32 || D == 64 || D == 128 || D == 256, "no tf32x3 instance for this head dim");
+  static constexpr int kWarps = 8;                                 // warps, 16 query rows each
+  static constexpr int kRows = 16 * kWarps;                        // query rows a block owns
+  static constexpr int kBlockK = D > 128 ? 16 : D > 64 ? 32 : 64;  // keys a stage
+};
 
 template <int D>
 struct DqShape {
@@ -313,6 +330,192 @@ __device__ __forceinline__ Frag2 load_b_perm(const unsigned char* tile, int row0
 // g + 8 (e / 2), column 2t + e % 2), in the permuted order
 __device__ __forceinline__ Frag4 acc_to_a(const float (&c)[4]) {
   return split4(c[0], c[2], c[1], c[3]);
+}
+
+// ---------------------------------------------------------------------------
+// The forward for one tile of query rows, an online softmax over the keys:
+//   S = Q K^T (* scale after the product), m = running row max,
+//   P = exp(S - m), l = l * exp(m_old - m) + rowsum(P), O = O * exp(m_old - m) + P V,
+//   o = O / l, lse = m + log l
+// ---------------------------------------------------------------------------
+
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  using S = FwdShape<D>;
+  return 1024                                         // alignment slack
+         + tile_bytes<D>(S::kRows)                    // q
+         + 2 * kStages * tile_bytes<D>(S::kBlockK)    // k, v ring
+         + 8 * (1 + 2 * kStages);                     // mbarriers
+}
+
+template <int D>
+__global__ void __launch_bounds__(FwdShape<D>::kWarps * 32, 1)
+flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o,
+                        float* __restrict__ lse, int L, float scale, int causal) {
+  using S = FwdShape<D>;
+  constexpr int kRows = S::kRows;
+  constexpr int kBlockK = S::kBlockK;
+  constexpr uint32_t kQBytes = tile_bytes<D>(kRows);
+  constexpr uint32_t kKVBytes = tile_bytes<D>(kBlockK);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = align_1024(raw);
+  const uint32_t sK = sQ + kQBytes;
+  const uint32_t sV = sK + kStages * kKVBytes;
+  const uint32_t bar_q = sV + kStages * kKVBytes;
+  const uint32_t bar_full = bar_q + 8;               // one per stage
+  const uint32_t bar_empty = bar_full + 8 * kStages;  // one per stage
+
+  const int bh = blockIdx.x;
+  // the last q-tiles see the most k-tiles under the causal mask: start them first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int kv_end = causal ? min(L, q0 + kRows) : L;
+  const int num_kv = (kv_end + kBlockK - 1) / kBlockK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  // k-tile t into its stage, completing on the stage's full barrier
+  auto load_kv = [&](int t) {
+    const int s = t % kStages;
+    mbar_arrive_expect_tx(bar_full + 8 * s, 2 * kKVBytes);
+    load_tile<D>(sK + s * kKVBytes, &tm_k, bar_full + 8 * s, kBlockK, t * kBlockK, bh);
+    load_tile<D>(sV + s * kKVBytes, &tm_v, bar_full + 8 * s, kBlockK, t * kBlockK, bh);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 32 * S::kWarps);
+    }
+    fence_barrier_init();
+    mbar_arrive_expect_tx(bar_q, kQBytes);
+    load_tile<D>(sQ, &tm_q, bar_q, kRows, q0, bh);
+    for (int t = 0; t < min(kStages, num_kv); ++t) load_kv(t);
+  }
+  __syncthreads();
+
+  const unsigned char* Qs = smem_raw + (sQ - raw);
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int row_lo = q0 + 16 * warp;  // first row of this warp
+  const int rows[2] = {row_lo + g, row_lo + g + 8};
+  // keys this warp's rows reach: a k-tile wholly above its diagonal would
+  // leave m, l and O as they are (p = 0, alpha = 1), and the warp only
+  // releases its stage
+  const int warp_end = causal ? min(kv_end, row_lo + 16) : kv_end;
+
+  // running max and sum of this thread's two rows, and their O columns
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+  zero(acc);
+
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < num_kv; ++t) {
+    const int s = t % kStages;
+    const int k0 = t * kBlockK;
+    mbar_wait(bar_full + 8 * s, (t / kStages) & 1);
+    if (k0 < warp_end) {  // uniform over the warp
+      const unsigned char* Ks = smem_raw + (sK + s * kKVBytes - raw);
+      const unsigned char* Vs = smem_raw + (sV + s * kKVBytes - raw);
+
+      // S = Q K^T for this warp's 16 rows and the stage's keys
+      float sc[kBlockK / 8][4], scx[kBlockK / 8][4];
+      zero(sc);
+      zero(scx);
+      const Kmaj z = kmaj_offsets();
+#pragma unroll 1
+      for (int p = 0; p < D / kPanel; ++p) {
+        const unsigned char* Qp = Qs + p * kRows * 128;
+        const unsigned char* Kp = Ks + p * kBlockK * 128;
+#pragma unroll
+        for (int q = 0; q < 4; q += 2) {
+          const Frag4 qa0 = load_a(Qp, 16 * warp, q, z), qa1 = load_a(Qp, 16 * warp, q + 1, z);
+#pragma unroll
+          for (int j = 0; j < kBlockK / 8; ++j)
+            mma3_score(sc[j], scx[j], qa0, load_b(Kp, 8 * j, q, z), qa1,
+                       load_b(Kp, 8 * j, q + 1, z));
+        }
+      }
+
+      // logits, -1e30 where the tile crosses the diagonal or L, and each
+      // row's max over the tile: this thread's columns, then its quad's
+      // (the four lanes that hold one row)
+      const bool edge = k0 + kBlockK > L || (causal && k0 + kBlockK - 1 > row_lo);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e / 2;
+          const int col = k0 + 8 * j + 2 * t4 + e % 2;
+          const bool live = !edge || (col < L && !(causal && col > rows[h]));
+          sc[j][e] = live ? (sc[j][e] + scx[j][e]) * scale : kNegInf;
+          mx[h] = fmaxf(mx[h], sc[j][e]);
+        }
+      float m_safe[2], alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        m_safe[h] = m_new <= kNegInf / 2 ? 0.f : m_new;
+        alpha[h] = expf(m[h] - m_new);  // both -1e30 -> 1, and O is 0
+        m[h] = m_new;
+      }
+
+      // P, its row sums (this thread's columns in order, then the quad's),
+      // and O rescaled
+      float ps[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = expf(sc[j][e] - m_safe[e / 2]);
+          ps[e / 2] += sc[j][e];
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 1);
+        ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 2);
+        l[h] = l[h] * alpha[h] + ps[h];
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e / 2];
+
+      // O += P V, K-steps over the stage's keys in the permuted order
+      Frag4 pa[kBlockK / 8];
+#pragma unroll
+      for (int j = 0; j < kBlockK / 8; ++j) pa[j] = acc_to_a(sc[j]);
+      const Perm zp = perm_offsets();
+      accumulate(acc, pa, [&](int j, int n) { return load_b_perm<kBlockK>(Vs, 8 * j, n, zp); });
+    }
+    // every warp is done with the stage: thread 0 refills it
+    mbar_arrive(bar_empty + 8 * s);
+    if (threadIdx.x == 0 && t + kStages < num_kv) {
+      mbar_wait(bar_empty + 8 * s, (t / kStages) & 1);
+      load_kv(t + kStages);
+    }
+    __syncwarp();
+  }
+
+  // o = O / l and lse = m + log l, l clamped at 1e-30; one lane of a quad
+  // writes its row's lse
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = rows[h];
+    if (row >= L) continue;
+    const float l_safe = fmaxf(l[h], 1e-30f);
+    float* orow = o + (static_cast<size_t>(bh) * L + row) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t4) =
+          make_float2(acc[n][2 * h] / l_safe, acc[n][2 * h + 1] / l_safe);
+    if (t4 == 0) lse[static_cast<size_t>(bh) * L + row] = m[h] + logf(l_safe);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -822,6 +1025,26 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int BH, int L, in
              elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
+                       int L, float scale, int causal, cudaStream_t stream) {
+  using S = FwdShape<D>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = make_map(&tq, q, BH, L, D, S::kRows)) != cudaSuccess) return err;
+  if ((err = make_map(&tk, k, BH, L, D, S::kBlockK)) != cudaSuccess) return err;
+  if ((err = make_map(&tv, v, BH, L, D, S::kBlockK)) != cudaSuccess) return err;
+  constexpr size_t smem = fwd_smem_bytes<D>();
+  auto kernel = flash_fwd_tf32x3_kernel<D>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (L + S::kRows - 1) / S::kRows);
+  kernel<<<grid, S::kWarps * 32, smem, stream>>>(tq, tk, tv, static_cast<float*>(o),
+                                                 static_cast<float*>(lse), L, scale, causal);
+  return cudaGetLastError();
 }
 
 template <int D>

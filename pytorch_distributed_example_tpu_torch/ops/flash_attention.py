@@ -32,11 +32,11 @@ gate, raises.
 Routes. `kernel_route` is the one rule that says which instance serves a
 (dtype, head dim, role) on the card. bf16 operands run all three roles on
 the tensor cores at every (padded) head dim ("wgmma": wgmma on bf16 tiles fed
-by TMA, `csrc/flash_wgmma.cuh`). float32 operands run dK/dV and dQ on the
+by TMA, `csrc/flash_wgmma.cuh`). float32 operands run all three roles on the
 tensor cores at float32 accuracy ("tf32x3": every product as three TF32
-passes of mma.sync, `csrc/flash_tf32x3.cuh`) and the forward on the SIMT
-kernel ("simt", float32 FMAs, `csrc/flash_attention.cu`). Nothing catches a
-failed build or launch and tries another instance.
+passes of mma.sync, `csrc/flash_tf32x3.cuh`). Nothing catches a failed build
+or launch and tries another instance. Both routes scale q k^T after the
+product, where the plain forward (as the Pallas kernel) scales q before it.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ HEAD_DIMS = (32, 64, 128, 256)
 # the route of each role, by operand dtype, at every head dim
 ROUTES = {
     torch.bfloat16: {"flash_fwd": "wgmma", "flash_dkdv": "wgmma", "flash_dq": "wgmma"},
-    torch.float32: {"flash_fwd": "simt", "flash_dkdv": "tf32x3", "flash_dq": "tf32x3"},
+    torch.float32: {"flash_fwd": "tf32x3", "flash_dkdv": "tf32x3", "flash_dq": "tf32x3"},
 }
 
 # launches of each kernel since the last reset_launch_counts(); a wrapper
@@ -72,15 +72,16 @@ ROUTE_LAUNCHES = {f"{role}:{route}": 0 for role in LAUNCHES
 # stand from the plain versions, which stay float32 throughout: entrywise
 # |got - want| <= rtol * |want| + atol_frac * max|want|. The route rounds P
 # (forward, dV) and dS (dK, dQ) to bf16 as wgmma operands, 2**-9 relative per
-# entry, on top of rounding a bf16 output once as the SIMT route does (which
-# rtol 2**-7 covers). One output entry sums many such rounded terms of both
-# signs, so its error is a share of the entry's spread, not of its value:
-# an entry near zero can be off by about 1e-3 of max|want|, past the SIMT
-# route's atol of 1e-3 * max. 4e-3 leaves room for that and for the longer
+# entry, on top of rounding a bf16 output once as the plain version does
+# (which rtol 2**-7 covers). One output entry sums many such rounded terms of
+# both signs, so its error is a share of the entry's spread, not of its
+# value: an entry near zero can be off by about 1e-3 of max|want|, past the
+# atol of 1e-3 * max that rounding a bf16 output alone needs (`BF16_TOL` in
+# chip_smoke.py). 4e-3 leaves room for that and for the longer
 # tails of many more entries at L 16384. tests/test_torch_flash_routes.py
 # holds the rounding alone to it on the CPU; chip_smoke.py holds the kernels
 # to it on the card and prints how much of the atol each check uses
-# (PERF.md). The float32 routes (simt, tf32x3) keep the float32 tolerance.
+# (PERF.md). The float32 route (tf32x3) keeps the float32 tolerance.
 WGMMA_BF16_TOL = dict(rtol=2 ** -7, atol_frac=4e-3)
 
 # Block sizes measured on the H100, keyed like the reference's
@@ -91,10 +92,10 @@ H100_TUNED: dict = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "flash_fwd": ([_P] * 5 + [_I, _I, _I, _F, _I, _I, _I, _P], _I),
     "flash_fwd_wgmma": ([_P] * 5 + [_I, _I, _I, _F, _I, _I, _I, _P], _I),
     "flash_dkdv_wgmma": ([_P] * 8 + [_I, _I, _I, _F, _I, _I, _P], _I),
     "flash_dq_wgmma": ([_P] * 7 + [_I, _I, _I, _F, _I, _I, _P], _I),
+    "flash_fwd_tf32x3": ([_P] * 5 + [_I, _I, _I, _F, _I, _I, _I, _P], _I),
     "flash_dkdv_tf32x3": ([_P] * 8 + [_I, _I, _I, _F, _I, _I, _P], _I),
     "flash_dq_tf32x3": ([_P] * 7 + [_I, _I, _I, _F, _I, _I, _P], _I),
     "flash_wgmma_smem_bytes": ([_I, _I], _I),
@@ -107,14 +108,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the C side's DType
 def _kernel_tile(name: str, Dp: int, route: str) -> int:
     """Rows of the output tile one block of the instance that `name`
     launches owns at padded head dim Dp: its grid is ceil(L / this) blocks
-    high. The SIMT forward's `tile_rows`; the wgmma kernels' 128 rows, but
-    64 keys for dK/dV at D 256 (`Shape<D>::kKvRows`); the tf32x3 kernels'
-    128, but 64 keys for dK/dV from D 128 (`KvShape<D>::kKeys`) and 64 rows
-    for dQ at D 256 (`DqShape<D>::kRows`)."""
-    if route == "simt":
-        return 32 if Dp > 128 else 64
-    if route == "tf32x3":
-        return 64 if Dp > (64 if name == "flash_dkdv" else 128) else 128
+    high. 128 rows, but on wgmma 64 keys for dK/dV at D 256
+    (`Shape<D>::kKvRows`), and on tf32x3 64 keys for dK/dV from D 128
+    (`KvShape<D>::kKeys`) and 64 rows for dQ at D 256 (`DqShape<D>::kRows`);
+    the tf32x3 forward owns 128 rows at every D (`FwdShape<D>::kRows`)."""
+    if route == "tf32x3" and name == "flash_dkdv":
+        return 64 if Dp > 64 else 128
+    if route == "tf32x3" and name == "flash_dq":
+        return 64 if Dp > 128 else 128
     return 64 if name == "flash_dkdv" and Dp > 128 else 128
 
 
@@ -263,8 +264,8 @@ def _unpad(x, D: int):
 def kernel_route(dtype, D: int, role: str) -> str:
     """The instance that serves `role` ("flash_fwd", "flash_dkdv" or
     "flash_dq") for `dtype` operands at head dim D on the card: "wgmma"
-    for every bf16 role; for float32, "simt" for the forward and "tf32x3"
-    for dK/dV and dQ; at every head dim (`ROUTES`).
+    for every bf16 role, "tf32x3" for every float32 role, at every head
+    dim (`ROUTES`).
     Raises for D above 256 and for a dtype with no kernel."""
     kernel_head_dim(D)  # raises above 256
     if dtype not in ROUTES:
@@ -312,12 +313,11 @@ def _fwd_cuda(q, k, v, scale, causal, out_dtype=None):
     if out_dtype not in (q.dtype, torch.float32):
         raise ValueError(f"flash_fwd: out_dtype {out_dtype} for {q.dtype} operands")
     q, k, v = (pad_head_dim(t, Dp) for t in (q, k, v))
-    if route == "wgmma":
-        _check_tma_aligned("flash_fwd", route, q, k, v)
+    _check_tma_aligned("flash_fwd", route, q, k, v)
     o = torch.empty((BH, L, Dp), dtype=out_dtype, device=q.device)
     lse = torch.empty((BH, L, 1), dtype=torch.float32, device=q.device)
     _launch(
-        "flash_fwd_wgmma" if route == "wgmma" else "flash_fwd", q.device,
+        f"flash_fwd_{route}", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         BH, L, Dp, float(scale), int(causal),
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[out_dtype],

@@ -6,14 +6,19 @@ shapes of `PERF.md`'s kernel table on one card, and print one line a case
 At L 1024, causal, the same work as the table's first row (B*H*D 8192):
 bf16 at D 32 (B*H 256), 128 (B*H 64) and 256 (B*H 32), float32 at D 128
 (B*H 64), 32 (B*H 256), 64 (B*H 128) and 256 (B*H 32). For each float32
-case one more line (`ACC {...}`) gives KV's and Q's error against the plain
-versions, as max|err| / max|plain| and the count of entries past the
-float32 tolerance (rtol 1e-4, atol 1e-5 of max|plain|), at B*H 8 on inputs
-drawn as the timed ones and on inputs whose heads are scaled by 1 to 4
-(logits up to 16 times as large). Only the kernel wrappers `_fwd_cuda`,
-`_dkdv_cuda` and `_dq_cuda`, the plain versions and the launch counts are
-called, so the script times any tree of the port, whichever route it gives
-a case.
+case one more line (`ACC {...}`) gives F's (o, lse), KV's and Q's error
+against the plain versions, as max|err| / max|plain| and the count of
+entries past the float32 tolerance (rtol 1e-4, atol 1e-5 of max|plain|;
+lse's rtol 1e-5, atol 1e-6), at B*H 8 on inputs drawn as the timed ones and
+on inputs whose heads are scaled by 1 to 4 (logits up to 16 times as
+large); and F's o and lse against a float64 copy of the plain forward
+(`o_f64`, `lse_f64`: the kernel's and the plain forward's max|err| /
+max|f64|, and the count of the kernel's entries past the float32 tolerance
+of the copy). Only the kernel wrappers `_fwd_cuda`, `_dkdv_cuda` and
+`_dq_cuda`, the plain versions and the launch counts are called, so the
+script times and checks any tree of the port, whichever route it gives a
+case: run this file from one tree with PYTHONPATH at the other's root to
+measure the other.
 
 Run from the root of a tree, on a machine with a card:
     PYTHONPATH=. python3 tests/_chip_flash_headdims.py TAG [ITERS]
@@ -55,10 +60,29 @@ def routes(fa, fn):
     return {key.split(":")[0]: key.split(":")[1] for key, n in fa.ROUTE_LAUNCHES.items() if n}
 
 
+def f64_forward(fa, q, k, v, scale):
+    """o and lse by the plain forward's arithmetic in float64, causal, over
+    the whole sequence at once."""
+    s = (q.double() * scale) @ k.double().transpose(1, 2)
+    s = s.masked_fill(torch.ones(L, L, dtype=torch.bool, device=q.device).triu(1), fa.NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    return p @ v.double() / l, m + torch.log(l)
+
+
+def past(err, want, rtol, atol_frac):
+    """Entries of err past rtol * |want| + atol_frac * max|want|."""
+    return int((err > atol_frac * float(want.abs().max()) + rtol * want.abs()).sum())
+
+
 def accuracy(fa, D, head_scales):
-    """KV's and Q's error against the plain versions at B*H 8, L 1024,
+    """F's, KV's and Q's error against the plain versions at B*H 8, L 1024,
     causal, float32: {output: (max|err| / max|plain|, entries past the
-    float32 tolerance)}."""
+    float32 tolerance)}, and F's against a float64 copy of the plain
+    forward: {"o_f64" / "lse_f64": (the kernel's max|err| / max|f64|, the
+    plain forward's, the kernel's entries past the float32 tolerance of
+    the copy)}."""
     BH, blk = 8, 128
     gen = torch.Generator(device="cuda").manual_seed(D + head_scales)
     hs = (torch.arange(BH, device="cuda", dtype=torch.float32) % head_scales + 1).view(BH, 1, 1)
@@ -66,14 +90,22 @@ def accuracy(fa, D, head_scales):
     scale = D ** -0.5
     o, lse = fa._fwd_plain(q, k, v, scale, True, blk, blk)
     delta = (do * o).sum(-1, keepdim=True)
-    got = dict(zip(("dk", "dv"), fa._dkdv_cuda(q, k, v, do, lse, delta, scale, True)))
+    got = dict(zip(("o", "lse"), fa._fwd_cuda(q, k, v, scale, True)))
+    got.update(zip(("dk", "dv"), fa._dkdv_cuda(q, k, v, do, lse, delta, scale, True)))
     got["dq"] = fa._dq_cuda(q, k, v, do, lse, delta, scale, True)
-    want = dict(zip(("dk", "dv"), fa._dkdv_plain(q, k, v, do, lse, delta, scale, True, blk, blk)))
+    want = {"o": o, "lse": lse}
+    want.update(zip(("dk", "dv"), fa._dkdv_plain(q, k, v, do, lse, delta, scale, True, blk, blk)))
     want["dq"] = fa._dq_plain(q, k, v, do, lse, delta, scale, True, blk, blk)
     out = {}
     for name, w in want.items():
         err, top = (got[name] - w).abs(), float(w.abs().max())
-        out[name] = (float(err.max()) / top, int((err > 1e-5 * top + 1e-4 * w.abs()).sum()))
+        tol = (1e-5, 1e-6) if name == "lse" else (1e-4, 1e-5)
+        out[name] = (float(err.max()) / top, past(err, w, *tol))
+    for name, e in zip(("o", "lse"), f64_forward(fa, q, k, v, scale)):
+        kerr, perr = ((t.double() - e).abs() for t in (got[name], want[name]))
+        top = float(e.abs().max())
+        out[f"{name}_f64"] = (float(kerr.max()) / top, float(perr.max()) / top,
+                              past(kerr, e, 1e-4, 1e-5))
     return out
 
 
@@ -98,7 +130,7 @@ def main(tag: str, iters: int = 20) -> None:
         route = {name: routes(fa, fn)[name] for name, fn in calls.items()}
         print("PROBE " + json.dumps({
             "tree": tag, "dtype": str(dtype)[6:], "D": D, "BH": BH, "L": L, "causal": True,
-            "route": route, "ms": ms, "card": card}), flush=True)
+            "route": route, "ms": ms, "card": card, "package": fa.__file__}), flush=True)
         del q, k, v, do, o, lse, delta
         if dtype == torch.float32:
             print("ACC " + json.dumps({

@@ -31,8 +31,8 @@ def _need_card():
     torch.backends.cudnn.allow_tf32 = False
 
 
-# On the float32 routes (the SIMT forward; dK/dV and dQ as three TF32 passes
-# on the tensor cores, which keep float32 accuracy) kernel and plain version
+# On the float32 route (the forward, dK/dV and dQ as three TF32 passes on the
+# tensor cores, which keep float32 accuracy) kernel and plain version
 # compute in float32 in another order, and are held to _F32_TOL. The wgmma
 # route (bf16 operands at every head dim) rounds P and dS to bf16 beside
 # rounding its bf16 outputs once, and is held to the tolerance declared with
@@ -138,8 +138,8 @@ def test_wgmma_routes_match_plain(D, causal, L, blk):
 @pytest.mark.parametrize("dtype, D, routes", [
     (torch.bfloat16, 128, "wgmma wgmma wgmma"), (torch.bfloat16, 48, "wgmma wgmma wgmma"),
     (torch.bfloat16, 32, "wgmma wgmma wgmma"), (torch.bfloat16, 256, "wgmma wgmma wgmma"),
-    (torch.float32, 32, "simt tf32x3 tf32x3"), (torch.float32, 64, "simt tf32x3 tf32x3"),
-    (torch.float32, 128, "simt tf32x3 tf32x3"), (torch.float32, 256, "simt tf32x3 tf32x3"),
+    (torch.float32, 32, "tf32x3 tf32x3 tf32x3"), (torch.float32, 64, "tf32x3 tf32x3 tf32x3"),
+    (torch.float32, 128, "tf32x3 tf32x3 tf32x3"), (torch.float32, 256, "tf32x3 tf32x3 tf32x3"),
 ])
 def test_route_counts_on_the_autograd_path(dtype, D, routes):
     """`flash_attention` forward and backward on CUDA tensors: one launch of
@@ -204,7 +204,7 @@ def test_flash_attention_goes_through_the_kernels():
 def test_kernels_are_bitwise_steady(dtype, D):
     """F, KV and Q on the same inputs three times give the same bits: none
     of them uses atomics or reads another block's output. float32 runs the
-    SIMT forward and the tf32x3 dK/dV and dQ, bf16 the wgmma kernels."""
+    tf32x3 kernels, bf16 the wgmma kernels."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(D)
     q, k, v, do = (torch.randn((4, 1000, D), device="cuda", generator=gen).to(dtype)
@@ -271,6 +271,46 @@ def test_tf32x3_as_exact_as_float32_on_large_logits(D, causal):
         assert kernel_err <= 2 * plain_err, (name, kernel_err, plain_err)
 
 
+def _f64_forward(q, k, v, scale, causal):
+    """o and lse by the plain forward's arithmetic in float64 (q scaled
+    before q k^T), over the whole sequence at once."""
+    L = q.shape[1]
+    s = (q.double() * scale) @ k.double().transpose(1, 2)
+    if causal:
+        s = s.masked_fill(torch.ones(L, L, dtype=torch.bool, device=q.device).triu(1), tfa.NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    return p @ v.double() / l, m + torch.log(l)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tf32x3_forward_as_exact_as_float32_on_large_logits(D, causal):
+    """Heads scaled by 1 to 4 (logits up to 16 times randn's): the float32
+    forward kernel's o and lse (three TF32 passes, S scaled after the
+    product) stand within the float32 tolerance of a float64 copy of the
+    plain forward, and no farther from it than twice the plain float32
+    forward does."""
+    _need_card()
+    assert tfa.kernel_route(torch.float32, D, "flash_fwd") == "tf32x3"
+    gen = torch.Generator(device="cuda").manual_seed(D + causal + 5)
+    heads = (torch.arange(8, device="cuda", dtype=torch.float32) % 4 + 1).view(8, 1, 1)
+    q, k, v = (torch.randn((8, 1024, D), device="cuda", generator=gen) * heads
+               for _ in range(3))
+    scale, blk = D ** -0.5, 128
+    got = tfa._fwd_cuda(q, k, v, scale, causal)
+    plain = tfa._fwd_plain(q, k, v, scale, causal, blk, blk)
+    exact = _f64_forward(q, k, v, scale, causal)
+    for name, g, pl, ex in zip(("o", "lse"), got, plain, exact):
+        err = (g.double() - ex).abs()
+        top = float(ex.abs().max())
+        past = int((err > _F32_ATOL_FRAC * top + _F32_TOL["rtol"] * ex.abs()).sum())
+        kernel_err, plain_err = float(err.max()), float((pl.double() - ex).abs().max())
+        assert past == 0 and kernel_err <= 2 * plain_err, (name, past, kernel_err, plain_err)
+
+
 @pytest.mark.cuda
 def test_wgmma_instances_fit_shared_memory():
     """Every wgmma instance asks for at most the 232,448 bytes of shared
@@ -289,17 +329,18 @@ def test_wgmma_instances_fit_shared_memory():
 
 @pytest.mark.cuda
 def test_tf32x3_instances_fit_shared_memory():
-    """Every tf32x3 instance (dK/dV, dQ) asks for at most the 232,448 bytes
-    of shared memory a block may use; the forward has none (-1)."""
+    """Every tf32x3 instance (the forward, dK/dV, dQ) asks for at most the
+    232,448 bytes of shared memory a block may use; a head dim or role
+    without an instance answers -1."""
     _need_card()
     from pytorch_distributed_example_tpu_torch.ops import _build
 
     lib = _build.load("flash_attention", tfa._SIGNATURES)
     for D in tfa.HEAD_DIMS:
-        for role in (1, 2):
+        for role in range(3):
             assert 0 < lib.flash_tf32x3_smem_bytes(role, D) <= 232448, (role, D)
-        assert lib.flash_tf32x3_smem_bytes(0, D) == -1
     assert lib.flash_tf32x3_smem_bytes(1, 48) == -1
+    assert lib.flash_tf32x3_smem_bytes(3, 128) == -1
 
 
 @pytest.mark.cuda
@@ -556,8 +597,8 @@ def _sharded_first_step(device, experts):
 @pytest.mark.cuda
 @pytest.mark.parametrize("experts", [[], ["--n-experts", "4"]], ids=["dense", "moe"])
 def test_sharded_step_on_the_card_matches_the_cpu(experts):
-    """float32, TF32 off: the float32 kernels on the card (the SIMT forward,
-    the three-pass TF32 dK/dV and dQ) against the plain versions on the CPU,
+    """float32, TF32 off: the float32 kernels on the card (the three-pass
+    TF32 forward, dK/dV and dQ) against the plain versions on the CPU,
     the same arithmetic in another order. The first
     step's gradients to rtol 1e-4 and 1e-5 of their largest entry, three
     steps' losses to rtol 1e-5."""
