@@ -96,11 +96,23 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    DistributedSampler and DataLoader: the loss must fall, and every rank's
    row of each all-gather must be the ranks' shards in rank order. Then
    `bench.bench_ddp_mnist` (16 warm-up steps, 3 windows of 64, the median
-   after the first) at world 1 and 8, steps_per_call 1 and 8, in samples/s
-   per card; one profiled step at each world (device busy share,
+   after the first) at world 1 with steps_per_call 1 and 8 and at world 8
+   with 8 ([bench] times world 8 at 1, at the bench's full depth), in
+   samples/s per card; one profiled step at each world (device busy share,
    launches, top kernels) and the host's ms inside c10d dispatch over an
    unprofiled step; and the example, `examples.mnist.main(["--epochs",
    "1"])` (world 8 on the card).
+10b. bench: the port's entry point as the reference's `bench.py` runs
+   it, `bench.main([])` with BENCH_BREAKDOWN=1: DDP-MNIST at world 8,
+   then the TransformerLM MFU step (vocab 32000, d 512, 8 layers, 8 heads
+   of 64, L 512, B 8, bf16, AdamW 1e-3). Its one JSON line must show a
+   rate above 0 on the "gpu" platform, 0 < mfu <= 1, the spec sheet's
+   989 TFLOP/s on the H100 SXM, F, KV and Q 8 times each a step on
+   wgmma (0 on tf32x3), hfu above 0, a breakdown with fwd < fwd_bwd and
+   no error, and a finite final loss under ln 32000. Then the MFU model's
+   first step with flash against dense on the same weights (|dloss| <=
+   1e-2), its step by CUDA events and one profiled step. Phase 3 times
+   the D 64 kernels at this step's shapes (B*H 64, L 512, causal).
 11. fsdp_tp: the trainer over an ("fsdp", "tp") mesh of 2 x 2 in driver
    mode on cuda:0 (`examples/lm.py` with --tp 2 at 4 ranks: fully_shard by
    the reference's transformer rules, the batch split over fsdp, AdamW on
@@ -219,8 +231,8 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    schedule (V 2: 8 stages of 1 block over pp 4) against the sequential
    forward (rms ratio <= 3e-2).
 17. ckpt: checkpoints, after `[dryrun]`. CFG_1B's single-card trainer
-   at 2 layers (`examples/lm.py` at the slice's width, f32 params, AdamW):
-   2 steps, `save_checkpoint` (~2.8 GB: seconds and GB/s of the device->host
+   at 1 layer (`examples/lm.py` at the slice's width, f32 params, AdamW):
+   2 steps, `save_checkpoint` (~2.2 GB: seconds and GB/s of the device->host
    copy, the npz write and the CRC + fsync, beside the free disk), step 3;
    a model and optimizer from another seed, `load_checkpoint` (CRC
    verify, npz read, host->device), and step 3 again: the loaded state
@@ -329,7 +341,8 @@ Phases (any failure raises, exits non-zero and prints no `ok` line):
    processes naming eqn #1.
 21. report: one JSON line of kernels (each Hopper kernel once per Pallas
    lowering it replaces at D 128, once for each of its bf16 D 32 and D 256
-   instances with [headdims]' launches, and once for each float32 instance
+   instances with [headdims]' launches, once for its bf16 D 64 instance
+   with [bench]'s, and once for each float32 instance
    at D 128 and 32 with [reference]'s and [float32]'s, with its design, "wgmma" or
    "tf32x3", and its launches per phase, `serve_fleet`, `cifar`, `bert`,
    `dryrun`, `ckpt`, `train_utils`, `multiproc` ((a)'s and (c)'s gang
@@ -873,6 +886,11 @@ def profile_step(step, step_ms):
         groups[group] = groups.get(group, 0.0) + ms
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"    {ms:9.3f} ms {ms / busy:6.1%}  {group}")
+    # the flash kernels' device time a launch inside the step, beside the
+    # CUDA-event means of back-to-back launches in [kernels]
+    for ms, n, key in rows:
+        if any(w in key for w in KERNEL_GROUPS[0][1]):
+            print(f"    flash {ms / n:.4f} ms a launch x{n}: {key[:90]}")
     print("  top kernels:")
     for ms, n, key in rows[:12]:
         print(f"    {ms:9.3f} ms {ms / busy:6.1%} x{n:<4d} {key[:100]}")
@@ -1703,7 +1721,8 @@ def mnist_phase(card):
     for world in (1, MNIST_WORLD):
         tdx.init_process_group(world_size=world)
         try:
-            for spc in (1, 8):
+            # world 8 at one step a call is [bench]'s headline, at the bench's full depth
+            for spc in (1, 8) if world == 1 else (8,):
                 r = bench.bench_ddp_mnist(batch_per_rank=MNIST_BATCH, steps_per_call=spc,
                                           **MNIST_BENCH)
                 mem = r["memory"]
@@ -1727,6 +1746,85 @@ def mnist_phase(card):
           "the MNIST example did not print its epoch line at world 8")
     check(all(math.isfinite(v) for v in trainer.losses), "non-finite loss in the example")
     torch.cuda.empty_cache()
+
+
+# [bench]: the port's entry point as the reference's `bench.py` runs it,
+# `bench.main([])` with BENCH_BREAKDOWN=1: DDP-MNIST at world 8, then the
+# TransformerLM MFU step (vocab 32000, d 512, 8 layers, 8 heads of 64, L 512,
+# B 8, bf16) on the bf16 D 64 wgmma kernels, F, KV and Q 8 times each a step
+BENCH_EVENT_STEPS = 10  # steps of the MFU model timed by CUDA events
+BENCH_SPEC_PEAK = {"NVIDIA H100 80GB HBM3": 989.0}  # the H100 SXM's dense bf16 TFLOP/s
+
+
+def bench_line(card, kind):
+    """`bench.main([])` with BENCH_BREAKDOWN=1, its printed line checked
+    against the one it returns and against what the card must show.
+    Returns the line."""
+    old = os.environ.get("BENCH_BREAKDOWN")
+    os.environ["BENCH_BREAKDOWN"] = "1"
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            line = bench.main([])
+    except SystemExit as e:
+        raise SmokeFailure(f"bench.main exited {e.code}: {buf.getvalue().strip()[-2000:]}")
+    finally:
+        if old is None:
+            del os.environ["BENCH_BREAKDOWN"]
+        else:
+            os.environ["BENCH_BREAKDOWN"] = old
+    printed = buf.getvalue().strip().splitlines()[-1]
+    print(f"  line: {printed}")
+    check(json.loads(printed) == line, "bench.main printed another line than it returned")
+    pc, bd = line["peak_calibration"], line.get("breakdown_ms", {})
+    print(f"  DDP-MNIST {line['value']} samples/s per card at world {line['world']} "
+          f"(vs_baseline {line['vs_baseline']}); MFU {line['mfu']} ({line['mfu_tflops']} "
+          f"TFLOP/s), hfu {line['hfu']}, step {line['step_ms']:.3f} ms, final loss "
+          f"{line['mfu_final_loss']:.4f}; peak {pc}; breakdown {bd}; tiles "
+          f"{line['flash_block_q']} x {line['flash_block_k']}; launches a step "
+          f"{line['flash_launches']}  [{kind}; {card}]")
+    check(line["value"] > 0 and line["platform"] == "gpu" and line["device_kind"] == kind,
+          f"bad DDP-MNIST part: value {line['value']}, platform {line['platform']}")
+    check(0 < line["mfu"] <= 1, f"mfu {line['mfu']} outside (0, 1]")
+    nominal = BENCH_SPEC_PEAK.get(card.split(",")[0].strip(), bench.peak_flops(kind) / 1e12)
+    check(pc["nominal_peak_tflops"] == nominal and "calibration_error" not in pc,
+          f"the peak's calibration {pc}, not the spec sheet's {nominal} TFLOP/s")
+    check(line["flash_launches"] == want_routes(bench.MFU_MODEL["n_layers"]),
+          f"the MFU step should launch F, KV and Q 8 times each on wgmma: "
+          f"{line['flash_launches']}")
+    check(line["hfu"] > 0, f"hfu {line['hfu']}")
+    check("breakdown_error" not in line and 0 < bd.get("fwd", 0) < bd.get("fwd_bwd", 0),
+          f"breakdown {bd}, error {line.get('breakdown_error')}")
+    check(math.isfinite(line["mfu_final_loss"]) and line["mfu_final_loss"] < math.log(32000),
+          f"MFU final loss {line['mfu_final_loss']}")
+    check(math.isfinite(line["final_loss"]), f"DDP-MNIST final loss {line['final_loss']}")
+    return line
+
+
+def bench_phase(card, kind):
+    """The bench's line (`bench_line`); the MFU model's first step with
+    flash against dense on the same weights; its step by CUDA events and
+    one profiled step. Returns the launches of `bench.main([])`."""
+    fa.reset_launch_counts()
+    line = bench_line(card, kind)
+    launches = dict(fa.ROUTE_LAUNCHES)
+    print(f"  launches in bench.main: {launches}")
+    check(all(launches[f"{name}:wgmma"] > 0 for name in REPLACES),
+          f"bench.main launched a kernel no time: {launches}")
+    model, opt, tokens = bench.mfu_setup("cuda")
+    first_step_check(model, tokens)
+
+    def step():
+        return lm.train_step(model, opt, tokens)
+
+    step()
+    event_ms = timed_events(step, BENCH_EVENT_STEPS)
+    print(f"  MFU step by CUDA events: {event_ms:.3f} ms (mean of {BENCH_EVENT_STEPS}); "
+          f"the line's host-clock step {line['step_ms']:.3f} ms  [{card}]")
+    profile_step(step, event_ms)
+    del model, opt
+    torch.cuda.empty_cache()
+    return launches
 
 
 def rel_rms(got, want):
@@ -3654,15 +3752,15 @@ def same_state(a, b):
     return True
 
 
-# both checkpoints at CFG_1B's width and 2 layers (16 until [elastic], 8
+# both checkpoints at CFG_1B's width and 1 layer (16 until [elastic], 8
 # until the float32 large-logit checks, 4 until the whole run neared its
-# time limit): the disk's writes dominate the phase
-CKPT_ARGV = SLICE_ARGV + ["--n-layers", "2"]
-CKPT_SHARDED_ARGV = FSDP_TP_ARGV + ["--n-layers", "2"]
+# time limit, 2 until [bench]): the disk's writes dominate the phase
+CKPT_ARGV = SLICE_ARGV + ["--n-layers", "1"]
+CKPT_SHARDED_ARGV = FSDP_TP_ARGV + ["--n-layers", "1"]
 
 
 def sharded_ckpt(card):
-    """CFG_1B's width at 2 layers over fsdp 2 x tp 2 after one step: `dcp_save` (each rank's
+    """CFG_1B's width at 1 layer over fsdp 2 x tp 2 after one step: `dcp_save` (each rank's
     shard its own entry); `dcp_load` into the same layout, bitwise, and a
     step from that restored state against the live step, bitwise; 4 -> 1
     into `resharded_template`'s single-card layout, bitwise
@@ -6113,6 +6211,9 @@ def main():
     results["resident"] = kernel_checks(BH, L, D, causal=True, timed=True)
     kernel_checks(BH, L, D, causal=False, timed=False)
     kernel_checks(BH, L, 64, causal=True, timed=False)
+    # bf16 D 64 at the MFU step's shapes ([bench]: B 8 x 8 heads, L 512)
+    results["resident D 64"] = kernel_checks(64, 512, 64, causal=True, timed=True, B=8,
+                                             want_route="wgmma")
     # the other bf16 instances at the same work (B*H*D 8192): the trainer's
     # default head dim and the largest
     for D_ in HEADDIMS:
@@ -6194,6 +6295,12 @@ def main():
     print("[mnist]")
     mnist_phase(card)
     print(f"  mnist in {time.perf_counter() - t0:.1f} s")
+
+    # 10b. the entry point: bench.py's one-line report, its MFU phase on D 64
+    t0 = time.perf_counter()
+    print("[bench]")
+    phase_launches["bench"] = bench_phase(card, kind)
+    print(f"  bench in {time.perf_counter() - t0:.1f} s")
 
     # 11. sharded training: fsdp 2 x tp 2, dense and MoE
     t0 = time.perf_counter()
@@ -6283,6 +6390,12 @@ def main():
                             "replaces": lowerings["resident"], "regime": "resident",
                             "head_dim": D_, "launches": n, "launches_by_phase": {"headdims": n},
                             **results[f"resident D {D_}"][name]})
+        # its bf16 D 64 instance, launched by [bench]'s MFU phase
+        n = phase_launches["bench"][f"{name}:wgmma"]
+        kernels.append({"name": name, "route": "cuda", "source": SOURCES["wgmma"],
+                        "replaces": lowerings["resident"], "regime": "resident",
+                        "head_dim": 64, "launches": n, "launches_by_phase": {"bench": n},
+                        **results["resident D 64"][name]})
         # its float32 instances: D 128 launched by [reference], D 32 by [float32]
         for D_, phase in ((128, "reference"), (32, "float32")):
             design = F32_ROUTES[name]

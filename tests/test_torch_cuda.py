@@ -626,6 +626,27 @@ def test_sharded_step_launches_each_kernel_once_a_layer():
     assert all(tfa.ROUTE_LAUNCHES[f"{n}:wgmma"] == args.n_layers for n in tfa.LAUNCHES)
 
 
+@pytest.mark.cuda
+def test_mfu_step_runs_the_d64_kernels_and_matches_dense():
+    """One step of the bench's MFU model (the reference's `_bench_mfu`
+    configuration: 8 layers, 8 heads of 64, L 512, B 8, bf16) launches F, KV
+    and Q 8 times each on wgmma, and its loss is within 1e-2 of the
+    `use_flash=False` step's from the same weights."""
+    from pytorch_distributed_example_tpu_torch import bench
+
+    _need_card()
+    model, opt, tokens = bench.mfu_setup("cuda")
+    dense, dense_opt, _ = bench.mfu_setup("cuda", model_overrides={"use_flash": False})
+    dense.load_state_dict(model.state_dict())
+    tfa.reset_launch_counts()
+    loss = float(lm.train_step(model, opt, tokens))
+    n = model.cfg.n_layers
+    assert dict(tfa.ROUTE_LAUNCHES) == {k: n if k.endswith(":wgmma") else 0
+                                        for k in tfa.ROUTE_LAUNCHES}
+    dense_loss = float(lm.train_step(dense, dense_opt, tokens))
+    assert np.isfinite(loss) and abs(loss - dense_loss) <= 1e-2, (loss, dense_loss)
+
+
 
 # -- serving: the decode path, generate() and the engine on the card ----------
 
