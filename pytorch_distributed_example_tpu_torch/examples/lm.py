@@ -42,6 +42,7 @@ from .. import distributed as dist
 from ..mesh import DeviceMesh, init_device_mesh
 from ..models import TransformerConfig, TransformerLM, transformer_sharding_rules
 from ..parallel.fsdp import FSDPModule, fully_shard
+from ..utils import spans
 
 
 def batches(data: np.ndarray, batch: int, seq: int, seed: int):
@@ -105,7 +106,12 @@ def config_for(args) -> TransformerConfig:
 
 
 def loss_fn(logits, tokens):
-    """Mean next-token cross-entropy, as optax's integer-label form."""
+    """Mean next-token cross-entropy, as optax's integer-label form (the
+    span recorder's `loss` region)."""
+    return spans.region("loss", _cross_entropy, logits, tokens)
+
+
+def _cross_entropy(logits, tokens):
     V = logits.shape[-1]
     return F.cross_entropy(logits[:, :-1].reshape(-1, V), tokens[:, 1:].reshape(-1))
 
@@ -123,14 +129,24 @@ def make_optimizer(model, lr: float) -> torch.optim.AdamW:
 
 def train_step(model, opt, tokens) -> torch.Tensor:
     """One step; returns the loss (on the model's device, not synchronised).
-    `model` is a TransformerLM, or the FSDPModule of `build` at W > 1."""
-    if isinstance(model, FSDPModule):
-        _, _, loss = model.step(model.params, opt, tokens, tokens)
-        return loss
-    opt.zero_grad(set_to_none=True)
-    loss = loss_fn(model(tokens), tokens)
-    loss.backward()
-    opt.step()
+    `model` is a TransformerLM, or the FSDPModule of `build` at W > 1.
+
+    The span recorder (`utils/spans.py`) sees the step as the phase `step`;
+    on one card it holds `forward` (model and loss), `backward` and
+    `optimizer` (zero_grad, then the update)."""
+    dev = tokens.device
+    with spans.phase("step", dev):
+        if isinstance(model, FSDPModule):
+            _, _, loss = model.step(model.params, opt, tokens, tokens)
+            return loss
+        with spans.phase("optimizer", dev):
+            opt.zero_grad(set_to_none=True)
+        with spans.phase("forward", dev):
+            loss = loss_fn(model(tokens), tokens)
+        with spans.phase("backward", dev):
+            loss.backward()
+        with spans.phase("optimizer", dev):
+            opt.step()
     return loss.detach()
 
 

@@ -11,6 +11,13 @@ weight are cast to the compute dtype and `F.linear` forms the product. The
 weights are `Linear`-shaped, (out, in); `models/convert.py` carries the
 reference's (in, out) kernels across.
 
+The single-card forward's pieces are regions of the span recorder
+(`utils/spans.py`): `embed`, `norm`, `cast` and `gemm` (each `Dense`),
+`rope`, `gqa_copy`, `attention`, `swiglu` and `loss` (the logits' float32
+cast). Off, as by default, a region is its function after one flag check;
+under a `torch.profiler` profile or `spans.recording()` it records its
+device time, forward and backward.
+
 `n_experts > 0` switches every MLP to the top-k MoE (`MoE`, routing in
 `parallel/expert_parallel.py`) over all B*L tokens; its load-balance loss
 is kept on the module as `aux` (the reference sows it, and its trainer's
@@ -47,6 +54,7 @@ from ..ops import (dense_attention, flash_attention, gather_paged_kv, quantize_k
 from ..ops.flash_attention import NEG_INF
 from ..nn import functional as nnf
 from ..plan import traced as _traced
+from ..utils import spans
 from ..parallel.expert_parallel import moe_mlp
 
 
@@ -94,7 +102,11 @@ class Dense(nn.Linear):
         self.compute_dtype = dtype
 
     def forward(self, x):
-        return F.linear(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
+        x, w = spans.region("cast", self._cast, x, self.weight)
+        return spans.region("gemm", F.linear, x, w)
+
+    def _cast(self, x, w):
+        return x.to(self.compute_dtype), w.to(self.compute_dtype)
 
 
 class RMSNorm(nn.Module):
@@ -104,11 +116,14 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, device=device))
 
     def forward(self, x):
+        return spans.region("norm", self._norm, x, self.weight)
+
+    def _norm(self, x, weight):
         x32 = x.float()
         var = (x32 * x32).mean(-1, keepdim=True)
         y = x32 * torch.rsqrt(var + self.eps)
         # scale in float32, then cast back
-        return (y * self.weight).to(x.dtype)
+        return (y * weight).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, max_len: int, theta: float, device=None):
@@ -182,16 +197,16 @@ class Attention(nn.Module):
                 return self._decode_paged(q, k, v, cos, sin, scale, cache, positions,
                                           block_tables)
             return self._decode(q, k, v, cos, sin, scale, cache, positions)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        q = spans.region("rope", apply_rope, q, cos, sin)
+        k = spans.region("rope", apply_rope, k, cos, sin)
         if KV != H:  # GQA: each kv head serves H/KV consecutive query heads
-            k = torch.repeat_interleave(k, H // KV, dim=2)
-            v = torch.repeat_interleave(v, H // KV, dim=2)
-        if cfg.use_flash and _flash_ok(L, Dh):
-            o = flash_attention(q, k, v, causal=cfg.causal, scale=scale)
-        else:
-            o = dense_attention(q, k, v, causal=cfg.causal, scale=scale)
-        return self.o_proj(o.reshape(B, L, H * Dh))
+            k, v = spans.region("gqa_copy", lambda k, v: (
+                torch.repeat_interleave(k, H // KV, dim=2),
+                torch.repeat_interleave(v, H // KV, dim=2)), k, v)
+        attend = flash_attention if cfg.use_flash and _flash_ok(L, Dh) else dense_attention
+        o = spans.region("attention", lambda q, k, v: attend(
+            q, k, v, causal=cfg.causal, scale=scale).reshape(B, L, H * Dh), q, k, v)
+        return self.o_proj(o)
 
     def _decode(self, q, k, v, cos, sin, scale, cache, positions=None):
         """The dense KV-cache step (reference :153-263). `cache` holds k, v
@@ -304,7 +319,11 @@ class MLP(nn.Module):
         self.down_proj = Dense(f, d, cfg.dtype, device)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return self.down_proj(spans.region("swiglu", _swiglu, self.gate_proj(x), self.up_proj(x)))
+
+
+def _swiglu(g, u):
+    return F.silu(g) * u
 
 
 class MoE(nn.Module):
@@ -422,7 +441,7 @@ class TransformerLM(nn.Module):
                                  "or serve.cache.init_paged_cache")
         elif cache is not None or positions is not None or block_tables is not None:
             raise ValueError("cache, positions and block_tables apply with decode=True")
-        x = self.tok_embed(tokens).to(cfg.dtype)
+        x = spans.region("embed", self._embed, tokens, self.tok_embed.weight)
         cos, sin = rope_freqs(cfg.head_dim, cfg.max_seq_len if decode else tokens.shape[1],
                               cfg.rope_theta, device=tokens.device)
         for i, layer in enumerate(self.layers):
@@ -433,7 +452,10 @@ class TransformerLM(nn.Module):
             else:
                 x = layer(x, cos, sin)
         x = self.final_norm(x)
-        return self.lm_head(x).float()
+        return spans.region("loss", torch.Tensor.float, self.lm_head(x))
+
+    def _embed(self, tokens, weight):
+        return F.embedding(tokens, weight).to(self.cfg.dtype)
 
     def sharded_forward(self, params, tokens, mesh, fsdp_axis: str = "fsdp",
                         tp_axis: str = "tp"):
